@@ -1,0 +1,19 @@
+"""gravinv3dhmc_tpu_torch — the PyTorch/CUDA port of gravinv3dhmc_tpu.
+
+A second package beside the JAX one, mirroring its layout (``mesher/``,
+``utils/``, ``ops/``, ``inversion/``, ``diagnostics.py``). It imports
+torch, numpy and scipy and never jax or ``gravinv3dhmc_tpu``: the host
+numpy layers it needs are copied in, and the Pallas TPU kernels on its
+path are CUDA C++ kernels written for Hopper (``csrc/``), built with nvcc
+at first use. The JAX package stays the reference the tests hold this one
+against.
+
+This first slice covers the uniformgrid main path: prism mesh, f64 prism
+gz matrix, sensitivity weighting, the MS/Damping potential under the
+'mandatory' clamp, and fixed-dt shared-L HMC through the fused leapfrog
+kernels.
+"""
+
+__version__ = "0.1.0"
+
+from . import constants  # noqa: F401

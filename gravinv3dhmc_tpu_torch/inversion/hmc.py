@@ -1,0 +1,442 @@
+"""Fixed-dt Hamiltonian Monte Carlo over a chain batch, in PyTorch.
+
+Counterpart of ``gravinv3dhmc_tpu/inversion/hmc.py`` for the uniformgrid
+slice: :func:`make_chunk_sampler` with the shared-L, fused-trajectory and
+fused-iteration paths and the 'accepted', 'chain' and 'none' storage
+modes, and :class:`HamiltonianMC` whose ``sample()`` runs the fixed-dt
+loop. The reference semantics carried over are listed in the JAX module's
+docstring (Sigma-scaled identity kinetic, 'mandatory' clamp-and-negate,
+carried (U, g) between iterations, Metropolis on the full Hamiltonian).
+
+Randomness. One trajectory length L per iteration, shared by all chains,
+is drawn on the host from a CPU ``torch.Generator`` seeded by (seed,
+chunk), so a chunk's draws depend only on its index, as in the JAX
+package. Momentum normals and accept uniforms come from Philox keyed by
+(salt of the seed, global iteration, chain, element) — inside the CUDA
+kernels on the fused path, in plain torch elsewhere, with identical bits
+(see ``ops/philox.py``). A *draw source* ``draws(chunk_idx, i) ->
+(L, n01, u)`` replaces all three; the parity tests feed the JAX
+sampler's own draws through it.
+
+Not ported yet: the per-chain masked-L scan, the per-step fused
+kernel, Welford moments and step-size/mass adaptation, checkpoints, SPMD
+meshes and sample files. Where the JAX package has a switch for one of
+them, setting it raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import philox
+from ..ops.leapfrog import LANE, make_fused_iteration, make_fused_trajectory
+
+def _unported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, {item})")
+
+
+def _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax):
+    """The chunk's trajectory lengths from a CPU generator keyed by
+    (seed, chunk)."""
+    k0, k1 = philox.salt_from_seed((int(seed) << 32) + int(chunk_idx))
+    gen = torch.Generator().manual_seed(((k1 << 32) | k0) & ((1 << 63) - 1))
+    return torch.randint(Lmin, Lmax + 1, (chunk_size,), generator=gen).tolist()
+
+
+def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
+                       constraint, alpha, chunk_size, nsamples, ndraws,
+                       wdiag_inv, data_size, dtype=torch.float32,
+                       shared_L=False, fused_trajectory=None,
+                       fused_iteration=None, store_mode="accepted",
+                       store_thin=1, draws=None, device="cpu"):
+    """Build ``run_chunk(carry, seed, chunk_idx, params=None, dt=...,
+    inv_mass=None, store_base=0) -> (carry, stats)``.
+
+    ``carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)`` as in the
+    JAX package; the sample buffers are updated in place. ``stats`` is the
+    (chunk_size, C, 5) block [accept, U, u_data, u_model, L]. ``draws``
+    is an optional draw source (see the module docstring).
+    """
+    if store_mode not in ("accepted", "chain", "none"):
+        raise ValueError(f"unknown store_mode {store_mode!r}")
+    if constraint != "mandatory":
+        raise _unported(f"the {constraint!r} constraint", "item 8")
+    if not shared_L:
+        raise _unported("the per-chain masked-L scan", "item 8")
+    device = torch.device(device)
+    dt_default = float(dt)
+    sigma = float(np.float32(Sigma))
+    low_t = torch.as_tensor(np.asarray(low), dtype=dtype, device=device)
+    high_t = torch.as_tensor(np.asarray(high), dtype=dtype, device=device)
+    alpha_c = float(np.float32(alpha))
+    wdiag_inv = torch.as_tensor(np.asarray(wdiag_inv), dtype=dtype,
+                                device=device)
+    total = nsamples + ndraws
+    pot_raw = potential_fn.fn
+
+    def make_rows(x, U, u_data, u_model):
+        model_size = x.shape[-1]
+        m_rows = x * wdiag_inv  # unweighted model, reference units
+        u_norm_d = u_data / data_size
+        u_norm_m = u_model / model_size
+        k_rows = torch.stack([
+            U, u_data, u_model, u_norm_d + alpha_c * u_norm_m, u_norm_d,
+            u_norm_m, torch.full_like(U, alpha_c)], dim=-1)
+        return m_rows, k_rows
+
+    def finish(x, U, g, u_data, u_model, accept, L, rel, nacc, buf_m,
+               buf_k):
+        """Sample storage, accept counting and the stats row (x may carry
+        lane pads past the model's width)."""
+        xm = x[:, :buf_m.shape[-1]]
+        if store_mode == "accepted":
+            # reference parity: each chain writes its own accepted-count
+            # row; a gather/select/scatter keeps the host out of it
+            store = accept & (nacc >= ndraws) & (nacc < total)
+            idx = torch.clamp(nacc - ndraws, 0, nsamples - 1).long()
+            chain_ix = torch.arange(x.shape[0], device=x.device)
+            m_rows, k_rows = make_rows(xm, U, u_data, u_model)
+            buf_m[chain_ix, idx] = torch.where(store[:, None], m_rows,
+                                               buf_m[chain_ix, idx])
+            buf_k[chain_ix, idx] = torch.where(store[:, None], k_rows,
+                                               buf_k[chain_ix, idx])
+        elif store_mode == "chain":
+            # every store_thin-th post-accept state at a shared slot
+            span = ndraws + nsamples * store_thin
+            if ndraws <= rel < span and (rel - ndraws) % store_thin == 0:
+                slot = min((rel - ndraws) // store_thin, nsamples - 1)
+                m_rows, k_rows = make_rows(xm, U, u_data, u_model)
+                buf_m[:, slot] = m_rows
+                buf_k[:, slot] = k_rows
+        nacc = nacc + accept.to(nacc.dtype)
+        stats = torch.stack([accept.to(dtype), U, u_data, u_model,
+                             torch.full_like(U, float(L))], dim=-1)
+        return (x, U, g, u_data, u_model, nacc, buf_m, buf_k), stats
+
+    def one_iteration(carry, L, n01, u, salt, git, dt, inv_mass, params,
+                      rel):
+        x, U, g, u_data, u_model, nacc, buf_m, buf_k = carry
+        C, M = x.shape
+        if fused_iteration is not None:
+            # the whole iteration through the fused kernels
+            x, U, g, u_data, u_model, accf = fused_iteration(
+                x, U, g, u_data, u_model, (salt, git), L, dt, alpha_c,
+                inv_mass=inv_mass, n01=n01, u=u)
+            return finish(x, U, g, u_data, u_model, accf > 0.5, L, rel,
+                          nacc, buf_m, buf_k)
+        if n01 is None:
+            n01 = philox.momentum_normals(salt, git, C, -(-M // LANE) * LANE,
+                                          x.device)[:, :M]
+        if u is None:
+            u = philox.accept_uniforms(salt, git, C, x.device)
+        n01 = torch.as_tensor(n01, dtype=dtype, device=x.device)
+        u = torch.as_tensor(u, dtype=dtype, device=x.device)
+        if inv_mass is None:
+            # reference kinetic: K = p.p/2 with p ~ N(0, Sigma^2)
+            p0 = n01 * sigma
+            K0 = 0.5 * (p0 * p0).sum(-1)
+        else:
+            p0 = n01 / torch.sqrt(inv_mass)
+            K0 = 0.5 * (inv_mass * p0 * p0).sum(-1)
+        H0 = K0 + U
+        p = p0 - (0.5 * dt) * g
+        if fused_trajectory is not None:
+            x_new, p_new, g_new, U_new, ud_new, um_new = fused_trajectory(
+                x, p, L, dt, alpha_c, inv_mass=inv_mass)
+        else:
+            xs, ps, U_new, g_new = x, p, U, g
+            ud_new, um_new = u_data, u_model
+            for _ in range(L):
+                xs = xs + dt * (ps if inv_mass is None else inv_mass * ps)
+                hit = (xs > high_t) | (xs < low_t)
+                xs = torch.minimum(torch.maximum(xs, low_t), high_t)
+                ps = torch.where(hit, -ps, ps)
+                U_new, g_new, (_, ud_new, um_new) = pot_raw(xs, alpha_c,
+                                                            params)
+                ps = ps - dt * g_new
+            # full kicks everywhere; restore the trailing half kick
+            x_new, p_new = xs, ps + (0.5 * dt) * g_new
+        if inv_mass is None:
+            K_new = 0.5 * (p_new * p_new).sum(-1)
+        else:
+            K_new = 0.5 * (inv_mass * p_new * p_new).sum(-1)
+        H_new = K_new + U_new
+        accept = (H_new < H0) | (u < torch.exp(-(H_new - H0)))
+        acc_col = accept[:, None]
+        return finish(torch.where(acc_col, x_new, x),
+                      torch.where(accept, U_new, U),
+                      torch.where(acc_col, g_new, g),
+                      torch.where(accept, ud_new, u_data),
+                      torch.where(accept, um_new, u_model),
+                      accept, L, rel, nacc, buf_m, buf_k)
+
+    def run_chunk(carry, seed, chunk_idx, params=None, dt=dt_default,
+                  inv_mass=None, store_base=0):
+        params = potential_fn.params if params is None else params
+        dt = float(np.float32(dt))
+        if inv_mass is not None:
+            inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=device)
+        salt = philox.salt_from_seed(seed)
+        Ls = (None if draws is not None else
+              _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax))
+        M = carry[0].shape[1]
+        if fused_iteration is not None:
+            # the fused op's carry stays lane-padded (zero pads) for the
+            # whole chunk: no padding or slicing per iteration
+            pad = (0, fused_iteration.Mp - M)
+            carry = (F.pad(carry[0], pad), carry[1], F.pad(carry[2], pad),
+                     *carry[3:])
+        stats = []
+        for i in range(chunk_size):
+            if draws is not None:
+                L, n01, u = draws(chunk_idx, i)
+            else:
+                L, n01, u = Ls[i], None, None
+            if n01 is not None:
+                n01 = torch.as_tensor(np.array(n01), dtype=dtype,
+                                      device=device)
+                u = torch.as_tensor(np.array(u), dtype=dtype, device=device)
+            carry, st = one_iteration(
+                carry, int(L), n01, u, salt, chunk_idx * chunk_size + i, dt,
+                inv_mass, params, store_base + i)
+            stats.append(st)
+        if fused_iteration is not None:
+            carry = (carry[0][:, :M], carry[1], carry[2][:, :M], *carry[3:])
+        return carry, torch.stack(stats)
+
+    return run_chunk
+
+
+class HamiltonianMC:
+    """Chain ensemble sampler with the reference's run semantics.
+
+    Attributes mirror the JAX class; ``device`` says where the chains
+    live. ``use_fused`` runs the fused leapfrog kernels (the whole
+    iteration if ``prefer_iteration_kernel``, else the trajectory), which
+    on a CUDA device are the CUDA kernels of ``csrc/leapfrog.cu``.
+    """
+
+    def __init__(self, model):
+        self.model = model
+        self.dt = None
+        self.Lrange = [10, 50]
+        self.Sigma = 1.0
+        self.seed = 0
+        self.myrank = 0
+        self.constraint = "mandatory"
+        self.log_factor = 1000.0
+        self.RegulFactor = 1.0
+        self.regularization = "Damping"
+        self.beta = 0.01
+        self.nchains = 1
+        self.chunk_size = 64
+        self.dtype = torch.float32
+        self.device = torch.device("cpu")
+        self.verbose = True
+        #: sample files are not ported; True raises
+        self.write_files = False
+        self.adapt_step_size = False
+        self.adapt_mass = False
+        self.shared_L = False
+        self.use_fused = False
+        #: storage type of the kernel matrix in the fused kernels
+        #: (None = bfloat16, the JAX default)
+        self.fused_matvec_dtype = None
+        self.prefer_iteration_kernel = True
+        self._fused_mode = "off"
+        self.store_mode = "accepted"
+        self.store_thin = 1
+        self.temperature = 1.0
+        self.jacobian = False
+        self.spmd_mesh = None
+        self.low = None
+        self.high = None
+        self.initial_model = None
+        self.aprior_model = None
+        self.dobs = None
+
+    def _build_fused(self):
+        """The fused op this configuration runs: ``(trajectory,
+        iteration)`` with one of them set."""
+        if (self.constraint != "mandatory"
+                or self.regularization not in ("MS", "Damping")
+                or self.jacobian or float(self.temperature) != 1.0):
+            raise ValueError("the fused kernels support the 'mandatory' "
+                             "constraint, MS/Damping and temperature 1")
+        mv = self.fused_matvec_dtype or torch.bfloat16
+        gfix = (np.asarray(self.model.grav_fix)
+                if getattr(self.model, "fixed", False) else None)
+        fargs = (np.asarray(self.model.Aw),
+                 np.asarray(self.dobs) - np.mean(self.dobs), gfix,
+                 self.aprior_model, self.model.wdiag * self.model.wdiag,
+                 self.low, self.high)
+        fkw = dict(regularization=self.regularization, beta=self.beta,
+                   matvec_dtype=mv, device=self.device)
+        name = str(mv).replace("torch.", "")
+        if self.prefer_iteration_kernel:
+            self._fused_mode = f"iteration({name})"
+            return None, make_fused_iteration(*fargs, Sigma=self.Sigma,
+                                              **fkw)
+        self._fused_mode = f"trajectory({name})"
+        return make_fused_trajectory(*fargs, **fkw), None
+
+    def prepare(self, nsamples, ndraws, draws=None):
+        """``(run_chunk, carry)``: the chunk runner that :meth:`sample`
+        drives and the carry it starts from (the initial model with its
+        potential and gradient, zeroed counts and sample buffers). Timing
+        or profiling single chunks starts here too."""
+        if self.adapt_step_size or self.adapt_mass:
+            raise _unported("step-size and mass adaptation", "item 3")
+        if self.spmd_mesh is not None:
+            raise _unported("SPMD meshes", "item 13")
+        if self.write_files:
+            raise _unported("sample files (write_files=True)", "item 3")
+        C = self.nchains
+        M = self.initial_model.shape[0]
+        dtype = self.dtype
+        device = torch.device(self.device)
+        potential_fn = self.model.make_potential(
+            self.aprior_model, self.low, self.high,
+            constraint=self.constraint, log_factor=self.log_factor,
+            regularization=self.regularization, beta=self.beta, dtype=dtype,
+            jacobian=self.jacobian, temperature=float(self.temperature),
+            device=device)
+        fused_traj, fused_iter = (self._build_fused() if self.use_fused
+                                  else (None, None))
+        run_chunk = make_chunk_sampler(
+            potential_fn, dt=self.dt, Lmin=self.Lrange[0],
+            Lmax=self.Lrange[1], Sigma=self.Sigma, low=self.low,
+            high=self.high, constraint=self.constraint,
+            alpha=self.RegulFactor, chunk_size=self.chunk_size,
+            nsamples=nsamples, ndraws=ndraws,
+            wdiag_inv=self.model.wdiag_inv, data_size=self.dobs.shape[0],
+            dtype=dtype,
+            shared_L=self.shared_L or self.use_fused,
+            fused_trajectory=fused_traj, fused_iteration=fused_iter,
+            store_mode=self.store_mode, store_thin=self.store_thin,
+            draws=draws, device=device)
+
+        x0 = np.broadcast_to(np.asarray(self.initial_model, np.float64),
+                             (C, M)).copy()
+        x = torch.as_tensor(x0, dtype=dtype, device=device)
+        U, g, (_, u_data, u_model) = potential_fn(x, self.RegulFactor)
+        carry = (x, U, g, u_data, u_model,
+                 torch.zeros(C, dtype=torch.int32, device=device),
+                 torch.zeros((C, nsamples, M), dtype=dtype, device=device),
+                 torch.zeros((C, nsamples, 7), dtype=dtype, device=device))
+        return run_chunk, carry
+
+    def sample(self, nsamples, ndraws, max_chunks=None, checkpoint_path=None,
+               draws=None):
+        """Run until every chain has stored ``nsamples`` samples after
+        ``ndraws`` warm-up ones (counted in accepted states, or in
+        iterations under ``store_mode='chain'``).
+
+        Returns a dict like the JAX package's; ``samples`` and ``misfits``
+        are the sample buffers as tensors on ``device``, and the ESS is
+        computed there (:func:`~gravinv3dhmc_tpu_torch.diagnostics.ess_torch`).
+        ``draws`` is an optional draw source (see the module docstring).
+        """
+        if checkpoint_path is not None:
+            raise _unported("checkpoints", "item 14")
+        run_chunk, carry = self.prepare(nsamples, ndraws, draws=draws)
+        C = self.nchains
+        M = self.initial_model.shape[0]
+        total = nsamples + ndraws
+        device = torch.device(self.device)
+        chain_mode = self.store_mode == "chain"
+        chain_span = ndraws + nsamples * self.store_thin
+        data_size = self.dobs.shape[0]
+        alpha = self.RegulFactor
+        seed = self.seed + self.myrank
+        if max_chunks is None:
+            max_chunks = max(200, 100 * total // self.chunk_size + 10)
+
+        t0 = time.time()
+        n_chunks = attempted = grad_evals = store_iters = 0
+        acc_min = acc_sum = 0
+
+        def storage_done():
+            return (store_iters >= chain_span) if chain_mode \
+                else (acc_min >= total)
+
+        while not storage_done():
+            if n_chunks >= max_chunks:
+                print(f"WARNING: stopping after {n_chunks} chunks with "
+                      f"min accepted count {acc_min}")
+                break
+            carry, stats = run_chunk(carry, seed, n_chunks,
+                                     store_base=store_iters)
+            reduced = torch.stack([
+                torch.isfinite(stats).all().to(torch.float64),
+                stats[..., 4].sum(dtype=torch.float64),
+                carry[5].min().to(torch.float64),
+                carry[5].sum(dtype=torch.float64),
+                stats[-1, 0, 2].to(torch.float64),
+                stats[-1, 0, 3].to(torch.float64)]).tolist()
+            finite, ge, amin, asum, ud_l, um_l = reduced
+            if not finite:
+                bad = torch.nonzero(
+                    ~torch.isfinite(stats[..., 1]).all(dim=0)).flatten()
+                raise FloatingPointError(
+                    f"non-finite potential in chains {bad.tolist()} at "
+                    f"chunk {n_chunks} (dt={self.dt}, Sigma={self.Sigma}); "
+                    "reduce the step size or check the kernel matrix.")
+            acc_min, acc_sum = int(amin), int(asum)
+            n_chunks += 1
+            attempted += self.chunk_size * C
+            grad_evals += int(ge)
+            store_iters += self.chunk_size
+            if self.verbose:
+                frac = (min(store_iters / chain_span, 1.0) if chain_mode
+                        else min(acc_min / total, 1.0))
+                print("chain {}: {:.2%}, misfit(total, data, alpha, model)="
+                      "({:.7f},{:.7f},{:.2f},{:.7f}) -- accept ratio {:.2%}"
+                      .format(self.myrank, frac,
+                              ud_l / data_size + alpha * um_l / M,
+                              ud_l / data_size, alpha, um_l / M,
+                              acc_sum / attempted),
+                      flush=True)
+        elapsed = time.time() - t0
+
+        accepted = carry[5].cpu().numpy().astype(np.int64)
+        if chain_mode:
+            done_iters = max(store_iters - ndraws, 0)
+            n_stored = np.full(
+                C, min((done_iters + self.store_thin - 1)
+                       // self.store_thin, nsamples), dtype=np.int64)
+        else:
+            n_stored = np.minimum(np.maximum(accepted - ndraws, 0),
+                                  nsamples)
+        n_common = int(n_stored.min())
+        ess_median = ess_per_s = None
+        if n_common >= 8:
+            from ..diagnostics import ess_torch
+            sub = np.random.RandomState(0).choice(M, size=min(M, 128),
+                                                  replace=False)
+            ess = ess_torch(carry[6][:, :n_common,
+                                     torch.as_tensor(sub, device=device)])
+            ess_median = float(torch.median(ess))
+            ess_per_s = ess_median / max(elapsed, 1e-9)
+        return {
+            "samples": carry[6],
+            "misfits": carry[7],
+            "n_stored": n_stored,
+            "folders": [],
+            "accepted": accepted.tolist(),
+            "attempted": attempted,
+            "accept_ratio": float(accepted.sum()) / max(attempted, 1),
+            "elapsed_s": elapsed,
+            "grad_evals": grad_evals,
+            "grad_evals_per_s": grad_evals / max(elapsed, 1e-9),
+            "step_size": float(self.dt),
+            "adapted_mass": False,
+            "inv_mass": None,
+            "ess_median": ess_median,
+            "ess_per_s_median": ess_per_s,
+            "fused_mode": self._fused_mode,
+        }

@@ -1,0 +1,193 @@
+"""Misfit/gradient provider for cartesian gravity, in PyTorch.
+
+Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py`` for the
+uniformgrid slice: ``sensitivity_weighting``, :class:`GravMagModule` for
+``coordinate="cartesian", field="gravity"`` (with the frozen-cell
+``grav_fix`` correction) and ``make_potential`` for the 'mandatory'
+constraint with the MS or Damping regularizer at temperature 1.
+
+The JAX package differentiates a scalar potential with
+``jax.value_and_grad``; here the gradient is written out. With
+``r = (d - mean d) - dobs_c`` and ``d = A mw + fix`` the data term
+``sum r^2`` has gradient ``2 A^T (r - mean r)`` (the transpose of the
+mean-removal projector), and the regularizer gradients are
+``2 dm`` (Damping) and ``wm_sq * 2 beta dm / (dm^2 + beta)^2`` (MS).
+
+Every other option raises ``NotImplementedError`` naming the ROADMAP.md
+item that brings it.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import mesher
+from ..ops import prism
+
+
+def sensitivity_weighting(A, weightfactor=0.5):
+    """Depth weighting from column energies (numpy, f64).
+
+    Returns (Aw, wdiag, wdiag_inv): ``wdiag_j = (sum_i A_ij^2)^wf`` and
+    ``Aw = A / wdiag`` with zero columns left unscaled
+    (reference: inversion/potential.py:232-264, minus its zero-column bug).
+    """
+    col_sq = np.einsum("ij,ij->j", A, A)
+    wdiag = np.power(col_sq, weightfactor)
+    wdiag_inv = np.where(wdiag == 0, 0.0, 1.0 / np.where(wdiag == 0, 1.0, wdiag))
+    Aw = A * wdiag_inv[None, :]
+    return Aw, wdiag, wdiag_inv
+
+
+class Potential(nn.Module):
+    """Potential energy with explicit parameters.
+
+    ``fn(x, alpha, params) -> (U, grad, (dpre, U_data, U_model))`` keeps the
+    JAX package's layout; ``params`` is a dict of tensors under the JAX
+    names (``Aw``, ``dobs_centered``, ``aprior_mw``, ``low``, ``high``,
+    ``wm_sq``, ``grav_fix``). Calling the module uses its own params.
+    """
+
+    def __init__(self, fn, params):
+        super().__init__()
+        self.fn = fn
+        self.params = params
+
+    def forward(self, x, alpha):
+        return self.fn(x, alpha, self.params)
+
+
+def _unported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, {item})")
+
+
+class GravMagModule:
+    """Builds the prism gz kernel and its weighting; provides the potential.
+
+    The constructor keeps the JAX package's signature. Only cartesian
+    gravity on a :class:`~gravinv3dhmc_tpu_torch.mesher.PrismMesh` is
+    ported; the other arguments must keep their defaults. ``device`` is
+    where :meth:`make_potential` puts its tensors.
+    """
+
+    def __init__(self, dobs, mrange, mspacing, obsurface, fixed=False,
+                 grav_fix=(), mratio=1, mseg=False, mdivisionsection=(),
+                 weightfactor=0.5, coordinate="cartesian", njobs=1,
+                 field="gravity", mangle=(90, 0), wavelet_mode=None,
+                 wavelet=False, kernel_backend="numpy", dtype=torch.float32,
+                 kernel_cache=None, kernel_device=False, verbose=True,
+                 device="cpu", **kwargs):
+        if coordinate != "cartesian" or field != "gravity":
+            raise _unported(f"{coordinate} {field}", "items 7 and 11")
+        if mseg or wavelet or wavelet_mode or kernel_device or kwargs:
+            raise _unported("segment meshes, wavelets, device kernels and "
+                            "topography carving", "items 7, 8 and 11")
+        if kernel_cache:
+            raise _unported("the kernel disk cache", "item 14")
+        self.dobs = np.asarray(dobs, dtype=np.float64)
+        self.fixed = fixed
+        self.grav_fix = (np.asarray(grav_fix, dtype=np.float64) if fixed
+                         else None)
+        self.mrange = mrange
+        self.mspacing = mspacing
+        self.mratio = mratio
+        self.weightfactor = weightfactor
+        self.coordinate = coordinate
+        self.field = field
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.lonobs = np.asarray(obsurface[0], dtype=np.float64)
+        self.latobs = np.asarray(obsurface[1], dtype=np.float64)
+        self.heightobs = np.asarray(obsurface[2], dtype=np.float64)
+
+        mesh = mesher.PrismMesh(mrange, mspacing, mratio)
+        self.mesh = mesh
+        self.mshape = mesh.shape
+        start = time.time()
+        mesh.addprop("density", np.zeros(mesh.size))
+        kernel = prism.prism_kernel_matrix(
+            "gz", self.lonobs, self.latobs, self.heightobs, mesh,
+            backend=kernel_backend)
+        if verbose:
+            print("End of calculate kernel:%.6f s" % (time.time() - start))
+        Aw, wdiag, wdiag_inv = sensitivity_weighting(kernel, weightfactor)
+        self.A = kernel
+        self.Aw = Aw
+        self.wdiag = wdiag
+        self.wdiag_inv = wdiag_inv
+        self.n_active = Aw.shape[1]
+
+    def make_potential(self, aprior_mw, low, high, constraint="mandatory",
+                       log_factor=1000.0, regularization="Damping",
+                       beta=0.01, use_wavelet=None, dtype=None,
+                       matvec_dtype=None, jacobian=False, temperature=1.0,
+                       device=None):
+        """Return a :class:`Potential` for a model (M,) or chain batch (C, M).
+
+        ``aprior_mw``, ``low`` and ``high`` are in the weighted (mw)
+        domain. ``matvec_dtype`` (e.g. ``torch.bfloat16``) stores the kernel
+        matrix in that type; products are accumulated in ``dtype``.
+        """
+        if regularization in ("Smoothness", "TV"):
+            raise _unported(f"the {regularization} regularizer", "item 8")
+        if regularization not in ("MS", "Damping"):
+            raise ValueError(
+                "Please choose regularization from 'MS','Damping', "
+                "'Smoothness', 'TV'.")
+        if constraint != "mandatory":
+            raise _unported(f"the {constraint!r} constraint", "item 8")
+        if jacobian or float(temperature) != 1.0 or use_wavelet:
+            raise _unported("temperature, Jacobian and wavelet potentials",
+                            "item 8")
+        dtype = dtype or self.dtype
+        device = self.device if device is None else torch.device(device)
+
+        def vec(v):
+            return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+
+        dobs = vec(self.dobs)
+        params = {
+            "Aw": torch.as_tensor(self.Aw, dtype=matvec_dtype or dtype,
+                                  device=device),
+            "dobs_centered": dobs - dobs.mean(),
+            "aprior_mw": vec(aprior_mw),
+            "low": vec(low),
+            "high": vec(high),
+            "wm_sq": vec(self.wdiag * self.wdiag),
+            "grav_fix": vec(self.grav_fix) if self.fixed else None,
+        }
+        beta = float(beta)
+        ms = regularization == "MS"
+
+        def fn(x, alpha, P):
+            x = torch.as_tensor(x, dtype=dtype, device=device)
+            A = P["Aw"]
+            if A.dtype != dtype:
+                # reduced-precision storage: round the model to A's type,
+                # then multiply and accumulate in ``dtype``
+                A = A.to(dtype)
+                mv = x.to(P["Aw"].dtype).to(dtype)
+            else:
+                mv = x
+            dpre = mv @ A.T
+            dinv = dpre + P["grav_fix"] if P["grav_fix"] is not None else dpre
+            r = (dinv - dinv.mean(-1, keepdim=True)) - P["dobs_centered"]
+            u_data = (r * r).sum(-1)
+            gdata = (2.0 * (r - r.mean(-1, keepdim=True))) @ A
+            dm = x - P["aprior_mw"]
+            dm2 = dm * dm
+            if ms:
+                den = dm2 + beta
+                u_model = (P["wm_sq"] * dm2 / den).sum(-1)
+                gm = P["wm_sq"] * (2.0 * beta) * dm / (den * den)
+            else:
+                u_model = dm2.sum(-1)
+                gm = 2.0 * dm
+            U = u_data + alpha * u_model
+            return U, gdata + alpha * gm, (dpre, u_data, u_model)
+
+        return Potential(fn, params)

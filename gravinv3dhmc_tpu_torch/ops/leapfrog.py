@@ -1,0 +1,511 @@
+"""Fused HMC leapfrog: the trajectory and the whole iteration, on the GPU.
+
+Counterpart of ``gravinv3dhmc_tpu/ops/leapfrog_pallas.py``'s
+``make_fused_trajectory`` (``_traj_kernel``) and ``make_fused_iteration``
+(``_iter_kernel``), with the same arguments and return order. The work is
+split into six CUDA kernels (``csrc/leapfrog.cu``, whose header says why
+and what bounds each): ``refresh``, ``drift``, ``residual``, ``kick``,
+``traj_finish`` and ``accept``. Each has a plain PyTorch version in this
+module and a wrapper (:class:`Kernel`) that launches the CUDA kernel for a
+CUDA tensor, counts the launch, and takes the plain version only for a CPU
+tensor. There is no fallback: a CUDA tensor gets the kernel or an error.
+
+Host preparation is the JAX package's: the mean-centred matrix
+``A_c = A - mean_rows(A)`` is formed in f64 before the cast, and
+``dobs' = dobs_c - (fix - mean fix)``; then the per-step residual needs no
+mean removal and ``A_c^T r == A^T r``. Rows and columns are padded to
+multiples of 128 with neutral values (zero matrix and data rows, dmask 0,
+low = high = 0, im = 1, pscale = 0), so pads stay exactly zero.
+
+The trajectory length L is a host integer, so the L-step loop issues its
+launches with no device-to-host synchronisation.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import _cuda, philox
+
+LANE = 128
+_F32 = torch.float32
+_TRAJ_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:146"
+_ITER_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:421"
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def _f32(v):
+    """A scalar rounded to float32, as the TPU kernels hold eps and alpha."""
+    return float(np.float32(v.item() if torch.is_tensor(v) else v))
+
+
+def _mv(t, A):
+    """The matvec operand rounded to A's storage type, widened to f32."""
+    return t if A.dtype == _F32 else t.to(A.dtype).to(_F32)
+
+
+# ---------------------------------------------------------- plain versions
+
+def refresh_plain(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
+                  H0):
+    """p0 = pscale*n01 (Philox normals unless ``n01`` is given),
+    H0 = K0 + U, p = pk = p0 - eps/2 g."""
+    if n01 is None:
+        n01 = philox.momentum_normals(salt, iteration, g.shape[0],
+                                      g.shape[1], g.device)
+    p0 = pscale * n01
+    H0.copy_(0.5 * (im * p0 * p0).sum(1) + U)
+    pv = p0 - half_eps * g
+    p.copy_(pv)
+    pk.copy_(pv)
+
+
+def drift_plain(x, p, pk, im, low, high, eps):
+    """x += eps*im*p, clip to [low, high], negate p where the clip moved
+    x; pk (if given) receives the new p."""
+    xn = x + eps * (im * p)
+    xc = torch.minimum(torch.maximum(xn, low), high)
+    p.copy_(torch.where(xn != xc, -p, p))
+    x.copy_(xc)
+    if pk is not None:
+        pk.copy_(p)
+
+
+def residual_plain(x, A, dobs, dmask, r):
+    """r = (x A^T - dobs) * dmask with x rounded to A's type."""
+    r.copy_((_mv(x, A) @ A.to(_F32).T - dobs) * dmask)
+
+
+def kick_plain(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
+    """p -= s_data (r A) + s_mod gm(x) with r rounded to A's type."""
+    gdata = _mv(r, A) @ A.to(_F32)
+    dm = x - aprior
+    if ms:
+        inv = 1.0 / (dm * dm + beta)
+        gm = gm_scale * dm * (inv * inv)
+    else:
+        gm = dm
+    p.copy_(p - s_data * gdata - s_mod * gm)
+
+
+def traj_finish_plain(x, p, pk, r, g, U, ud, um, aprior, wmsq, inv_eps,
+                      alpha, beta, ms):
+    """g = (pk - p)/eps (``g`` may be ``pk``), p <- (pk + p)/2 and the
+    misfit values of the final state."""
+    gv = (pk - p) * inv_eps
+    ph = 0.5 * (pk + p)
+    dm = x - aprior
+    dm2 = dm * dm
+    umv = (wmsq * dm2 / (dm2 + beta)).sum(1) if ms else dm2.sum(1)
+    udv = (r * r).sum(1)
+    g.copy_(gv)
+    p.copy_(ph)
+    ud.copy_(udv)
+    um.copy_(umv)
+    U.copy_(udv + alpha * umv)
+
+
+def accept_plain(x, g, U, ud, um, p, H0, x_in, g_in, U_in, ud_in, um_in, im,
+                 salt, iteration, u, acc):
+    """Metropolis test of H1 = K(p) + U against H0 (a Philox uniform unless
+    ``u`` is given); rejected chains take back x_in, g_in, U_in, ud_in,
+    um_in. A NaN Hamiltonian rejects."""
+    if u is None:
+        u = philox.accept_uniforms(salt, iteration, x.shape[0], x.device)
+    H1 = 0.5 * (im * p * p).sum(1) + U
+    a = (H1 < H0) | (u < torch.exp(-(H1 - H0)))
+    x.copy_(torch.where(a[:, None], x, x_in))
+    g.copy_(torch.where(a[:, None], g, g_in))
+    U.copy_(torch.where(a, U, U_in))
+    ud.copy_(torch.where(a, ud, ud_in))
+    um.copy_(torch.where(a, um, um_in))
+    acc.copy_(a.to(_F32))
+
+
+# ------------------------------------------------------------ CUDA launches
+
+def _salt_words(salt, iteration):
+    return (int(salt[0]) & philox.MASK32, int(salt[1]) & philox.MASK32,
+            int(iteration) & philox.MASK32)
+
+
+def _a_flag(A):
+    if A.dtype not in (_F32, torch.bfloat16):
+        raise TypeError(f"kernel matrix must be float32 or bfloat16, got "
+                        f"{A.dtype}")
+    return int(A.dtype == torch.bfloat16)
+
+
+def _refresh_cuda(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
+                  H0):
+    C, Mp = g.shape
+    P = _cuda.ptr
+    _cuda.library().call(
+        "lf_refresh", P(g, _F32, (C, Mp)), P(U, _F32, (C,)),
+        P(pscale, _F32, (Mp,)), P(im, _F32, (Mp,)),
+        P(n01, _F32, (C, Mp)), P(p, _F32, (C, Mp)), P(pk, _F32, (C, Mp)),
+        P(H0, _F32, (C,)), C, Mp, half_eps, *_salt_words(salt, iteration),
+        _cuda.stream(g))
+
+
+def _drift_cuda(x, p, pk, im, low, high, eps):
+    C, Mp = x.shape
+    P = _cuda.ptr
+    _cuda.library().call(
+        "lf_drift", P(x, _F32, (C, Mp)), P(p, _F32, (C, Mp)),
+        P(pk, _F32, (C, Mp)), P(im, _F32, (Mp,)), P(low, _F32, (Mp,)),
+        P(high, _F32, (Mp,)), C, Mp, eps, _cuda.stream(x))
+
+
+#: K slices of the residual GEMM: 4 x (16 x 10) tiles fill the H100's 132
+#: SMs in one wave at the flagship shape (see csrc/leapfrog.cu). One
+#: ``residual`` call launches two kernels, the split GEMM and the fixed-
+#: order reduce of its slices; its launch count covers the pair.
+RESIDUAL_SPLITS = 4
+
+
+def _residual_cuda(x, A, dobs, dmask, r):
+    C, Mp = x.shape
+    Dp = A.shape[0]
+    P = _cuda.ptr
+    part = torch.empty((RESIDUAL_SPLITS, C, Dp), dtype=_F32, device=x.device)
+    _cuda.library().call(
+        "lf_residual", P(x, _F32, (C, Mp)), P(A, A.dtype, (Dp, Mp)),
+        _a_flag(A), P(dobs, _F32, (Dp,)), P(dmask, _F32, (Dp,)),
+        P(r, _F32, (C, Dp)), P(part, _F32), RESIDUAL_SPLITS, C, Dp, Mp,
+        _cuda.stream(x))
+
+
+def _kick_cuda(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
+    C, Dp = r.shape
+    Mp = A.shape[1]
+    P = _cuda.ptr
+    _cuda.library().call(
+        "lf_kick", P(r, _F32, (C, Dp)), P(A, A.dtype, (Dp, Mp)), _a_flag(A),
+        P(x, _F32, (C, Mp)), P(p, _F32, (C, Mp)), P(aprior, _F32, (Mp,)),
+        P(gm_scale, _F32, (Mp,)), C, Dp, Mp, s_data, s_mod, beta, int(ms),
+        _cuda.stream(r))
+
+
+def _traj_finish_cuda(x, p, pk, r, g, U, ud, um, aprior, wmsq, inv_eps,
+                      alpha, beta, ms):
+    C, Mp = x.shape
+    Dp = r.shape[1]
+    P = _cuda.ptr
+    _cuda.library().call(
+        "lf_traj_finish", P(x, _F32, (C, Mp)), P(p, _F32, (C, Mp)),
+        P(pk, _F32, (C, Mp)), P(r, _F32, (C, Dp)), P(g, _F32, (C, Mp)),
+        P(U, _F32, (C,)), P(ud, _F32, (C,)), P(um, _F32, (C,)),
+        P(aprior, _F32, (Mp,)), P(wmsq, _F32, (Mp,)), C, Dp, Mp, inv_eps,
+        alpha, beta, int(ms), _cuda.stream(x))
+
+
+def _accept_cuda(x, g, U, ud, um, p, H0, x_in, g_in, U_in, ud_in, um_in, im,
+                 salt, iteration, u, acc):
+    C, Mp = x.shape
+    P = _cuda.ptr
+    m, v = (C, Mp), (C,)
+    _cuda.library().call(
+        "lf_accept", P(x, _F32, m), P(g, _F32, m), P(U, _F32, v),
+        P(ud, _F32, v), P(um, _F32, v), P(p, _F32, m), P(H0, _F32, v),
+        P(x_in, _F32, m), P(g_in, _F32, m), P(U_in, _F32, v),
+        P(ud_in, _F32, v), P(um_in, _F32, v), P(im, _F32, (Mp,)),
+        P(u, _F32, v), P(acc, _F32, v), C, Mp,
+        *_salt_words(salt, iteration), _cuda.stream(x))
+
+
+def philox_bits_cuda(salt, iteration, n_chains, width, device):
+    """Raw Philox words of the momentum stream drawn by the CUDA kernel,
+    as an int64 tensor like :func:`philox.momentum_bits`."""
+    out = torch.empty((n_chains, width), dtype=torch.int32, device=device)
+    _cuda.library().call(
+        "lf_philox_bits", _cuda.ptr(out, torch.int32), n_chains, width,
+        *_salt_words(salt, iteration), _cuda.stream(out))
+    return out.to(torch.int64) & philox.MASK32
+
+
+class Kernel:
+    """One hand-written CUDA kernel with its plain version and launch count.
+
+    Calling it launches the kernel when the first tensor argument lies on
+    a CUDA device (and adds one to ``launches``), or runs ``plain`` when it
+    lies on the CPU. ``replaces`` names the TPU kernel it stands for.
+    """
+
+    def __init__(self, name, plain, launch, replaces):
+        self.name = name
+        self.plain = plain
+        self.replaces = replaces
+        self.launches = 0
+        self._launch = launch
+
+    def __call__(self, *args):
+        device = args[0].device
+        if device.type == "cpu":
+            return self.plain(*args)
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for {device}")
+        self._launch(*args)
+        self.launches += 1
+        return None
+
+
+KERNELS = {
+    k.name: k for k in (
+        Kernel("refresh", refresh_plain, _refresh_cuda, _ITER_TPU),
+        Kernel("drift", drift_plain, _drift_cuda, _TRAJ_TPU),
+        Kernel("residual", residual_plain, _residual_cuda, _TRAJ_TPU),
+        Kernel("kick", kick_plain, _kick_cuda, _TRAJ_TPU),
+        Kernel("traj_finish", traj_finish_plain, _traj_finish_cuda,
+               _TRAJ_TPU),
+        Kernel("accept", accept_plain, _accept_cuda, _ITER_TPU),
+    )
+}
+
+
+def reset_launch_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts():
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+# -------------------------------------------------------- the fused ops
+
+def _pad_rows(t, width, value=0.0):
+    """(C, n) -> contiguous float32 (C, width), pads set to ``value``."""
+    t = t.to(_F32)
+    out = torch.full((t.shape[0], width), value, dtype=_F32, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
+
+
+def _pad_vec(v, width, value=0.0):
+    v = v.to(_F32).reshape(-1)
+    out = torch.full((width,), value, dtype=_F32, device=v.device)
+    out[:v.shape[0]] = v
+    return out
+
+
+def params_from_jax(np_params, device="cpu"):
+    """The port's params from a JAX ``traj.params`` / ``it.params`` dict
+    (values as numpy arrays, lane-padded to (Dp, Mp)).
+
+    The pads are sliced off: the true row count comes from ``dmask``, the
+    true column count from ``mmask`` when present (iteration params) and
+    otherwise from the last non-zero column of the centred matrix (its
+    pad columns are exactly zero).
+    """
+    def vec(name, n):
+        a = np.array(np_params[name], np.float32).reshape(-1)[:n]
+        return torch.as_tensor(a, device=device)
+
+    A = np.asarray(np_params["A"])
+    A32 = np.asarray(A, np.float32)
+    D = int(np.asarray(np_params["dmask"], np.float32).sum())
+    if "mmask" in np_params:
+        M = int(np.asarray(np_params["mmask"], np.float32).sum())
+    else:
+        M = int(np.flatnonzero(np.any(A32 != 0, axis=0)).max()) + 1
+    a_dtype = torch.bfloat16 if A.dtype.name == "bfloat16" else _F32
+    out = {"A": torch.as_tensor(A32[:D, :M].copy(), device=device).to(a_dtype),
+           "dobs": vec("dobs", D)}
+    for name in ("aprior", "wmsq", "low", "high", "im", "pscale"):
+        if name in np_params:
+            out[name] = vec(name, M)
+    return out
+
+
+class _FusedLeapfrog(nn.Module):
+    """Host preparation and the L-step loop shared by both fused ops."""
+
+    def __init__(self, A, dobs_centered, grav_fix, aprior, wm_sq, low, high,
+                 *, regularization, beta, matvec_dtype, Sigma, device):
+        super().__init__()
+        if regularization not in ("MS", "Damping"):
+            raise ValueError("fused leapfrog supports MS/Damping only")
+        if matvec_dtype not in (_F32, torch.bfloat16):
+            raise ValueError("matvec_dtype must be float32 or bfloat16")
+        self.regularization = regularization
+        self.beta = float(beta)
+        self.device = torch.device(device)
+        D, M = np.shape(A)
+        self.D, self.M = D, M
+        self.Dp, self.Mp = _round_up(D, LANE), _round_up(M, LANE)
+        A64 = np.asarray(A, np.float64)
+        A_c = (A64 - A64.mean(axis=0)).astype(np.float32)
+        fix = (np.asarray(grav_fix, np.float64) if grav_fix is not None
+               else np.zeros(D))
+        dobs_merged = (np.asarray(dobs_centered, np.float64)
+                       - (fix - fix.mean()))
+
+        def vec(v):
+            return torch.as_tensor(np.asarray(v, np.float32).reshape(-1),
+                                   device=self.device)
+
+        self.params = {
+            "A": torch.as_tensor(A_c, device=self.device).to(matvec_dtype),
+            "dobs": vec(dobs_merged), "aprior": vec(aprior),
+            "wmsq": vec(wm_sq), "low": vec(low), "high": vec(high),
+            "im": torch.ones(M, dtype=_F32, device=self.device),
+            "pscale": torch.full((M,), _f32(Sigma), dtype=_F32,
+                                 device=self.device),
+        }
+        self._padded = self._pad_params(self.params)
+        if self.device.type == "cuda":
+            # build (or load) the kernels now: set-up, not sampling time
+            _cuda.library()
+
+    def _pad_params(self, prm):
+        Dp, Mp = self.Dp, self.Mp
+        A = prm["A"]
+        Ap = torch.zeros((Dp, Mp), dtype=A.dtype, device=A.device)
+        Ap[:A.shape[0], :A.shape[1]] = A
+        dmask = torch.zeros(Dp, dtype=_F32, device=A.device)
+        dmask[:A.shape[0]] = 1.0
+        out = {"A": Ap, "dmask": dmask, "dobs": _pad_vec(prm["dobs"], Dp),
+               "im": _pad_vec(prm["im"], Mp, 1.0)}
+        for name in ("aprior", "wmsq", "low", "high", "pscale"):
+            if name in prm:
+                out[name] = _pad_vec(prm[name], Mp)
+        out["gm_scale"] = out["wmsq"] * (2.0 * self.beta)
+        return out
+
+    def _resolve(self, params, inv_mass):
+        pp = (self._padded if params is None or params is self.params
+              else self._pad_params(params))
+        if inv_mass is not None:
+            im = torch.as_tensor(inv_mass, dtype=_F32, device=self.device)
+            pp = dict(pp, im=_pad_vec(im, self.Mp, 1.0),
+                      pscale=_pad_vec(1.0 / torch.sqrt(im), self.Mp))
+        return pp
+
+    def _width(self, x):
+        """The state's width: M cells, or Mp when the caller keeps its
+        state lane-padded (pads zero) across calls."""
+        n = x.shape[1]
+        if n not in (self.M, self.Mp):
+            raise ValueError(f"expected {self.M} cells (or {self.Mp} "
+                             f"lane-padded), got {n}")
+        return n
+
+    def _kernels(self, plain):
+        return ({n: k.plain for n, k in KERNELS.items()} if plain
+                else KERNELS)
+
+    def _trajectory(self, k, pp, x, p, pk, L, eps, alpha, g, U, ud, um):
+        """L leapfrog steps on padded (x, p) with the leading half kick
+        already in p, then the gradient recovery and trailing half kick
+        into (g, p) and the misfit values into (U, ud, um)."""
+        ms = self.regularization == "MS"
+        e = np.float32(eps)
+        s_data = float(np.float32(2.0) * e)
+        s_mod = float(e * np.float32(alpha) * np.float32(1.0 if ms else 2.0))
+        r = torch.zeros((x.shape[0], self.Dp), dtype=_F32, device=x.device)
+        L = int(L)
+        for step in range(L):
+            k["drift"](x, p, pk if step == L - 1 else None, pp["im"],
+                       pp["low"], pp["high"], float(e))
+            k["residual"](x, pp["A"], pp["dobs"], pp["dmask"], r)
+            k["kick"](r, pp["A"], x, p, pp["aprior"], pp["gm_scale"],
+                      s_data, s_mod, self.beta, ms)
+        k["traj_finish"](x, p, pk, r, g, U, ud, um, pp["aprior"], pp["wmsq"],
+                         float(np.float32(1.0) / e), float(alpha), self.beta,
+                         ms)
+
+
+class FusedTrajectory(_FusedLeapfrog):
+    """``traj(x, p_half, L, eps, alpha) -> (x', p', g', U, ud, um)``.
+
+    ``p_half`` already carries the leading half kick; ``p'`` includes the
+    trailing half kick and ``g'`` is the gradient at ``x'`` (counterpart
+    of ``make_fused_trajectory``'s ``traj``).
+    """
+
+    def forward(self, x, p, L, eps, alpha, params=None, inv_mass=None,
+                plain=False):
+        pp = self._resolve(params, inv_mass)
+        C, n = x.shape[0], self._width(x)
+        xw = _pad_rows(x, self.Mp)
+        pw = _pad_rows(p, self.Mp)
+        pk = pw.clone()
+        U, ud, um = (torch.empty(C, dtype=_F32, device=x.device)
+                     for _ in range(3))
+        self._trajectory(self._kernels(plain), pp, xw, pw, pk, L, _f32(eps),
+                         _f32(alpha), pk, U, ud, um)
+        return xw[:, :n], pw[:, :n], pk[:, :n], U, ud, um
+
+
+class FusedIteration(_FusedLeapfrog):
+    """``it(x, U, g, ud, um, seed, L, eps, alpha) -> (x', U', g', ud',
+    um', accept)``: one whole HMC iteration (counterpart of
+    ``make_fused_iteration``'s ``it``).
+
+    ``seed = (salt, iteration)`` keys the momentum and accept draws
+    (see :mod:`.philox`); ``n01`` (C, M) and ``u`` (C,) replace them when
+    given. Every output but ``accept`` is the post-select carried state.
+    x and g may be (C, M) or lane-padded (C, Mp) float32 with zero pads;
+    the outputs have the same width, so a sampler can keep its carry
+    padded for a whole chunk.
+    """
+
+    def forward(self, x, U, g, ud, um, seed, L, eps, alpha, params=None,
+                inv_mass=None, n01=None, u=None, plain=False):
+        pp = self._resolve(params, inv_mass)
+        k = self._kernels(plain)
+        C, n = x.shape[0], self._width(x)
+        salt, iteration = seed
+        e = _f32(eps)
+        dev = x.device
+
+        def col(v):
+            return v.to(_F32).reshape(C).contiguous()
+
+        # padded state is read in place: the kernels never write x_in, g_in
+        x_in = x.contiguous() if n == self.Mp else _pad_rows(x, self.Mp)
+        g_in = g.contiguous() if n == self.Mp else _pad_rows(g, self.Mp)
+        U_in, ud_in, um_in = col(U), col(ud), col(um)
+        xw = x_in.clone()
+        p = torch.empty_like(x_in)
+        pk = torch.empty_like(x_in)
+        H0, U1, ud1, um1, acc = (torch.empty(C, dtype=_F32, device=dev)
+                                 for _ in range(5))
+        k["refresh"](g_in, U_in, pp["pscale"], pp["im"],
+                     float(np.float32(0.5) * np.float32(e)), salt, iteration,
+                     None if n01 is None else _pad_rows(n01, self.Mp),
+                     p, pk, H0)
+        self._trajectory(k, pp, xw, p, pk, L, e, _f32(alpha), pk, U1, ud1,
+                         um1)
+        k["accept"](xw, pk, U1, ud1, um1, p, H0, x_in, g_in, U_in, ud_in,
+                    um_in, pp["im"], salt, iteration,
+                    None if u is None else col(u), acc)
+        return xw[:, :n], U1, pk[:, :n], ud1, um1, acc
+
+
+def make_fused_trajectory(A, dobs_centered, grav_fix, aprior, wm_sq, low,
+                          high, *, regularization="MS", beta=0.001,
+                          matvec_dtype=torch.bfloat16, device="cpu"):
+    """Build the trajectory op (arguments as the JAX builder's, minus the
+    TPU tiling options)."""
+    return FusedTrajectory(A, dobs_centered, grav_fix, aprior, wm_sq, low,
+                           high, regularization=regularization, beta=beta,
+                           matvec_dtype=matvec_dtype, Sigma=1.0,
+                           device=device)
+
+
+def make_fused_iteration(A, dobs_centered, grav_fix, aprior, wm_sq, low,
+                         high, *, regularization="MS", beta=0.001,
+                         matvec_dtype=torch.bfloat16, Sigma=1.0,
+                         device="cpu"):
+    """Build the whole-iteration op; ``Sigma`` scales the identity-metric
+    momentum, as in the JAX builder."""
+    return FusedIteration(A, dobs_centered, grav_fix, aprior, wm_sq, low,
+                          high, regularization=regularization, beta=beta,
+                          matvec_dtype=matvec_dtype, Sigma=Sigma,
+                          device=device)

@@ -1,0 +1,88 @@
+"""The port's copied host numpy layers against the JAX package's
+originals: the copies must not drift apart (rtol 1e-12; all of it is f64
+host arithmetic on the same inputs)."""
+import numpy as np
+import pytest
+import torch
+
+from gravinv3dhmc_tpu import constants as jconst
+from gravinv3dhmc_tpu import mesher as jmesher
+from gravinv3dhmc_tpu import utils as jutils
+from gravinv3dhmc_tpu.inversion.potential import (
+    sensitivity_weighting as j_weighting,
+)
+from gravinv3dhmc_tpu.ops import prism as jprism
+from gravinv3dhmc_tpu_torch import constants as tconst
+from gravinv3dhmc_tpu_torch import mesher as tmesher
+from gravinv3dhmc_tpu_torch import utils as tutils
+from gravinv3dhmc_tpu_torch.inversion.potential import (
+    sensitivity_weighting as t_weighting,
+)
+from gravinv3dhmc_tpu_torch.ops import prism as tprism
+
+torch.set_num_threads(2)
+
+BOUNDS = (0, 800, 0, 1200, 0, 400)
+
+
+@pytest.mark.parametrize("spacing,ratio", [((100, 100, 100), 1),
+                                           ((50, 100, 200), 1.3)])
+def test_prism_mesh_cell_bounds(spacing, ratio):
+    jm = jmesher.PrismMesh(BOUNDS, spacing, ratio)
+    tm = tmesher.PrismMesh(BOUNDS, spacing, ratio)
+    assert tm.shape == jm.shape and tm.size == jm.size
+    np.testing.assert_array_equal(tm.cell_bounds(), jm.cell_bounds())
+    np.testing.assert_array_equal(tm.get_zs(), jm.get_zs())
+    np.testing.assert_array_equal(tm.centers(), jm.centers())
+
+
+def test_regular_and_contaminate():
+    jx = jutils.regular((0, 800, 0, 1200), (8, 12), z=-5.0)
+    tx = tutils.regular((0, 800, 0, 1200), (8, 12), z=-5.0)
+    for a, b in zip(jx, tx):
+        np.testing.assert_array_equal(b, a)
+    data = np.linspace(-1.0, 3.0, 96)
+    np.testing.assert_allclose(tutils.contaminate(data, 0.1, seed=5),
+                               jutils.contaminate(data, 0.1, seed=5),
+                               rtol=1e-12)
+    np.testing.assert_allclose(
+        tutils.contaminate(data, 0.05, percent=True, seed=2),
+        jutils.contaminate(data, 0.05, percent=True, seed=2), rtol=1e-12)
+
+
+def test_constants_and_units():
+    for name in ("G", "SI2MGAL", "SI2EOTVOS", "T2NT", "CM", "g0"):
+        assert getattr(tconst, name) == getattr(jconst, name)
+    v = np.array([1e-5, -2e-3])
+    np.testing.assert_array_equal(tutils.si2mgal(v), jutils.si2mgal(v))
+    np.testing.assert_array_equal(tutils.dircos(30, 40),
+                                  jutils.dircos(30, 40))
+
+
+def test_prism_kernel_matrix_and_weighting():
+    """The f64 gz matrix over a grid that includes points right above cell
+    corners (the guarded log/atan2 branches), then its weighting."""
+    mesh_t = tmesher.PrismMesh(BOUNDS, (100, 100, 100))
+    mesh_j = jmesher.PrismMesh(BOUNDS, (100, 100, 100))
+    xo, yo, zo = tutils.regular((0, 800, 0, 1200), (9, 13), z=0.0)
+    kt = tprism.prism_kernel_matrix("gz", xo, yo, zo, mesh_t)
+    kj = jprism.prism_kernel_matrix("gz", xo, yo, zo, mesh_j)
+    assert kt.dtype == np.float64 and kt.shape == (117, mesh_t.size)
+    np.testing.assert_allclose(kt, kj, rtol=1e-12, atol=0)
+    rho = np.random.RandomState(0).rand(mesh_t.size)
+    mesh_t.addprop("density", rho)
+    mesh_j.addprop("density", rho)
+    np.testing.assert_allclose(tprism.gz(xo, yo, zo, mesh_t)[0],
+                               jprism.gz(xo, yo, zo, mesh_j)[0], rtol=1e-12)
+    kt[:, 3] = 0.0  # a zero column stays unscaled
+    for a, b in zip(t_weighting(kt, 0.5), j_weighting(kt, 0.5)):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=0)
+
+
+def test_unported_builders_raise():
+    mesh = tmesher.PrismMesh(BOUNDS, (100, 100, 100))
+    with pytest.raises(NotImplementedError):
+        tprism.prism_kernel_matrix("gz", [0.0], [0.0], [0.0], mesh,
+                                   backend="pallas")
+    with pytest.raises(NotImplementedError):
+        tprism.prism_kernel_matrix("gzz", [0.0], [0.0], [0.0], mesh)

@@ -1,0 +1,64 @@
+"""The port stands alone: importing it pulls in neither jax nor the JAX
+package, and every CUDA kernel wrapper, given CPU tensors, runs its plain
+version without counting a launch."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            "import gravinv3dhmc_tpu_torch\n"
+            "import gravinv3dhmc_tpu_torch.inversion.hmc\n"
+            "import gravinv3dhmc_tpu_torch.diagnostics\n"
+            "import gravinv3dhmc_tpu_torch.ops.leapfrog\n"
+            "import gravinv3dhmc_tpu_torch.uniformgrid\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
+            "or m == 'gravinv3dhmc_tpu']\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    tlf.reset_launch_counts()
+    C, M, D = 4, 128, 128
+    rng = np.random.RandomState(0)
+    A = rng.randn(D, M) * 0.1
+    it = tlf.make_fused_iteration(A, rng.randn(D), None, np.zeros(M),
+                                  np.ones(M), np.full(M, -5.0),
+                                  np.full(M, 5.0), Sigma=0.1,
+                                  matvec_dtype=torch.bfloat16)
+    x = torch.zeros(C, M)
+    out = it(x, torch.zeros(C), torch.zeros(C, M), torch.zeros(C),
+             torch.zeros(C), ((5, 6), 0), 3, 0.01, 1.0)
+    assert all(torch.isfinite(t).all() for t in out)
+    assert tlf.launch_counts() == {name: 0 for name in tlf.KERNELS}
+    # every kernel of the slice has a plain version and names its TPU kernel
+    assert set(tlf.KERNELS) == {"refresh", "drift", "residual", "kick",
+                                "traj_finish", "accept"}
+    for k in tlf.KERNELS.values():
+        assert callable(k.plain)
+        assert k.replaces.startswith("gravinv3dhmc_tpu/ops/leapfrog_pallas")
+
+
+def test_meta_tensors_are_refused():
+    with pytest.raises(ValueError):
+        tlf.KERNELS["drift"](*(torch.empty(4, 128, device="meta")
+                               for _ in range(3)),
+                             *(torch.empty(128, device="meta")
+                               for _ in range(3)), 0.01)
