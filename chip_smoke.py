@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases, one line each (the script stops at the first failure, non-zero):
 
-1. build   — nvcc compiles ``gravinv3dhmc_tpu_torch/csrc/leapfrog.cu`` for
-             sm_90a; prints the build time and the card.
+1. build   — nvcc compiles every ``gravinv3dhmc_tpu_torch/csrc/*.cu`` for
+             sm_90a, one nvcc per source started together; prints the
+             build times and the card.
 2. philox  — the kernel's Philox words equal ``ops/philox.py``'s bit for
              bit; its 1M normals have mean 0 and variance 1 within 5 sigma.
 3. kernels — each of the six kernels against its plain PyTorch version on
@@ -26,8 +27,28 @@ Phases, one line each (the script stops at the first failure, non-zero):
              accept ratio, median ESS and the launch count of every
              kernel (each must be > 0); then a small problem sampled on
              the card and on the CPU with the same seed must agree.
+7. gz      — the ratiogrid matrix (900 obs x 17,100 ratio prisms): the
+             ``gz`` kernel against its plain version and both against the
+             f64 host builder, within 1e-3 of max|A| elementwise and 5e-3
+             relative Frobenius; kernel, plain and f64 host build timed.
+8. slice 2 — ``ratiogrid.build_problem`` on the card (its matrix from the
+             ``gz`` kernel), then 1024 chains through the per-step fused
+             op (``make_chunk_sampler(fused_step=...)``) for 4 chunks of
+             64 iterations after a warm chunk: grad-evals/s, accept ratio,
+             median ESS, both matrix build times and the launch count of
+             every kernel of the path (each must be > 0); then a small
+             ratiogrid sampled on the card and on the CPU must agree.
+9. step kernels — ``step_residual`` and ``step_misfit`` (and the reused
+             ``drift`` and ``kick``) against their plain versions at the
+             slice's shapes (1024 chains, 1024 x 17,152 bf16), timed.
+10. step   — the step op (kernels) vs its plain version at 256 chains, one
+             step and each of L = 7 steps on the same input: f32 and
+             bf16, MS and Damping, with and without a diagonal inverse
+             mass; its x' is the clip of the sampler's replayed drift bit
+             for bit.
 
-The last three lines are the card (``nvidia-smi`` name and power limit),
+Slice 1's launch counts are read around phase 6, slice 2's around phase
+8. The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object with every kernel's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before
 printing any result.
@@ -52,6 +73,9 @@ KERNEL_RTOL = 1e-4
 #   output without its own entry.)
 TRAJ_RTOL = {"float32": {"x": 1e-4, "p": 1e-4, "g": 1e-4, "U": 1e-4},
              "bfloat16": {"x": 2e-2, "p": 5e-2, "g": 1e-1, "U": 2e-2}}
+#: chains of the step op's check (the trajectory and iteration checks
+#: run at 256 too)
+STEP_CHAINS = 256
 
 
 def line(phase, **kv):
@@ -96,11 +120,11 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def fused_args(module, dobs):
+def fused_args(module, dobs, high=1.0):
     M = module.n_active
     w = module.wdiag
     return (module.Aw, dobs - dobs.mean(), None, w * np.full(M, 0.001),
-            w * w, w * np.zeros(M), w * np.ones(M))
+            w * w, w * np.zeros(M), w * np.full(M, high))
 
 
 def phase_philox(torch, tlf, philox, dev):
@@ -210,8 +234,17 @@ def phase_kernels(torch, tlf, op, C, dev):
     """Each kernel against its plain version on the same inputs; every
     output within ``KERNEL_RTOL`` of the plain one relative to its largest
     |value| (accept flags identical, with both decisions taken)."""
+    plan = tlf.residual_plan(C, op.Dp, op.Mp, 1)
+    line("residual_plan", shape=[C, op.Dp, op.Mp], **plan)
+    return run_kernel_cases(torch, tlf, kernel_cases(torch, op, C, dev),
+                            [C, op.Dp, op.Mp], "kernel")
+
+
+def run_kernel_cases(torch, tlf, cases, shape, phase):
+    """Run each case through the kernel and its plain version, compare,
+    time both; returns name -> errors and times."""
     results = {}
-    for name, (make, outputs) in kernel_cases(torch, op, C, dev).items():
+    for name, (make, outputs) in cases.items():
         kern = tlf.KERNELS[name]
         args_k = make()
         args_p = tuple(a.clone() if torch.is_tensor(a) else a
@@ -228,6 +261,7 @@ def phase_kernels(torch, tlf, op, C, dev):
             worst_abs = max(worst_abs, a)
         extra = {}
         if name == "accept":
+            C = out_k["acc"].shape[0]
             n_acc = int(out_k["acc"].sum().item())
             extra["accepted"] = n_acc
             if not torch.equal(out_k["acc"], out_p["acc"]):
@@ -241,8 +275,8 @@ def phase_kernels(torch, tlf, op, C, dev):
         worst_rel = max(errs.values())
         results[name] = {"max_abs_err": worst_abs, "rel_err": worst_rel,
                          "ms": ms, "plain_ms": plain_ms}
-        line("kernel", name=name, shape=[C, op.Dp, op.Mp], rel_errs=errs,
-             **extra, **results[name])
+        line(phase, name=name, shape=shape, rel_errs=errs, **extra,
+             **results[name])
         if worst_rel > KERNEL_RTOL:
             fail(f"kernel {name}: rel err {worst_rel:.3g} > {KERNEL_RTOL}")
     return results
@@ -339,17 +373,241 @@ def phase_slice(torch, tlf, module, dobs, dev, smi):
          fused_mode=res["fused_mode"],
          grad_evals_per_s=res["grad_evals_per_s"],
          elapsed_s=res["elapsed_s"], accept_ratio=res["accept_ratio"],
-         ess_median=res["ess_median"], launches=counts,
+         ess_median=res["ess_median"],
+         launches={n: counts[n] for n in tlf.ITERATION_KERNELS},
          samples_shape=list(samples.shape), finite=finite, card=smi)
     if not finite or not 0 < res["accept_ratio"] <= 1:
         fail("slice: non-finite samples or accept ratio out of (0, 1]")
     if tuple(samples.shape) != (cfg["nchains"], cfg["nsamples"],
                                 module.n_active):
         fail(f"slice: samples shape {tuple(samples.shape)}")
-    missing = [n for n, c in counts.items() if c <= 0]
+    missing = [n for n in tlf.ITERATION_KERNELS if counts[n] <= 0]
     if missing:
         fail(f"slice: kernels never launched: {missing}")
     return counts
+
+
+def rel_fro(out, ref):
+    """max |out - ref| / max |ref| and ||out - ref||_F / ||ref||_F."""
+    d = out.double() - ref.double()
+    r = ref.double()
+    return ((d.abs().max() / r.abs().max()).item(),
+            (d.norm() / r.norm()).item())
+
+
+#: an f32 gz matrix against f64 (and the kernel against its plain
+#: version): f32 cancels in the corner differences of distant cells
+GZ_MAX, GZ_FRO = 1e-3, 5e-3
+
+
+def phase_gz(torch, dev, smi):
+    """The ratiogrid matrix through the gz kernel, its plain version and
+    the f64 host builder."""
+    from gravinv3dhmc_tpu_torch import constants, mesher, ratiogrid, utils
+    from gravinv3dhmc_tpu_torch.ops import _cuda, prism
+
+    d = 200.0
+    bounds = (0, 30 * d, 0, 30 * d, 0, 30 * d)
+    mesh = mesher.PrismMesh(bounds, (d, d, d), ratiogrid.RATIO)
+    xo, yo, zo = utils.regular(bounds[:4], mesh.shape[:0:-1], z=0.0)
+    cells = mesh.cell_bounds(only_active=True)
+    t0 = time.perf_counter()
+    A64 = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh)
+    host_s = time.perf_counter() - t0
+    A64 = torch.as_tensor(A64, device=dev)
+    obs = torch.as_tensor(np.stack([xo, yo, zo], 1), dtype=torch.float32,
+                          device=dev)
+    cells_t = torch.as_tensor(cells, dtype=torch.float32, device=dev)
+    scale = float(np.float32(constants.G * constants.SI2MGAL))
+    kern = _cuda.KERNELS["gz"]
+    out_k = kern(obs, cells_t, scale)
+    out_p = kern.plain(obs, cells_t, scale)
+    sync(torch)
+    errs = {"kernel_vs_plain": rel_fro(out_k, out_p),
+            "kernel_vs_f64": rel_fro(out_k, A64),
+            "plain_vs_f64": rel_fro(out_p, A64)}
+    ms = time_ms(torch, lambda: kern(obs, cells_t, scale), reps=10)
+    plain_ms = time_ms(torch, lambda: kern.plain(obs, cells_t, scale),
+                       reps=3, warmup=1)
+    finite = bool(torch.isfinite(out_k).all())
+    result = {"max_abs_err": (out_k.double() - out_p.double()).abs()
+              .max().item(), "ms": ms, "plain_ms": plain_ms}
+    line("gz", shape=list(out_k.shape), errors=errs, host_f64_s=host_s,
+         finite=finite, card=smi, **result)
+    bad = [k for k, (e_max, e_fro) in errs.items()
+           if e_max > GZ_MAX or e_fro > GZ_FRO]
+    if bad or not finite or tuple(out_k.shape) != (900, 17100):
+        fail(f"gz: {bad} beyond ({GZ_MAX}, {GZ_FRO}) or non-finite")
+    return result
+
+
+def phase_slice2(torch, tlf, dev, smi):
+    """The ratiogrid main path: matrix on the card, per-step sampler."""
+    from gravinv3dhmc_tpu_torch import ratiogrid
+
+    cfg = ratiogrid.SLICE
+    sync(torch)
+    tlf.reset_launch_counts()
+    module, dobs, seconds = ratiogrid.build_problem(device=dev)
+    run_chunk, carry, _ = ratiogrid.step_sampler(module, dobs, dev)
+    res, carry = ratiogrid.run_chunks(run_chunk, carry, 0, 4, dev)
+    sync(torch)
+    counts = tlf.launch_counts()
+    path = ("gz",) + tlf.STEP_KERNELS
+    line("slice2", problem=[int(dobs.size), module.n_active],
+         nchains=cfg["nchains"], chunk=cfg["chunk"], **res, **seconds,
+         launches={n: counts[n] for n in path}, card=smi)
+    if not res["finite"] or not 0 < res["accept_ratio"] <= 1:
+        fail("slice2: non-finite state or accept ratio out of (0, 1]")
+    if res["samples_shape"] != [cfg["nchains"], cfg["nsamples"],
+                                module.n_active] or module.n_active != 17100:
+        fail(f"slice2: samples shape {res['samples_shape']}")
+    missing = [n for n in path if counts[n] <= 0]
+    if missing:
+        fail(f"slice2: kernels never launched: {missing}")
+    return module, dobs, counts
+
+
+def phase_reference2(torch, dev):
+    """A small ratiogrid (10 x 10 obs over 10 x 10 x 8 prisms) built and
+    sampled through the kernels on the card and through the plain versions
+    on the CPU, same seed, f32 matrix: the same Philox draws give the same
+    decisions (at least 95% of chains agree)."""
+    from gravinv3dhmc_tpu_torch import ratiogrid
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        module, dobs, _ = ratiogrid.build_problem(device=where, n=10)
+        run_chunk, carry, _ = ratiogrid.step_sampler(
+            module, dobs, where, matvec=torch.float32, nchains=64, chunk=16,
+            nsamples=16)
+        runs[where.type], _ = ratiogrid.run_chunks(run_chunk, carry, 3, 2,
+                                                   where)
+        runs[where.type + "_carry"] = _
+    a, b = runs["cuda_carry"], runs["cpu_carry"]
+    same = (a[5].cpu() == b[5]).numpy()
+    close = torch.isclose(a[6].cpu(), b[6], rtol=5e-3,
+                          atol=5e-4).flatten(1).all(1).numpy()
+    agree = same & close
+    line("reference2", chains=int(same.size), same_accepts=int(same.sum()),
+         agree=int(agree.sum()), accept_ratio=runs["cuda"]["accept_ratio"])
+    if agree.mean() < 0.95 or not 0 < runs["cuda"]["accept_ratio"] <= 1:
+        fail("reference2: card and CPU runs disagree")
+
+
+def step_kernel_cases(torch, op, C, dev):
+    """Inputs for the step's kernels at the op's shapes (a non-zero fix
+    and alpha 0.5, so dropping either shows)."""
+    pp = op._padded
+    Mp, Dp = op.Mp, op.Dp
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    def f(*shape):
+        return torch.empty(*shape, device=dev)
+
+    mask = (pp["high"] > 0).float()
+    x = (0.3 + 0.05 * randn(C, Mp)) * pp["high"]
+    p = randn(C, Mp, scale=1e-3) * mask
+    r = randn(C, Dp, scale=0.1) * pp["dmask"]
+    fix = randn(Dp, scale=0.1) * pp["dmask"]
+    ud = 50.0 + randn(C).abs()
+    e = 0.01
+    return {
+        "drift": (lambda: (x.clone(), p.clone(), None, pp["im"], pp["low"],
+                           pp["high"], e),
+                  lambda a: {"x": a[0], "p": a[1]}),
+        "step_residual": (lambda: (x.clone(), pp["A"], fix,
+                                   pp["dobs"], pp["dmask"], op.inv_nobs,
+                                   f(C, Dp), f(C)),
+                          lambda a: {"r": a[6], "ud": a[7]}),
+        "kick": (lambda: (r.clone(), pp["A"], x.clone(), p.clone(),
+                          pp["aprior"], pp["gm_scale"], 2 * e, e, op.beta,
+                          True), lambda a: {"p": a[3]}),
+        "step_misfit": (lambda: (x.clone(), pp["aprior"], pp["wmsq"], ud,
+                                 f(C), f(C), 0.5, op.beta, True),
+                        lambda a: {"U": a[4], "um": a[5]}),
+    }
+
+
+def phase_step_kernels(torch, tlf, module, dobs, dev):
+    """The step's kernels against their plain versions at the slice's
+    shapes (the reused drift and kick at this shape too)."""
+    from gravinv3dhmc_tpu_torch.ratiogrid import SLICE
+
+    C = SLICE["nchains"]
+    op = tlf.make_fused_step(*fused_args(module, dobs, high=0.4),
+                             regularization="MS", beta=0.001,
+                             matvec_dtype=torch.bfloat16, device=dev)
+    plan = tlf.residual_plan(C, op.Dp, op.Mp, 1)
+    line("residual_plan", shape=[C, op.Dp, op.Mp], **plan)
+    return run_kernel_cases(torch, tlf, step_kernel_cases(torch, op, C, dev),
+                            [C, op.Dp, op.Mp], "step_kernel")
+
+
+def phase_step(torch, tlf, module, dobs, dev):
+    """The step op through the kernels against its plain version at 256
+    chains. One step from momenta that clip ~15 % of the cells: x' equals
+    the clip of the replayed drift x + dt (im p), the sampler's boundary
+    replay, bit for bit. Then L = 7 steps along the kernels' own
+    trajectory from the trajectory check's start (x inside the box,
+    momenta of 1e-3; cells start to clip by the fifth step), each step's
+    kernels against the plain version on the same input. Two free-running
+    trajectories are no test here: once cells clip, a one-ulp difference
+    flips a later clip (in a small CPU run the plain op against itself,
+    x moved by one ulp, parts by 0.38 of max|p| at the seventh step)."""
+    C, L, dt = STEP_CHAINS, 7, 0.01
+    M = module.n_active
+    fa = fused_args(module, dobs, high=0.4)
+    low = torch.as_tensor(fa[5], dtype=torch.float32, device=dev)
+    high = torch.as_tensor(fa[6], dtype=torch.float32, device=dev)
+    w = torch.as_tensor(module.wdiag, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = (0.2 + 0.1 * torch.randn(C, M, generator=gen, device=dev)) * w
+    p0 = 10.0 * torch.randn(C, M, generator=gen, device=dev) * w
+    x_mild = (0.2 + 0.02 * torch.randn(C, M, generator=gen, device=dev)) * w
+    p_mild = 1e-3 * torch.randn(C, M, generator=gen, device=dev)
+    inv_mass = 10.0 ** (-torch.rand(M, generator=gen, device=dev))
+    names = ("x", "p", "U", "ud", "um")
+    for dtype in ("float32", "bfloat16"):
+        for reg in ("MS", "Damping"):
+            op = tlf.make_fused_step(
+                *fa, regularization=reg, beta=0.001,
+                matvec_dtype=getattr(torch, dtype), device=dev)
+
+            def compare(xs, ps, im):
+                out_k = op(xs, ps, dt, 1.0, inv_mass=im)
+                out_p = op(xs, ps, dt, 1.0, inv_mass=im, plain=True)
+                if not all(torch.isfinite(a).all() for a in out_k):
+                    fail(f"step {dtype} {reg}: non-finite output")
+                return out_k, {nm: rel_err(a, b)[1]
+                               for nm, a, b in zip(names, out_k, out_p)}
+
+            for im in (None, inv_mass):
+                scale = 1.0 if im is None else 1.0 / torch.sqrt(im)
+                p = p0 * scale
+                out_k, errs1 = compare(x, p, im)
+                x_pre = x + dt * (p if im is None else im * p)
+                hits = ((x_pre > high) | (x_pre < low)).float().mean().item()
+                replay = torch.equal(
+                    out_k[0], torch.minimum(torch.maximum(x_pre, low), high))
+                errs7 = dict.fromkeys(names, 0.0)
+                xs, ps = x_mild, p_mild * scale
+                for _ in range(L):
+                    (xs, ps, *_), errs = compare(xs, ps, im)
+                    errs7 = {nm: max(errs7[nm], errs[nm]) for nm in names}
+                outs = {1: errs1, L: errs7}
+                lim = TRAJ_RTOL[dtype]
+                bad = [(n, nm) for n, errs in outs.items() for nm in errs
+                       if errs[nm] > lim.get(nm, lim["U"])]
+                line("step", dtype=dtype, reg=reg, inv_mass=im is not None,
+                     C=C, L=L, clipped=hits, replay_exact=replay,
+                     rel_err=outs)
+                if bad or not replay or not hits > 0:
+                    fail(f"step {dtype} {reg}: {bad} beyond {lim}, "
+                         f"replay={replay}, clipped={hits}")
 
 
 def phase_reference(torch, dev):
@@ -392,12 +650,14 @@ def main():
     smi = card()
 
     t0 = time.perf_counter()
-    lib = _cuda.library()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    libs = _cuda.build_all()
+    ptxas = {name: [ln.strip() for ln in lib.build_log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, lib in libs.items()}
     line("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=lib.build_seconds, card=smi,
-         torch=torch.__version__, cuda=torch.version.cuda, ptxas=ptxas)
+         nvcc_seconds={n: lib.build_seconds for n, lib in libs.items()},
+         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         ptxas=ptxas)
 
     phase_philox(torch, tlf, philox, dev)
 
@@ -413,15 +673,23 @@ def main():
     phase_iter(torch, tlf, philox, module, dobs, dev)
     counts = phase_slice(torch, tlf, module, dobs, dev, smi)
     phase_reference(torch, dev)
+    del module, op
+
+    kres["gz"] = phase_gz(torch, dev, smi)
+    module2, dobs2, counts2 = phase_slice2(torch, tlf, dev, smi)
+    phase_reference2(torch, dev)
+    sres = phase_step_kernels(torch, tlf, module2, dobs2, dev)
+    for name in ("step_residual", "step_misfit"):
+        kres[name] = sres[name]
+    phase_step(torch, tlf, module2, dobs2, dev)
 
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "gravinv3dhmc_tpu_torch/csrc/leapfrog.cu",
-         "replaces": tlf.KERNELS[name].replaces,
-         "launches": counts[name], "max_abs_err": kres[name]["max_abs_err"],
+        {"name": name, "route": "cuda", "source": k.source,
+         "replaces": k.replaces, "launches": counts[name] + counts2[name],
+         "max_abs_err": kres[name]["max_abs_err"],
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"]}
-        for name in tlf.KERNELS]}))
+        for name, k in tlf.KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,10 +8,12 @@ path are CUDA C++ kernels written for Hopper (``csrc/``), built with nvcc
 at first use. The JAX package stays the reference the tests hold this one
 against.
 
-This first slice covers the uniformgrid main path: prism mesh, f64 prism
-gz matrix, sensitivity weighting, the MS/Damping potential under the
-'mandatory' clamp, and fixed-dt shared-L HMC through the fused leapfrog
-kernels.
+Two slices are ported. uniformgrid (``uniformgrid.py``): prism mesh, f64
+prism gz matrix, sensitivity weighting, the MS/Damping potential under
+the 'mandatory' clamp, and fixed-dt shared-L HMC through the fused
+iteration kernels. ratiogrid (``ratiogrid.py``): the geometric-ratio
+mesh, the f32 gz matrix built on the GPU by its own kernel, and the
+chunk sampler's per-step branch through the fused step kernels.
 """
 
 __version__ = "0.1.0"

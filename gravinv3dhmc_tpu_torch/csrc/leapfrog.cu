@@ -1,12 +1,16 @@
 // Fused HMC leapfrog kernels for Hopper (sm_90a), hand-written CUDA C++.
 //
-// Replaces two Pallas TPU kernels of gravinv3dhmc_tpu/ops/leapfrog_pallas.py:
+// Replaces three Pallas TPU kernels of
+// gravinv3dhmc_tpu/ops/leapfrog_pallas.py:
 //   _traj_kernel (:146, built by make_fused_trajectory :254) — the L-step
 //     trajectory: drift, clip/negate, residual GEMM, kick GEMM, then the
 //     gradient recovery, trailing half kick and misfit values;
 //   _iter_kernel (:421, built by make_fused_iteration :574) — one whole HMC
 //     iteration: momentum refresh, the trajectory above, Metropolis accept
-//     and select of the carried state.
+//     and select of the carried state;
+//   _step_kernel (:87, built by make_fused_step :735) — ONE leapfrog step on
+//     the uncentred A: drift, clip/negate, d = x A^T + fix, the row mean
+//     over the true n_obs removed in the residual, the kick, and U, ud, um.
 //
 // What the TPU kernels compute is kept; how is not. They hold the centred
 // kernel matrix A_c (Dp x Mp) and a chain tile VMEM-resident for all L
@@ -18,13 +22,20 @@
 //                H0 = K0 + U, leading half kick p = p0 - eps/2 g   (_iter)
 //   drift        elementwise: x += eps*im*p, clip to [low, high], negate p
 //                where clipped (kept as x != clip(x), :203/:517)   (both)
-//   residual     GEMM 1: r = (x A_c^T - dobs') * dmask, K split in 4
-//                slices and reduced in a fixed order                (both)
+//   residual     GEMM 1: r = (x A_c^T - dobs') * dmask, K split in slices
+//                (4 at the flagship) reduced in a fixed order       (both)
 //   kick         GEMM 2: p -= 2 eps (r A_c) + s_mod gm(x)           (both)
 //   traj_finish  one block per chain: g = (pk - p)/eps, p_half =
 //                (pk + p)/2, ud, um, U                              (both)
 //   accept       one block per chain: K1, H1, Philox uniform, accept,
 //                select of x, g, U, ud, um                          (_iter)
+//   step_residual  GEMM 1's K slices (the residual_partial kernel above)
+//                then one block per chain: d = sum of slices + fix, mean
+//                over the true n_obs, r = ((d - mean) - dobs) * dmask,
+//                ud = sum r^2                                       (_step)
+//   step_misfit  one block per chain: um and U = ud + alpha um      (_step)
+// The per-step op reuses drift and kick as they are; the kick epilogue
+// already applies p -= s_data gdata + s_mod gm, the full kick of _step.
 //
 // What bounds it: each GEMM is 2*C*Mp*Dp FLOP, about 7.9 GFLOP at
 // C=1024, Mp=6016, Dp=640, and A_c (7.7 MB bf16, 15.4 MB f32) stays in the
@@ -261,8 +272,10 @@ __global__ void drift_kernel(float* __restrict__ x, float* __restrict__ p,
 // GEMM 1 in K slices: part[s, c, d] = sum over the s-th slice of m of
 // round(x[c, m]) A[d, m]. At the flagship shape the output is only
 // 16 x 10 tiles of 64 x 64 (1.2 waves on 132 SMs) with K = 6016 each, so
-// blockIdx.z splits K and residual_reduce adds the slices in a fixed
-// order (deterministic, unlike atomics).
+// blockIdx.z splits K and residual_reduce (step_reduce on the per-step
+// path) adds the slices in a fixed order (deterministic, unlike atomics).
+// The caller picks the split count from lf_residual_occupancy so that
+// the blocks fill whole waves.
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
 residual_partial_kernel(const float* __restrict__ x, const T* __restrict__ A,
@@ -312,6 +325,66 @@ __global__ void residual_reduce_kernel(const float* __restrict__ part,
     for (int s = 1; s < splits; ++s) sum += part[(size_t)s * n + i];
     const int d = (int)(i % Dp);
     r[i] = (sum - dobs[d]) * dmask[d];
+  }
+}
+
+// The per-step residual (_step_kernel :112-119): d = sum_s part[s] + fix,
+// mean over the true n_obs (pad rows hold d == 0: their A rows and fix
+// are zero), r = ((d - mean) - dobs) * dmask, ud = sum r^2. One block per
+// chain; d is stashed in r between the two passes, each thread reading
+// back only the entries it wrote. Bound by reading the split partials
+// (splits * C * Dp floats, L2-resident), a few us a step.
+__global__ void step_reduce_kernel(const float* __restrict__ part,
+                                   const float* __restrict__ fix,
+                                   const float* __restrict__ dobs,
+                                   const float* __restrict__ dmask,
+                                   float* __restrict__ r,
+                                   float* __restrict__ ud, int splits,
+                                   int C, int Dp, float inv_nobs) {
+  __shared__ float sh[32];
+  const size_t n = (size_t)C * Dp;
+  const size_t row = (size_t)blockIdx.x * Dp;
+  float sd = 0.0f;
+  for (int d = threadIdx.x; d < Dp; d += blockDim.x) {
+    float v = part[row + d];
+    for (int s = 1; s < splits; ++s) v += part[(size_t)s * n + row + d];
+    v += fix[d];
+    r[row + d] = v;
+    sd += v;
+  }
+  const float mean = block_sum(sd, sh) * inv_nobs;
+  float sq = 0.0f;
+  for (int d = threadIdx.x; d < Dp; d += blockDim.x) {
+    const float rv = ((r[row + d] - mean) - dobs[d]) * dmask[d];
+    r[row + d] = rv;
+    sq += rv * rv;
+  }
+  const float udv = block_sum(sq, sh);
+  if (threadIdx.x == 0) ud[blockIdx.x] = udv;
+}
+
+// um and U = ud + alpha um of the drifted state (_step_kernel :128-141),
+// one block per chain; a single read of x, bound by launch latency.
+__global__ void step_misfit_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ aprior,
+                                   const float* __restrict__ wmsq,
+                                   const float* __restrict__ ud,
+                                   float* __restrict__ U,
+                                   float* __restrict__ um, int Mp,
+                                   float alpha, float beta, int ms) {
+  __shared__ float sh[32];
+  const int c = blockIdx.x;
+  const size_t row = (size_t)c * Mp;
+  float su = 0.0f;
+  for (int m = threadIdx.x; m < Mp; m += blockDim.x) {
+    const float dm = x[row + m] - aprior[m];
+    const float dm2 = dm * dm;
+    su += ms ? wmsq[m] * dm2 / (dm2 + beta) : dm2;
+  }
+  const float umv = block_sum(su, sh);
+  if (threadIdx.x == 0) {
+    um[c] = umv;
+    U[c] = ud[c] + alpha * umv;
   }
 }
 
@@ -475,6 +548,23 @@ int grid_for(size_t n, int threads) {
   return (int)(b < 4096 ? (b ? b : 1) : 4096);
 }
 
+cudaError_t launch_residual_partial(const float* x, const void* A,
+                                    int a_bf16, float* part, int splits,
+                                    int C, int Dp, int Mp,
+                                    cudaStream_t stream) {
+  const int steps = Mp / BK;
+  const int k_per_split = ((steps + splits - 1) / splits) * BK;
+  const dim3 grid(Dp / BN, (C + BM - 1) / BM, splits);
+  if (a_bf16)
+    residual_partial_kernel<__nv_bfloat16><<<grid, GEMM_THREADS, 0, stream>>>(
+        x, static_cast<const __nv_bfloat16*>(A), part, C, Dp, Mp,
+        k_per_split);
+  else
+    residual_partial_kernel<float><<<grid, GEMM_THREADS, 0, stream>>>(
+        x, static_cast<const float*>(A), part, C, Dp, Mp, k_per_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -501,21 +591,51 @@ int lf_drift(float* x, float* p, float* pk, const float* im,
 int lf_residual(const float* x, const void* A, int a_bf16, const float* dobs,
                 const float* dmask, float* r, float* part, int splits, int C,
                 int Dp, int Mp, cudaStream_t stream) {
-  const int steps = Mp / BK;
-  const int k_per_split = ((steps + splits - 1) / splits) * BK;
-  const dim3 grid(Dp / BN, (C + BM - 1) / BM, splits);
-  if (a_bf16)
-    residual_partial_kernel<__nv_bfloat16><<<grid, GEMM_THREADS, 0, stream>>>(
-        x, static_cast<const __nv_bfloat16*>(A), part, C, Dp, Mp,
-        k_per_split);
-  else
-    residual_partial_kernel<float><<<grid, GEMM_THREADS, 0, stream>>>(
-        x, static_cast<const float*>(A), part, C, Dp, Mp, k_per_split);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_residual_partial(x, A, a_bf16, part, splits,
+                                                  C, Dp, Mp, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)C * Dp;
   residual_reduce_kernel<<<grid_for(n, 256), 256, 0, stream>>>(
       part, dobs, dmask, r, splits, n, Dp);
+  return (int)cudaGetLastError();
+}
+
+int lf_step_residual(const float* x, const void* A, int a_bf16,
+                     const float* fix, const float* dobs, const float* dmask,
+                     float* r, float* ud, float* part, int splits, int C,
+                     int Dp, int Mp, float inv_nobs, cudaStream_t stream) {
+  const cudaError_t err = launch_residual_partial(x, A, a_bf16, part, splits,
+                                                  C, Dp, Mp, stream);
+  if (err != cudaSuccess) return (int)err;
+  step_reduce_kernel<<<C, ROW_THREADS, 0, stream>>>(part, fix, dobs, dmask, r,
+                                                    ud, splits, C, Dp,
+                                                    inv_nobs);
+  return (int)cudaGetLastError();
+}
+
+// resident blocks of the split GEMM per SM, and the SM count, so the
+// caller can choose a split count that fills whole waves
+int lf_residual_occupancy(int a_bf16, int* blocks_per_sm, int* sms) {
+  cudaError_t err =
+      a_bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, residual_partial_kernel<__nv_bfloat16>,
+                   GEMM_THREADS, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, residual_partial_kernel<float>,
+                   GEMM_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+}
+
+int lf_step_misfit(const float* x, const float* aprior, const float* wmsq,
+                   const float* ud, float* U, float* um, int C, int Mp,
+                   float alpha, float beta, int ms, cudaStream_t stream) {
+  step_misfit_kernel<<<C, ROW_THREADS, 0, stream>>>(x, aprior, wmsq, ud, U,
+                                                    um, Mp, alpha, beta, ms);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Potential and HMC sampler of the uniformgrid slice."""
+"""Potential and HMC sampler of the uniformgrid and ratiogrid slices."""
 from .hmc import HamiltonianMC, make_chunk_sampler
 from .potential import GravMagModule, Potential, sensitivity_weighting
 

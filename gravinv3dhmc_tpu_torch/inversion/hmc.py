@@ -1,12 +1,13 @@
 """Fixed-dt Hamiltonian Monte Carlo over a chain batch, in PyTorch.
 
 Counterpart of ``gravinv3dhmc_tpu/inversion/hmc.py`` for the uniformgrid
-slice: :func:`make_chunk_sampler` with the shared-L, fused-trajectory and
-fused-iteration paths and the 'accepted', 'chain' and 'none' storage
-modes, and :class:`HamiltonianMC` whose ``sample()`` runs the fixed-dt
-loop. The reference semantics carried over are listed in the JAX module's
-docstring (Sigma-scaled identity kinetic, 'mandatory' clamp-and-negate,
-carried (U, g) between iterations, Metropolis on the full Hamiltonian).
+and ratiogrid slices: :func:`make_chunk_sampler` with the shared-L,
+fused-step, fused-trajectory and fused-iteration paths and the
+'accepted', 'chain' and 'none' storage modes, and :class:`HamiltonianMC`
+whose ``sample()`` runs the fixed-dt loop. The reference semantics
+carried over are listed in the JAX module's docstring (Sigma-scaled
+identity kinetic, 'mandatory' clamp-and-negate, carried (U, g) between
+iterations, Metropolis on the full Hamiltonian).
 
 Randomness. One trajectory length L per iteration, shared by all chains,
 is drawn on the host from a CPU ``torch.Generator`` seeded by (seed,
@@ -18,10 +19,10 @@ kernels on the fused path, in plain torch elsewhere, with identical bits
 (L, n01, u)`` replaces all three; the parity tests feed the JAX
 sampler's own draws through it.
 
-Not ported yet: the per-chain masked-L scan, the per-step fused
-kernel, Welford moments and step-size/mass adaptation, checkpoints, SPMD
-meshes and sample files. Where the JAX package has a switch for one of
-them, setting it raises ``NotImplementedError``.
+Not ported yet: the per-chain masked-L scan, Welford moments and
+step-size/mass adaptation, checkpoints, SPMD meshes and sample files.
+Where the JAX package has a switch for one of them, setting it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops import philox
 from ..ops.leapfrog import LANE, make_fused_iteration, make_fused_trajectory
+
 
 def _unported(what, item):
     return NotImplementedError(
@@ -50,8 +52,9 @@ def _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax):
 def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                        constraint, alpha, chunk_size, nsamples, ndraws,
                        wdiag_inv, data_size, dtype=torch.float32,
-                       shared_L=False, fused_trajectory=None,
-                       fused_iteration=None, store_mode="accepted",
+                       shared_L=False, fused_step=None,
+                       fused_trajectory=None, fused_iteration=None,
+                       store_mode="accepted",
                        store_thin=1, draws=None, device="cpu"):
     """Build ``run_chunk(carry, seed, chunk_idx, params=None, dt=...,
     inv_mass=None, store_base=0) -> (carry, stats)``.
@@ -59,13 +62,16 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     ``carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)`` as in the
     JAX package; the sample buffers are updated in place. ``stats`` is the
     (chunk_size, C, 5) block [accept, U, u_data, u_model, L]. ``draws``
-    is an optional draw source (see the module docstring).
+    is an optional draw source (see the module docstring). At most one of
+    ``fused_step``, ``fused_trajectory`` and ``fused_iteration`` is given;
+    each runs with one L shared by all chains.
     """
     if store_mode not in ("accepted", "chain", "none"):
         raise ValueError(f"unknown store_mode {store_mode!r}")
     if constraint != "mandatory":
         raise _unported(f"the {constraint!r} constraint", "item 8")
-    if not shared_L:
+    fused = (fused_step, fused_trajectory, fused_iteration)
+    if not shared_L and all(f is None for f in fused):
         raise _unported("the per-chain masked-L scan", "item 8")
     device = torch.device(device)
     dt_default = float(dt)
@@ -147,6 +153,30 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         if fused_trajectory is not None:
             x_new, p_new, g_new, U_new, ud_new, um_new = fused_trajectory(
                 x, p, L, dt, alpha_c, inv_mass=inv_mass)
+        elif fused_step is not None:
+            # L calls of the per-step op, state kept lane-padded. The op
+            # applies a full kick every step and never returns g: it is
+            # recovered from the last two momenta, after replaying the
+            # last step's boundary negation on the pair before it (the
+            # same products and comparisons as the op's drift, so the
+            # same mask bit for bit)
+            pad = (0, fused_step.Mp - M)
+            xs, ps = F.pad(x, pad), F.pad(p, pad)
+            x_prev, p_prev = xs, ps
+            U_new, ud_new, um_new = U, u_data, u_model
+            for _ in range(L):
+                x_prev, p_prev = xs, ps
+                xs, ps, U_new, ud_new, um_new = fused_step(
+                    xs, ps, dt, alpha_c, inv_mass=inv_mass)
+            x_new, p_full = xs[:, :M], ps[:, :M]
+            x_prev, p_prev = x_prev[:, :M], p_prev[:, :M]
+            x_pre = x_prev + dt * (p_prev if inv_mass is None
+                                   else inv_mass * p_prev)
+            hit = (x_pre > high_t) | (x_pre < low_t)
+            p_eff = torch.where(hit, -p_prev, p_prev)
+            # trailing half kick: p_eff - dt/2 g with g = (p_eff - p_full)/dt
+            g_new = (p_eff - p_full) / dt
+            p_new = 0.5 * (p_eff + p_full)
         else:
             xs, ps, U_new, g_new = x, p, U, g
             ud_new, um_new = u_data, u_model

@@ -1,10 +1,12 @@
 """Misfit/gradient provider for cartesian gravity, in PyTorch.
 
 Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py`` for the
-uniformgrid slice: ``sensitivity_weighting``, :class:`GravMagModule` for
-``coordinate="cartesian", field="gravity"`` (with the frozen-cell
-``grav_fix`` correction) and ``make_potential`` for the 'mandatory'
-constraint with the MS or Damping regularizer at temperature 1.
+uniformgrid and ratiogrid slices: ``sensitivity_weighting``,
+:class:`GravMagModule` for ``coordinate="cartesian", field="gravity"``
+on uniform or ratio prism meshes (with the frozen-cell ``grav_fix``
+correction, and the f64 host or f32 device matrix builder) and
+``make_potential`` for the 'mandatory' constraint with the MS or Damping
+regularizer at temperature 1.
 
 The JAX package differentiates a scalar potential with
 ``jax.value_and_grad``; here the gradient is written out. With
@@ -71,7 +73,12 @@ class GravMagModule:
     The constructor keeps the JAX package's signature. Only cartesian
     gravity on a :class:`~gravinv3dhmc_tpu_torch.mesher.PrismMesh` is
     ported; the other arguments must keep their defaults. ``device`` is
-    where :meth:`make_potential` puts its tensors.
+    where :meth:`make_potential` puts its tensors and, with
+    ``kernel_backend="pallas"``, where the f32 matrix is built (the CUDA
+    ``gz`` kernel on a GPU, see :func:`~..ops.prism.prism_kernel_matrix`);
+    the weighting then runs in numpy on the f32 matrix, as in the JAX
+    package, so ``wdiag`` and ``Aw`` are f32 too. ``kernel_build_s`` is
+    the builder's wall time, the copy to the host included.
     """
 
     def __init__(self, dobs, mrange, mspacing, obsurface, fixed=False,
@@ -111,7 +118,8 @@ class GravMagModule:
         mesh.addprop("density", np.zeros(mesh.size))
         kernel = prism.prism_kernel_matrix(
             "gz", self.lonobs, self.latobs, self.heightobs, mesh,
-            backend=kernel_backend)
+            backend=kernel_backend, device=self.device)
+        self.kernel_build_s = time.time() - start
         if verbose:
             print("End of calculate kernel:%.6f s" % (time.time() - start))
         Aw, wdiag, wdiag_inv = sensitivity_weighting(kernel, weightfactor)

@@ -1,37 +1,49 @@
-"""Fused HMC leapfrog: the trajectory and the whole iteration, on the GPU.
+"""Fused HMC leapfrog: the trajectory, the whole iteration and the single
+step, on the GPU.
 
 Counterpart of ``gravinv3dhmc_tpu/ops/leapfrog_pallas.py``'s
-``make_fused_trajectory`` (``_traj_kernel``) and ``make_fused_iteration``
-(``_iter_kernel``), with the same arguments and return order. The work is
-split into six CUDA kernels (``csrc/leapfrog.cu``, whose header says why
-and what bounds each): ``refresh``, ``drift``, ``residual``, ``kick``,
-``traj_finish`` and ``accept``. Each has a plain PyTorch version in this
-module and a wrapper (:class:`Kernel`) that launches the CUDA kernel for a
-CUDA tensor, counts the launch, and takes the plain version only for a CPU
-tensor. There is no fallback: a CUDA tensor gets the kernel or an error.
+``make_fused_trajectory`` (``_traj_kernel``), ``make_fused_iteration``
+(``_iter_kernel``) and ``make_fused_step`` (``_step_kernel``), with the
+same arguments and return order. The work is split into eight CUDA
+kernels (``csrc/leapfrog.cu``, whose header says why and what bounds
+each): ``refresh``, ``drift``, ``residual``, ``kick``, ``traj_finish`` and
+``accept`` for the trajectory and iteration; the step reuses ``drift`` and
+``kick`` and adds ``step_residual`` and ``step_misfit``. Each has a plain
+PyTorch version in this module and a wrapper (:class:`~._cuda.Kernel`)
+that launches the CUDA kernel for a CUDA tensor, counts the launch, and
+takes the plain version only for a CPU tensor. There is no fallback: a
+CUDA tensor gets the kernel or an error.
 
-Host preparation is the JAX package's: the mean-centred matrix
-``A_c = A - mean_rows(A)`` is formed in f64 before the cast, and
-``dobs' = dobs_c - (fix - mean fix)``; then the per-step residual needs no
-mean removal and ``A_c^T r == A^T r``. Rows and columns are padded to
-multiples of 128 with neutral values (zero matrix and data rows, dmask 0,
-low = high = 0, im = 1, pscale = 0), so pads stay exactly zero.
+Host preparation is the JAX package's. For the trajectory and iteration
+the mean-centred matrix ``A_c = A - mean_rows(A)`` is formed in f64 before
+the cast, and ``dobs' = dobs_c - (fix - mean fix)``; then the per-step
+residual needs no mean removal and ``A_c^T r == A^T r``. The step keeps
+the uncentred A, ``fix`` and ``dobs_c`` and removes the row mean of
+``d = x A^T + fix`` over the true observation count in its residual.
+Rows and columns are padded to multiples of 128 with neutral values (zero
+matrix and data rows, dmask 0, fix 0, low = high = 0, im = 1, pscale = 0),
+so pads stay exactly zero.
 
 The trajectory length L is a host integer, so the L-step loop issues its
 launches with no device-to-host synchronisation.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 from torch import nn
 
 from . import _cuda, philox
+from ._cuda import (  # noqa: F401  (re-exported)
+    KERNELS, Kernel, launch_counts, reset_launch_counts)
 
 LANE = 128
 _F32 = torch.float32
 _TRAJ_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:146"
 _ITER_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:421"
+_STEP_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:87"
 
 
 def _round_up(x, m):
@@ -90,6 +102,25 @@ def kick_plain(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
     else:
         gm = dm
     p.copy_(p - s_data * gdata - s_mod * gm)
+
+
+def step_residual_plain(x, A, fix, dobs, dmask, inv_nobs, r, ud):
+    """d = x A^T + fix with x rounded to A's type; r = ((d - mean d) -
+    dobs) * dmask with the mean over the true n_obs (``inv_nobs``);
+    ud = sum r^2."""
+    d = _mv(x, A) @ A.to(_F32).T + fix
+    rv = ((d - d.sum(1, keepdim=True) * inv_nobs) - dobs) * dmask
+    r.copy_(rv)
+    ud.copy_((rv * rv).sum(1))
+
+
+def step_misfit_plain(x, aprior, wmsq, ud, U, um, alpha, beta, ms):
+    """um of x (MS or Damping) and U = ud + alpha um."""
+    dm = x - aprior
+    dm2 = dm * dm
+    umv = (wmsq * dm2 / (dm2 + beta)).sum(1) if ms else dm2.sum(1)
+    um.copy_(umv)
+    U.copy_(ud + alpha * umv)
 
 
 def traj_finish_plain(x, p, pk, r, g, U, ud, um, aprior, wmsq, inv_eps,
@@ -161,23 +192,78 @@ def _drift_cuda(x, p, pk, im, low, high, eps):
         P(high, _F32, (Mp,)), C, Mp, eps, _cuda.stream(x))
 
 
-#: K slices of the residual GEMM: 4 x (16 x 10) tiles fill the H100's 132
-#: SMs in one wave at the flagship shape (see csrc/leapfrog.cu). One
-#: ``residual`` call launches two kernels, the split GEMM and the fixed-
-#: order reduce of its slices; its launch count covers the pair.
-RESIDUAL_SPLITS = 4
+_OCCUPANCY = {}
+_PLANS = {}
+MAX_SPLITS = 8
+
+
+def residual_plan(C, Dp, Mp, a_bf16):
+    """How the split residual GEMM (csrc/leapfrog.cu) cuts K for this
+    shape: the split count in 1..``MAX_SPLITS`` whose blocks fill the
+    largest share of their last wave of resident blocks (the fewest
+    splits on a tie), with the occupancy it was planned from. At the
+    uniformgrid shape (16 x 10 output tiles) and 5 resident blocks per SM
+    on 132 SMs that is 4 splits, 640 blocks in one wave. One ``residual``
+    or ``step_residual`` call launches two kernels, the split GEMM and the
+    fixed-order reduce of its slices; its launch count covers the pair."""
+    key = (C, Dp, Mp, a_bf16)
+    if key not in _PLANS:
+        if a_bf16 not in _OCCUPANCY:
+            per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+            _cuda.library().call("lf_residual_occupancy", a_bf16,
+                                 ctypes.addressof(per_sm),
+                                 ctypes.addressof(sms))
+            _OCCUPANCY[a_bf16] = (per_sm.value, sms.value)
+        per_sm, sms = _OCCUPANCY[a_bf16]
+        resident = max(per_sm * sms, 1)
+        tiles = (Dp // 64) * (-(-C // 64))
+
+        def fill(s):
+            n = tiles * s
+            return n / (-(-n // resident) * resident)
+
+        splits = max(range(1, min(MAX_SPLITS, Mp // 16) + 1),
+                     key=lambda s: (fill(s), -s))
+        _PLANS[key] = {"splits": splits, "blocks": tiles * splits,
+                       "blocks_per_sm": per_sm, "sms": sms,
+                       "waves": tiles * splits / resident}
+    return _PLANS[key]
 
 
 def _residual_cuda(x, A, dobs, dmask, r):
     C, Mp = x.shape
     Dp = A.shape[0]
     P = _cuda.ptr
-    part = torch.empty((RESIDUAL_SPLITS, C, Dp), dtype=_F32, device=x.device)
+    splits = residual_plan(C, Dp, Mp, _a_flag(A))["splits"]
+    part = torch.empty((splits, C, Dp), dtype=_F32, device=x.device)
     _cuda.library().call(
         "lf_residual", P(x, _F32, (C, Mp)), P(A, A.dtype, (Dp, Mp)),
         _a_flag(A), P(dobs, _F32, (Dp,)), P(dmask, _F32, (Dp,)),
-        P(r, _F32, (C, Dp)), P(part, _F32), RESIDUAL_SPLITS, C, Dp, Mp,
+        P(r, _F32, (C, Dp)), P(part, _F32), splits, C, Dp, Mp,
         _cuda.stream(x))
+
+
+def _step_residual_cuda(x, A, fix, dobs, dmask, inv_nobs, r, ud):
+    C, Mp = x.shape
+    Dp = A.shape[0]
+    P = _cuda.ptr
+    splits = residual_plan(C, Dp, Mp, _a_flag(A))["splits"]
+    part = torch.empty((splits, C, Dp), dtype=_F32, device=x.device)
+    _cuda.library().call(
+        "lf_step_residual", P(x, _F32, (C, Mp)), P(A, A.dtype, (Dp, Mp)),
+        _a_flag(A), P(fix, _F32, (Dp,)), P(dobs, _F32, (Dp,)),
+        P(dmask, _F32, (Dp,)), P(r, _F32, (C, Dp)), P(ud, _F32, (C,)),
+        P(part, _F32), splits, C, Dp, Mp, inv_nobs, _cuda.stream(x))
+
+
+def _step_misfit_cuda(x, aprior, wmsq, ud, U, um, alpha, beta, ms):
+    C, Mp = x.shape
+    P = _cuda.ptr
+    v = (C,)
+    _cuda.library().call(
+        "lf_step_misfit", P(x, _F32, (C, Mp)), P(aprior, _F32, (Mp,)),
+        P(wmsq, _F32, (Mp,)), P(ud, _F32, v), P(U, _F32, v), P(um, _F32, v),
+        C, Mp, alpha, beta, int(ms), _cuda.stream(x))
 
 
 def _kick_cuda(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
@@ -228,52 +314,22 @@ def philox_bits_cuda(salt, iteration, n_chains, width, device):
     return out.to(torch.int64) & philox.MASK32
 
 
-class Kernel:
-    """One hand-written CUDA kernel with its plain version and launch count.
+#: the kernels each op launches: the iteration (the trajectory is its
+#: middle four) and the step, which reuses ``drift`` and ``kick``
+ITERATION_KERNELS = ("refresh", "drift", "residual", "kick", "traj_finish",
+                     "accept")
+STEP_KERNELS = ("drift", "step_residual", "kick", "step_misfit")
 
-    Calling it launches the kernel when the first tensor argument lies on
-    a CUDA device (and adds one to ``launches``), or runs ``plain`` when it
-    lies on the CPU. ``replaces`` names the TPU kernel it stands for.
-    """
-
-    def __init__(self, name, plain, launch, replaces):
-        self.name = name
-        self.plain = plain
-        self.replaces = replaces
-        self.launches = 0
-        self._launch = launch
-
-    def __call__(self, *args):
-        device = args[0].device
-        if device.type == "cpu":
-            return self.plain(*args)
-        if device.type != "cuda":
-            raise ValueError(f"{self.name}: no kernel for {device}")
-        self._launch(*args)
-        self.launches += 1
-        return None
-
-
-KERNELS = {
-    k.name: k for k in (
-        Kernel("refresh", refresh_plain, _refresh_cuda, _ITER_TPU),
-        Kernel("drift", drift_plain, _drift_cuda, _TRAJ_TPU),
-        Kernel("residual", residual_plain, _residual_cuda, _TRAJ_TPU),
-        Kernel("kick", kick_plain, _kick_cuda, _TRAJ_TPU),
-        Kernel("traj_finish", traj_finish_plain, _traj_finish_cuda,
-               _TRAJ_TPU),
-        Kernel("accept", accept_plain, _accept_cuda, _ITER_TPU),
-    )
-}
-
-
-def reset_launch_counts():
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def launch_counts():
-    return {name: k.launches for name, k in KERNELS.items()}
+_cuda.register(*(Kernel(name, plain, launch, replaces, "leapfrog")
+                 for name, plain, launch, replaces in (
+    ("refresh", refresh_plain, _refresh_cuda, _ITER_TPU),
+    ("drift", drift_plain, _drift_cuda, _TRAJ_TPU),
+    ("residual", residual_plain, _residual_cuda, _TRAJ_TPU),
+    ("kick", kick_plain, _kick_cuda, _TRAJ_TPU),
+    ("traj_finish", traj_finish_plain, _traj_finish_cuda, _TRAJ_TPU),
+    ("accept", accept_plain, _accept_cuda, _ITER_TPU),
+    ("step_residual", step_residual_plain, _step_residual_cuda, _STEP_TPU),
+    ("step_misfit", step_misfit_plain, _step_misfit_cuda, _STEP_TPU))))
 
 
 # -------------------------------------------------------- the fused ops
@@ -286,6 +342,15 @@ def _pad_rows(t, width, value=0.0):
     return out
 
 
+def _fresh(t, width):
+    """A new contiguous float32 (C, width) copy of ``t``, zero-padded."""
+    if t.shape[1] != width:
+        return _pad_rows(t, width)
+    out = torch.empty((t.shape[0], width), dtype=_F32, device=t.device)
+    out.copy_(t)
+    return out
+
+
 def _pad_vec(v, width, value=0.0):
     v = v.to(_F32).reshape(-1)
     out = torch.full((width,), value, dtype=_F32, device=v.device)
@@ -294,13 +359,15 @@ def _pad_vec(v, width, value=0.0):
 
 
 def params_from_jax(np_params, device="cpu"):
-    """The port's params from a JAX ``traj.params`` / ``it.params`` dict
-    (values as numpy arrays, lane-padded to (Dp, Mp)).
+    """The port's params from a JAX ``traj.params`` / ``it.params`` /
+    ``step.params`` dict (values as numpy arrays, lane-padded to (Dp,
+    Mp)).
 
     The pads are sliced off: the true row count comes from ``dmask``, the
     true column count from ``mmask`` when present (iteration params) and
-    otherwise from the last non-zero column of the centred matrix (its
-    pad columns are exactly zero).
+    otherwise from the last non-zero column of the matrix (its pad
+    columns are exactly zero). The step's transposed copy ``At`` is not
+    needed: both GEMMs read the one A.
     """
     def vec(name, n):
         a = np.array(np_params[name], np.float32).reshape(-1)[:n]
@@ -316,17 +383,33 @@ def params_from_jax(np_params, device="cpu"):
     a_dtype = torch.bfloat16 if A.dtype.name == "bfloat16" else _F32
     out = {"A": torch.as_tensor(A32[:D, :M].copy(), device=device).to(a_dtype),
            "dobs": vec("dobs", D)}
+    if "fix" in np_params:
+        out["fix"] = vec("fix", D)
     for name in ("aprior", "wmsq", "low", "high", "im", "pscale"):
         if name in np_params:
             out[name] = vec(name, M)
     return out
 
 
+def _kick_scales(eps, alpha, ms):
+    """(s_data, s_mod) of the kick epilogue p -= s_data gdata + s_mod gm:
+    2 eps for the data term, eps alpha (MS, whose gm carries its factor)
+    or 2 eps alpha (Damping, gm = dm), in f32."""
+    e = np.float32(eps)
+    return (float(np.float32(2.0) * e),
+            float(e * np.float32(alpha) * np.float32(1.0 if ms else 2.0)))
+
+
 class _FusedLeapfrog(nn.Module):
-    """Host preparation and the L-step loop shared by both fused ops."""
+    """Host preparation and the L-step loop shared by the fused ops.
+
+    ``centred`` (trajectory, iteration) mean-centres A and folds ``fix``
+    into dobs; otherwise (the step) A stays uncentred with ``fix`` and
+    ``dobs_centered`` kept apart, as the JAX builders prepare them."""
 
     def __init__(self, A, dobs_centered, grav_fix, aprior, wm_sq, low, high,
-                 *, regularization, beta, matvec_dtype, Sigma, device):
+                 *, regularization, beta, matvec_dtype, Sigma, device,
+                 centred=True):
         super().__init__()
         if regularization not in ("MS", "Damping"):
             raise ValueError("fused leapfrog supports MS/Damping only")
@@ -338,24 +421,30 @@ class _FusedLeapfrog(nn.Module):
         D, M = np.shape(A)
         self.D, self.M = D, M
         self.Dp, self.Mp = _round_up(D, LANE), _round_up(M, LANE)
-        A64 = np.asarray(A, np.float64)
-        A_c = (A64 - A64.mean(axis=0)).astype(np.float32)
+        #: 1 / n_obs in f32: the step's mean is over the true rows
+        self.inv_nobs = float(np.float32(1.0 / D))
         fix = (np.asarray(grav_fix, np.float64) if grav_fix is not None
                else np.zeros(D))
-        dobs_merged = (np.asarray(dobs_centered, np.float64)
-                       - (fix - fix.mean()))
 
         def vec(v):
             return torch.as_tensor(np.asarray(v, np.float32).reshape(-1),
                                    device=self.device)
 
+        if centred:
+            A64 = np.asarray(A, np.float64)
+            A_dev = (A64 - A64.mean(axis=0)).astype(np.float32)
+            data = {"dobs": vec(np.asarray(dobs_centered, np.float64)
+                                - (fix - fix.mean())),
+                    "pscale": torch.full((M,), _f32(Sigma), dtype=_F32,
+                                         device=self.device)}
+        else:
+            A_dev = np.asarray(A, np.float32)
+            data = {"dobs": vec(dobs_centered), "fix": vec(fix)}
         self.params = {
-            "A": torch.as_tensor(A_c, device=self.device).to(matvec_dtype),
-            "dobs": vec(dobs_merged), "aprior": vec(aprior),
+            "A": torch.as_tensor(A_dev, device=self.device).to(matvec_dtype),
+            **data, "aprior": vec(aprior),
             "wmsq": vec(wm_sq), "low": vec(low), "high": vec(high),
             "im": torch.ones(M, dtype=_F32, device=self.device),
-            "pscale": torch.full((M,), _f32(Sigma), dtype=_F32,
-                                 device=self.device),
         }
         self._padded = self._pad_params(self.params)
         if self.device.type == "cuda":
@@ -371,6 +460,8 @@ class _FusedLeapfrog(nn.Module):
         dmask[:A.shape[0]] = 1.0
         out = {"A": Ap, "dmask": dmask, "dobs": _pad_vec(prm["dobs"], Dp),
                "im": _pad_vec(prm["im"], Mp, 1.0)}
+        if "fix" in prm:
+            out["fix"] = _pad_vec(prm["fix"], Dp)
         for name in ("aprior", "wmsq", "low", "high", "pscale"):
             if name in prm:
                 out[name] = _pad_vec(prm[name], Mp)
@@ -405,8 +496,7 @@ class _FusedLeapfrog(nn.Module):
         into (g, p) and the misfit values into (U, ud, um)."""
         ms = self.regularization == "MS"
         e = np.float32(eps)
-        s_data = float(np.float32(2.0) * e)
-        s_mod = float(e * np.float32(alpha) * np.float32(1.0 if ms else 2.0))
+        s_data, s_mod = _kick_scales(e, alpha, ms)
         r = torch.zeros((x.shape[0], self.Dp), dtype=_F32, device=x.device)
         L = int(L)
         for step in range(L):
@@ -486,6 +576,55 @@ class FusedIteration(_FusedLeapfrog):
                     um_in, pp["im"], salt, iteration,
                     None if u is None else col(u), acc)
         return xw[:, :n], U1, pk[:, :n], ud1, um1, acc
+
+
+class FusedStep(_FusedLeapfrog):
+    """``step(x, p, eps, alpha, params=None, inv_mass=None) -> (x', p', U,
+    ud, um)``: ONE leapfrog step (counterpart of ``make_fused_step``'s
+    ``step``): drift with the diagonal inverse mass, clip to [low, high]
+    and negate p where clipped, the residual of the drifted state with the
+    row mean over the true n_obs removed, then always a full kick
+    ``p' = p - eps (2 A^T r + alpha gm)``; U, ud and um are the drifted
+    state's.
+
+    x and p are not changed: x' and p' are new tensors, so a sampler can
+    keep the previous step's pair for its boundary replay. x and p may be
+    (C, M) or lane-padded (C, Mp) with zero pads; the outputs have the
+    same width.
+    """
+
+    def forward(self, x, p, eps, alpha, params=None, inv_mass=None,
+                plain=False):
+        pp = self._resolve(params, inv_mass)
+        k = self._kernels(plain)
+        C, n = x.shape[0], self._width(x)
+        ms = self.regularization == "MS"
+        e, a = _f32(eps), _f32(alpha)
+        s_data, s_mod = _kick_scales(e, a, ms)
+        xw, pw = _fresh(x, self.Mp), _fresh(p, self.Mp)
+        r = torch.empty((C, self.Dp), dtype=_F32, device=x.device)
+        U, ud, um = (torch.empty(C, dtype=_F32, device=x.device)
+                     for _ in range(3))
+        k["drift"](xw, pw, None, pp["im"], pp["low"], pp["high"], e)
+        k["step_residual"](xw, pp["A"], pp["fix"], pp["dobs"], pp["dmask"],
+                           self.inv_nobs, r, ud)
+        k["kick"](r, pp["A"], xw, pw, pp["aprior"], pp["gm_scale"], s_data,
+                  s_mod, self.beta, ms)
+        k["step_misfit"](xw, pp["aprior"], pp["wmsq"], ud, U, um, a,
+                         self.beta, ms)
+        return xw[:, :n], pw[:, :n], U, ud, um
+
+
+def make_fused_step(A, dobs_centered, grav_fix, aprior, wm_sq, low, high, *,
+                    regularization="MS", beta=0.001,
+                    matvec_dtype=torch.bfloat16, device="cpu"):
+    """Build the per-step op (arguments as the JAX builder's, minus the TPU
+    tiling options): ``A`` is the weighted, uncentred kernel (D, M),
+    ``grav_fix`` the frozen-cell data or None."""
+    return FusedStep(A, dobs_centered, grav_fix, aprior, wm_sq, low, high,
+                     regularization=regularization, beta=beta,
+                     matvec_dtype=matvec_dtype, Sigma=1.0, device=device,
+                     centred=False)
 
 
 def make_fused_trajectory(A, dobs_centered, grav_fix, aprior, wm_sq, low,

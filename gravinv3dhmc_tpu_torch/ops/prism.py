@@ -3,19 +3,21 @@
 A copy of the host float64 path of ``gravinv3dhmc_tpu/ops/prism.py``
 (``_safe_log``, ``_safe_atan2``, ``_kernelz``, ``_eval_block``,
 ``_as_cells``, ``prism_kernel_matrix(backend="numpy")`` and ``gz``),
-reduced to the gz field the uniformgrid slice builds. The corner-difference
-formula cancels catastrophically in f32 for distant cells, so the matrix is
-built on the host in f64 and cast when it moves to the device.
+reduced to the gz field. The corner-difference formula cancels
+catastrophically in f32 for distant cells, so the default matrix is built
+on the host in f64 and cast when it moves to the device.
 
-The JAX package's ``backend="jax"`` and ``backend="pallas"`` builders are
-not ported yet; the Pallas one (``_gz_tile_kernel``) is on ROADMAP.md's
-kernel queue.
+``backend="pallas"`` keeps the JAX package's name for its f32 device
+builder: here it is the hand-written CUDA kernel of :mod:`.prism_gz` on a
+CUDA device (its plain PyTorch version on the CPU). The JAX package's
+``backend="jax"`` builder is not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .. import constants
+from .prism_gz import gz_kernel_matrix
 
 __all__ = ["gz", "prism_kernel_matrix"]
 
@@ -87,21 +89,32 @@ def _as_cells(mesh_or_cells, prop="density"):
 
 
 def prism_kernel_matrix(field, xo, yo, zo, mesh_or_cells, backend="numpy",
-                        obs_chunk=None):
-    """Dense (D, M) gz sensitivity matrix in mGal per g/cm^3, f64 on host."""
+                        obs_chunk=None, device="cpu"):
+    """Dense (D, M) gz sensitivity matrix in mGal per g/cm^3.
+
+    ``backend="numpy"``: f64 on the host. ``backend="pallas"`` (the JAX
+    package's name for its f32 device builder): the f32 matrix from the
+    CUDA ``gz`` kernel when ``device`` is a CUDA device, from its plain
+    PyTorch version on the CPU; returned as a numpy f32 array, as the JAX
+    package returns it.
+    """
     if field not in _SCALES:
         raise NotImplementedError(
             f"field {field!r}: the port builds gz only so far")
-    if backend != "numpy":
+    if backend not in ("numpy", "pallas"):
         raise NotImplementedError(
-            f"backend {backend!r}: only the f64 numpy builder is ported "
-            "(the Pallas gz builder is on ROADMAP.md's kernel queue)")
+            f"backend {backend!r}: the port has the f64 numpy and the f32 "
+            "device ('pallas') builders (ROADMAP.md queue 1)")
     cells, _ = _as_cells(mesh_or_cells)
     xo = np.asarray(xo, dtype=np.float64).ravel()
     yo = np.asarray(yo, dtype=np.float64).ravel()
     zo = np.asarray(zo, dtype=np.float64).ravel()
     if not (xo.shape == yo.shape == zo.shape):
         raise ValueError("Input arrays xp, yp, and zp must have same length!")
+    if backend == "pallas":
+        obs = np.stack([xo, yo, zo], axis=1)
+        return gz_kernel_matrix(obs, cells, _SCALES[field],
+                                device).cpu().numpy()
     D, M = xo.size, cells.shape[0]
     if obs_chunk is None:
         obs_chunk = max(1, min(D, int(2e6 // max(M, 1)) or 1))

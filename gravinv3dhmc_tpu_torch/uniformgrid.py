@@ -115,11 +115,19 @@ def _union_us(intervals):
 def profile_chunk(chain, chunk_idx=1):
     """One chunk of ``chain`` under ``torch.profiler`` after a warm chunk:
     host wall time, device busy time and device time by kernel."""
+    run_chunk, carry = chain.prepare(nsamples=chain.chunk_size, ndraws=0)
+    return profile_run(run_chunk, carry, chain.seed, chain.device,
+                       chunk_idx)
+
+
+def profile_run(run_chunk, carry, seed, device, chunk_idx=1):
+    """Chunk ``chunk_idx`` of ``run_chunk`` under ``torch.profiler`` after
+    a warm chunk 0: ``(summary, profiler)`` with the host wall time, the
+    device busy time, device time by kernel and the wrappers' launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    device = torch.device(chain.device)
-    run_chunk, carry = chain.prepare(nsamples=chain.chunk_size, ndraws=0)
-    carry, _ = run_chunk(carry, chain.seed, 0)
+    device = torch.device(device)
+    carry, _ = run_chunk(carry, seed, 0)
     _sync(device)
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -127,7 +135,7 @@ def profile_chunk(chain, chunk_idx=1):
     leapfrog.reset_launch_counts()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        carry, stats = run_chunk(carry, chain.seed, chunk_idx)
+        carry, stats = run_chunk(carry, seed, chunk_idx)
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = leapfrog.launch_counts()
@@ -138,7 +146,7 @@ def profile_chunk(chain, chunk_idx=1):
         by_kernel[name] = (ms + (b - a) / 1e3, n + 1)
     busy_ms = _union_us(spans) / 1e3 if spans else None
     return {
-        "iterations": chain.chunk_size, "chains": chain.nchains,
+        "iterations": stats.shape[0], "chains": stats.shape[1],
         "steps": int(stats[:, 0, 4].sum().item()),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": None if busy_ms is None else busy_ms / wall_ms,

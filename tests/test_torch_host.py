@@ -80,9 +80,13 @@ def test_prism_kernel_matrix_and_weighting():
 
 
 def test_unported_builders_raise():
+    """The JAX package's ``backend="jax"`` builder and fields other than
+    gz are not ported; the f32 device builder (``"pallas"``) is."""
     mesh = tmesher.PrismMesh(BOUNDS, (100, 100, 100))
     with pytest.raises(NotImplementedError):
         tprism.prism_kernel_matrix("gz", [0.0], [0.0], [0.0], mesh,
-                                   backend="pallas")
-    with pytest.raises(NotImplementedError):
-        tprism.prism_kernel_matrix("gzz", [0.0], [0.0], [0.0], mesh)
+                                   backend="jax")
+    for backend in ("numpy", "pallas"):
+        with pytest.raises(NotImplementedError):
+            tprism.prism_kernel_matrix("gzz", [0.0], [0.0], [0.0], mesh,
+                                       backend=backend)

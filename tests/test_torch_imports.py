@@ -23,6 +23,8 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.diagnostics\n"
             "import gravinv3dhmc_tpu_torch.ops.leapfrog\n"
             "import gravinv3dhmc_tpu_torch.uniformgrid\n"
+            "import gravinv3dhmc_tpu_torch.ratiogrid\n"
+            "import gravinv3dhmc_tpu_torch.ops.prism_gz\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
             "or m == 'gravinv3dhmc_tpu']\n"
@@ -48,12 +50,16 @@ def test_cpu_tensors_take_the_plain_versions():
              torch.zeros(C), ((5, 6), 0), 3, 0.01, 1.0)
     assert all(torch.isfinite(t).all() for t in out)
     assert tlf.launch_counts() == {name: 0 for name in tlf.KERNELS}
-    # every kernel of the slice has a plain version and names its TPU kernel
+    # every kernel of the port has a plain version and names its TPU
+    # kernel and its CUDA source
     assert set(tlf.KERNELS) == {"refresh", "drift", "residual", "kick",
-                                "traj_finish", "accept"}
+                                "traj_finish", "accept", "step_residual",
+                                "step_misfit", "gz"}
     for k in tlf.KERNELS.values():
         assert callable(k.plain)
-        assert k.replaces.startswith("gravinv3dhmc_tpu/ops/leapfrog_pallas")
+        assert k.replaces.startswith("gravinv3dhmc_tpu/ops/")
+        assert os.path.isfile(os.path.join(REPO, k.source))
+        assert os.path.isfile(os.path.join(REPO, k.replaces.split(":")[0]))
 
 
 def test_meta_tensors_are_refused():
