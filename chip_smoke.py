@@ -9,12 +9,20 @@ Phases, one line each (the script stops at the first failure, non-zero):
 
 1. build   — nvcc compiles every ``gravinv3dhmc_tpu_torch/csrc/*.cu`` for
              sm_90a, one nvcc per source started together; prints the
-             build times and the card.
+             build times, the card, ptxas's registers and spills, and the
+             number of HGMMA (wgmma) instructions in the leapfrog
+             library's SASS (``cuobjdump -sass``), which must not be 0.
 2. philox  — the kernel's Philox words equal ``ops/philox.py``'s bit for
              bit; its 1M normals have mean 0 and variance 1 within 5 sigma.
 3. kernels — each of the six kernels against its plain PyTorch version on
              the same inputs at the uniformgrid slice's shapes (1024
-             chains, 640 x 6016 bf16 matrix), with both timed.
+             chains, 640 x 6016 bf16 matrix), with both timed. Then the
+             tensor-core residual GEMM (``gemm`` lines) at 1024 chains and
+             at a ragged 200: the split plan (tile, splits, blocks,
+             waves), two launches bit for bit equal, the kernel and the
+             plain version against a float64 product of the same
+             bf16-rounded operands, and a NaN guard slice after the
+             partials that a store past the last chain would overwrite.
 4. traj    — the trajectory op (kernels) vs its plain version at 256
              chains, L = 7: f32 and bf16, MS and Damping, with and without
              a diagonal inverse mass.
@@ -40,7 +48,8 @@ Phases, one line each (the script stops at the first failure, non-zero):
              ratiogrid sampled on the card and on the CPU must agree.
 9. step kernels — ``step_residual`` and ``step_misfit`` (and the reused
              ``drift`` and ``kick``) against their plain versions at the
-             slice's shapes (1024 chains, 1024 x 17,152 bf16), timed.
+             slice's shapes (1024 chains, 1024 x 17,152 bf16), timed; then
+             ``step_residual``'s ``gemm`` lines as in phase 3.
 10. step   — the step op (kernels) vs its plain version at 256 chains, one
              step and each of L = 7 steps on the same input: f32 and
              bf16, MS and Damping, with and without a diagonal inverse
@@ -54,6 +63,7 @@ one JSON object with every kernel's numbers, and the result line
 printing any result.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -76,6 +86,9 @@ TRAJ_RTOL = {"float32": {"x": 1e-4, "p": 1e-4, "g": 1e-4, "U": 1e-4},
 #: chains of the step op's check (the trajectory and iteration checks
 #: run at 256 too)
 STEP_CHAINS = 256
+#: the ragged chain count at which the residual GEMMs are checked beside
+#: the slices' (rows past it come from TMA's zero fill and are not stored)
+RAGGED_CHAINS = 200
 
 
 def line(phase, **kv):
@@ -118,6 +131,17 @@ def time_ms(torch, fn, reps=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sass_count(lib, opcode):
+    """Lines of the library's SASS (``cuobjdump -sass``) holding
+    ``opcode``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib.path)],
+        capture_output=True, text=True, timeout=120, check=True)
+    return sum(opcode in ln for ln in out.stdout.splitlines())
 
 
 def fused_args(module, dobs, high=1.0):
@@ -233,11 +257,89 @@ def kernel_cases(torch, op, C, dev):
 def phase_kernels(torch, tlf, op, C, dev):
     """Each kernel against its plain version on the same inputs; every
     output within ``KERNEL_RTOL`` of the plain one relative to its largest
-    |value| (accept flags identical, with both decisions taken)."""
+    |value| (accept flags identical, with both decisions taken); then the
+    residual GEMM's own checks."""
     plan = tlf.residual_plan(C, op.Dp, op.Mp, 1)
     line("residual_plan", shape=[C, op.Dp, op.Mp], **plan)
-    return run_kernel_cases(torch, tlf, kernel_cases(torch, op, C, dev),
-                            [C, op.Dp, op.Mp], "kernel")
+    res = run_kernel_cases(torch, tlf, kernel_cases(torch, op, C, dev),
+                           [C, op.Dp, op.Mp], "kernel")
+    check_gemm(torch, tlf, "residual", {
+        n: kernel_cases(torch, op, n, dev)["residual"]
+        for n in (C, RAGGED_CHAINS)}, "kernel")
+    return res
+
+
+def gemm_reference(torch, name, args):
+    """``name``'s outputs from the float64 product of the same
+    bf16-rounded operands (x rounded to nearest even, as the kernel and the
+    plain version round it)."""
+    x, A = args[0], args[1]
+    d = x.to(A.dtype).double() @ A.double().T
+    if name == "residual":
+        dobs, dmask = args[2].double(), args[3].double()
+        return {"r": (d - dobs) * dmask}
+    fix, dobs, dmask, inv_nobs = (args[2].double(), args[3].double(),
+                                  args[4].double(), args[5])
+    d = d + fix
+    r = ((d - d.sum(1, keepdim=True) * inv_nobs) - dobs) * dmask
+    return {"r": r, "ud": (r * r).sum(1)}
+
+
+def partials_guarded(torch, tlf, x, A):
+    """The split GEMM alone, through the library's entry, with a NaN guard
+    slice after its partials: True when a store past the last chain row
+    (which would land in the guard) did not happen."""
+    from gravinv3dhmc_tpu_torch.ops import _cuda
+
+    C, Mp = x.shape
+    Dp = A.shape[0]
+    f32 = torch.float32
+    splits = tlf.residual_plan(C, Dp, Mp, 1)["splits"]
+    part = torch.full((splits + 1, C, Dp), float("nan"), device=x.device)
+    r = torch.empty((C, Dp), device=x.device)
+    zeros = torch.zeros(Dp, device=x.device)
+    ones = torch.ones(Dp, device=x.device)
+    P = _cuda.ptr
+    _cuda.library().call(
+        "lf_residual", P(x, f32), P(A, A.dtype), 1, P(zeros, f32),
+        P(ones, f32), P(r, f32), P(part, f32), splits, C, Dp, Mp,
+        _cuda.stream(x))
+    sync(torch)
+    return bool(torch.isnan(part[splits]).all())
+
+
+def check_gemm(torch, tlf, name, cases, phase):
+    """The tensor-core residual GEMM under ``name`` at each chain count of
+    ``cases`` (chains -> (args builder, outputs)): its split plan, two
+    launches bit for bit equal, kernel vs plain within ``KERNEL_RTOL``,
+    both against the float64 product of the same bf16-rounded operands
+    (the kernel within ``KERNEL_RTOL`` of it), and no store past the last
+    chain."""
+    kern = tlf.KERNELS[name]
+    for C, (make, outputs) in cases.items():
+        a1, a2, ap = make(), make(), make()
+        kern(*a1)
+        kern(*a2)
+        kern.plain(*ap)
+        sync(torch)
+        o1, o2, op = outputs(a1), outputs(a2), outputs(ap)
+        ref = gemm_reference(torch, name, a1)
+        x, A = a1[0], a1[1]
+        plan = tlf.residual_plan(C, A.shape[0], A.shape[1], 1)
+        stages = [(b - a) // plan["tile"][2] for a, b in plan["slices"]]
+        bit_equal = all(torch.equal(o1[k], o2[k]) for k in o1)
+        errs = {"kernel_vs_plain": max(rel_err(o1[k], op[k])[1] for k in o1),
+                "kernel_vs_f64": max(rel_err(o1[k], ref[k])[1] for k in o1),
+                "plain_vs_f64": max(rel_err(op[k], ref[k])[1] for k in o1)}
+        guarded = partials_guarded(torch, tlf, x, A)
+        line(phase, gemm=name, shape=[C, A.shape[0], A.shape[1]],
+             tile=plan["tile"], splits=plan["splits"], blocks=plan["blocks"],
+             waves=plan["waves"], stages_per_slice=[min(stages), max(stages)],
+             bit_equal=bit_equal, guard_intact=guarded, **errs)
+        if not bit_equal or not guarded or max(
+                errs["kernel_vs_plain"], errs["kernel_vs_f64"]) > KERNEL_RTOL:
+            fail(f"gemm {name} at {C} chains: bit_equal={bit_equal}, "
+                 f"guard={guarded}, errors {errs} (limit {KERNEL_RTOL})")
 
 
 def run_kernel_cases(torch, tlf, cases, shape, phase):
@@ -543,8 +645,12 @@ def phase_step_kernels(torch, tlf, module, dobs, dev):
                              matvec_dtype=torch.bfloat16, device=dev)
     plan = tlf.residual_plan(C, op.Dp, op.Mp, 1)
     line("residual_plan", shape=[C, op.Dp, op.Mp], **plan)
-    return run_kernel_cases(torch, tlf, step_kernel_cases(torch, op, C, dev),
-                            [C, op.Dp, op.Mp], "step_kernel")
+    res = run_kernel_cases(torch, tlf, step_kernel_cases(torch, op, C, dev),
+                           [C, op.Dp, op.Mp], "step_kernel")
+    check_gemm(torch, tlf, "step_residual", {
+        n: step_kernel_cases(torch, op, n, dev)["step_residual"]
+        for n in (C, RAGGED_CHAINS)}, "step_kernel")
+    return res
 
 
 def phase_step(torch, tlf, module, dobs, dev):
@@ -654,10 +760,13 @@ def main():
     ptxas = {name: [ln.strip() for ln in lib.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, lib in libs.items()}
+    hgmma = sass_count(libs["leapfrog"], "HGMMA")
     line("build", seconds=time.perf_counter() - t0,
          nvcc_seconds={n: lib.build_seconds for n, lib in libs.items()},
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         ptxas=ptxas)
+         ptxas=ptxas, leapfrog_hgmma=hgmma)
+    if hgmma == 0:
+        fail("build: no HGMMA instruction in the leapfrog library's SASS")
 
     phase_philox(torch, tlf, philox, dev)
 

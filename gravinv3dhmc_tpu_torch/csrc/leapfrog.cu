@@ -23,7 +23,8 @@
 //   drift        elementwise: x += eps*im*p, clip to [low, high], negate p
 //                where clipped (kept as x != clip(x), :203/:517)   (both)
 //   residual     GEMM 1: r = (x A_c^T - dobs') * dmask, K split in slices
-//                (4 at the flagship) reduced in a fixed order       (both)
+//                (the count planned in ops/leapfrog.py) reduced in a
+//                fixed order                                        (both)
 //   kick         GEMM 2: p -= 2 eps (r A_c) + s_mod gm(x)           (both)
 //   traj_finish  one block per chain: g = (pk - p)/eps, p_half =
 //                (pk + p)/2, ud, um, U                              (both)
@@ -38,13 +39,24 @@
 // already applies p -= s_data gdata + s_mod gm, the full kick of _step.
 //
 // What bounds it: each GEMM is 2*C*Mp*Dp FLOP, about 7.9 GFLOP at
-// C=1024, Mp=6016, Dp=640, and A_c (7.7 MB bf16, 15.4 MB f32) stays in the
-// 50 MB L2 across steps, so the GEMMs are bound by arithmetic. This first
-// version is a tiled SIMT GEMM (64x64 block tile, 4x4 per thread, f32 FMA
-// accumulation, A loaded as bf16 or f32 and widened in registers) —
-// correct and simple, far below the card's tensor-core rate. wgmma with
-// TMA-fed shared-memory rings, a persistent L-loop that keeps chain tiles
-// on chip, and CUDA graphs over the step launches are later work.
+// C=1024, Mp=6016, Dp=640 (36 GFLOP at the ratiogrid's 1024 x 1024 x
+// 17,152), and A_c (7.7 MB bf16, 15.4 MB f32) stays in the 50 MB L2
+// across steps, so the GEMMs are bound by arithmetic.
+//
+// The residual GEMM with a bf16 matrix (residual and step_residual) runs
+// on the tensor cores: residual_partial_tc_kernel below, wgmma fed by TMA
+// (its comment gives the design). Both operands of the product are bf16
+// values (x is rounded to bf16 as x.astype(matvec_dtype) is in the TPU
+// kernels), a bf16 x bf16 product is exact in f32, and the wgmma sum of
+// every 256-deep run of K is added to the result in IEEE f32, so it
+// computes the same products with the sums in another order. The
+// f32-matrix residual (the future realdata path, which must stay IEEE
+// f32) and the kick GEMM are tiled SIMT GEMMs (64x64 block
+// tile, 4x4 per thread, f32 FMA accumulation, A loaded as bf16 or f32 and
+// widened in registers). The dtype alone picks the residual kernel; there
+// is no fallback between the two. A tensor-core kick, a persistent L-loop
+// that keeps chain tiles on chip, and CUDA graphs over the step launches
+// are later work.
 //
 // Random numbers: Philox4x32-10 keyed by a salt from the run seed, with
 // counter (element group, chain, global iteration, stream); the plain
@@ -53,10 +65,15 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_cuda.py).
 // -fmad=false keeps each elementwise product and sum rounded on its own,
-// as PyTorch's plain version does; the GEMMs use fmaf explicitly.
+// as PyTorch's plain version does; the SIMT GEMMs use fmaf explicitly, and
+// wgmma is not touched by it. The library is not linked against the
+// driver library: cuTensorMapEncodeTiled, a driver-API function, is
+// fetched at run time through cudaGetDriverEntryPoint(ByVersion); <cuda.h>
+// gives only its types.
 // Every entry point launches on the given stream and returns
 // cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -68,6 +85,21 @@ constexpr int BN = 64;       // output columns per block tile
 constexpr int BK = 16;       // reduction depth per shared-memory stage
 constexpr int GEMM_THREADS = 256;
 constexpr int ROW_THREADS = 256;
+
+// the tensor-core residual GEMM (residual_partial_tc_kernel)
+constexpr int TC_BM = 128;      // chains per block tile: two warpgroups of 64
+constexpr int TC_BN = 128;      // observations per block tile (wgmma N)
+constexpr int TC_BK = 64;       // K per stage: 64 bf16 = one 128-byte row
+constexpr int TC_STAGES = 4;    // shared-memory ring depth
+constexpr int TC_PROMOTE = 4;   // stages the tensor cores sum per IEEE add
+constexpr int TC_CONSUMERS = 2; // consumer warpgroups
+constexpr int TC_THREADS = TC_CONSUMERS * 128 + 32;  // + one producer warp
+constexpr int TC_X_BOX = 32;    // f32 per 128-byte row of an x box
+constexpr int TC_A_BYTES = TC_BN * TC_BK * 2;        // 16 KB
+constexpr int TC_X_BYTES = TC_BM * TC_BK * 4;        // 32 KB, two boxes
+constexpr int TC_STAGE_BYTES = TC_A_BYTES + TC_X_BYTES;
+// the ring plus slack to align it to the 1024-byte swizzle period
+constexpr int TC_SMEM = TC_STAGES * TC_STAGE_BYTES + 1024;
 
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
 constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
@@ -269,30 +301,38 @@ __global__ void drift_kernel(float* __restrict__ x, float* __restrict__ p,
   }
 }
 
-// GEMM 1 in K slices: part[s, c, d] = sum over the s-th slice of m of
-// round(x[c, m]) A[d, m]. At the flagship shape the output is only
-// 16 x 10 tiles of 64 x 64 (1.2 waves on 132 SMs) with K = 6016 each, so
+// the K stages [first, end) of slice z of n_stages split `splits` ways:
+// sizes differ by at most one, and no slice is empty while splits <=
+// n_stages (split_plan in ops/leapfrog.py cuts the same way)
+__device__ __forceinline__ int2 slice_stages(int z, int n_stages,
+                                             int splits) {
+  return make_int2((int)((long long)z * n_stages / splits),
+                   (int)((long long)(z + 1) * n_stages / splits));
+}
+
+// GEMM 1 in K slices with an f32 matrix: part[s, c, d] = sum over the
+// s-th slice of m of x[c, m] A[d, m], SIMT f32 FMA (IEEE f32, no TF32).
 // blockIdx.z splits K and residual_reduce (step_reduce on the per-step
 // path) adds the slices in a fixed order (deterministic, unlike atomics).
 // The caller picks the split count from lf_residual_occupancy so that
 // the blocks fill whole waves.
-template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
-residual_partial_kernel(const float* __restrict__ x, const T* __restrict__ A,
+residual_partial_kernel(const float* __restrict__ x,
+                        const float* __restrict__ A,
                         float* __restrict__ part, int C, int Dp, int Mp,
-                        int k_per_split) {
+                        int splits) {
   __shared__ __align__(16) float sX[BK][BM + 4];
   __shared__ __align__(16) float sA[BK][BN + 4];
   const int c0 = blockIdx.y * BM, d0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(Mp, k_begin + k_per_split);
+  const int2 st = slice_stages(blockIdx.z, Mp / BK, splits);
   const int t = threadIdx.x;
   float acc[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    load_chain_tile<T>(x, Mp, C, c0, k0, sX);
+  for (int k0 = st.x * BK; k0 < st.y * BK; k0 += BK) {
+    load_chain_tile<float>(x, Mp, C, c0, k0, sX);
     {  // A rows d0.. (K = m contiguous), stored transposed
       const int row = t >> 2, kq = (t & 3) * 4;
-      const float4 v = Load4<T>::load(A + (size_t)(d0 + row) * Mp + k0 + kq);
+      const float4 v = Load4<float>::load(A + (size_t)(d0 + row) * Mp + k0 +
+                                          kq);
       sA[kq + 0][row] = v.x;
       sA[kq + 1][row] = v.y;
       sA[kq + 2][row] = v.z;
@@ -310,6 +350,257 @@ residual_partial_kernel(const float* __restrict__ x, const T* __restrict__ A,
     if (c >= C) continue;
     *reinterpret_cast<float4*>(out + (size_t)c * Dp + d0 + tx * 4) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// ----------------------------------------- the tensor-core residual GEMM
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive (the one expected arrival) and expect `bytes` from TMA
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// one 2-D TMA box (inner coordinate k, outer row) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int k, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k),
+      "r"(row)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile of 128-byte rows under the
+// 128-byte swizzle, as TMA writes it: start address in 16-byte units,
+// leading offset unused (1) for swizzled K-major, stride 1024 bytes between
+// groups of 8 rows, layout type 1 = 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// keeps the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma instructions
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] = a[64 x 16] (bf16, registers) * b[128 x 16]^T (bf16,
+// shared memory through desc_b) + (accumulate ? d : 0), f32 accumulation
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate)
+      : "memory");
+}
+
+// two floats rounded to bf16 to nearest even (as torch's .to(bfloat16)),
+// the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2_rn(float2 v) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// GEMM 1 in K slices with a bf16 matrix, on the tensor cores:
+// part[s, c, d] = sum over the s-th slice of m of bf16_rn(x[c, m]) A[d, m],
+// f32 accumulation. Both operands are K-major (a "TN" product).
+//
+// What bounds it: a 128 x 128 tile over a 64-deep stage is 2.1 MFLOP
+// against 48 KB of operands (32 KB of f32 x, 16 KB of bf16 A), 43 FLOP a
+// byte moved from L2 into shared memory, so at the tensor-core rate the
+// L2-to-SM traffic, not the tensor cores, is the first limit; the x tile
+// of one (chain tile, slice) is read by all Dp/128 observation tiles,
+// launched next to each other (blockIdx.x) so they find it in L2.
+//
+// Design: one block per 128 chains x 128 observations x one K slice.
+// One producer warp (one thread) keeps a ring of TC_STAGES stages full
+// through TMA: per stage one box of A (128 rows x 64 bf16) and two boxes
+// of x (128 rows x 32 f32, a 128-byte swizzled row each), completion
+// counted on the stage's `full` mbarrier. Rows >= C come from TMA's zero
+// fill and are not stored. Two consumer warpgroups own 64 chain rows
+// each: per 16-deep k step a thread reads its wgmma A fragment (rows g
+// and g + 8 of its warp's 16, columns 2t, 2t + 1, 2t + 8, 2t + 9) from the
+// swizzled f32 x tile, rounds it to bf16 in registers, and issues
+// wgmma.m64n128k16 with B read by descriptor straight from the swizzled A
+// tile. Each warpgroup waits for its stage's wgmmas before it releases
+// the stage (`empty` mbarrier, 256 arrivals); the two warpgroups and the
+// 4-stage ring keep the tensor cores fed meanwhile.
+//
+// Precision: the tensor cores' own f32 accumulation loses bits over a long
+// K chain (one wgmma accumulator per 8576-deep slice missed the float64
+// product by 3.5e-5 of its largest value at ratiogrid's shape, cuBLAS's
+// f32 GEMM by ~1e-6). So every TC_PROMOTE stages (256 deep) the product
+// starts fresh in the tensor cores (scale-d = 0 on its first k step) and
+// is then added to an f32 accumulator in registers with IEEE adds: error
+// 5.9e-7, time +2 % (H100, 1024 x 1024 x 17,152). Adding after every
+// stage cost +36 % there for no further gain.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
+                           __grid_constant__ const CUtensorMap a_map,
+                           float* __restrict__ part, int C, int Dp,
+                           int n_stages, int splits) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[TC_STAGES];
+  __shared__ __align__(8) uint64_t empty[TC_STAGES];
+  // the ring, aligned to the swizzle's 1024-byte period
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  unsigned char* ring = smem_raw + pad;
+  const uint32_t ring_u32 = raw + pad;
+
+  const int2 st = slice_stages(blockIdx.z, n_stages, splits);
+  const int n_local = st.y - st.x;
+  const int c0 = blockIdx.y * TC_BM, d0 = blockIdx.x * TC_BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TC_CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == TC_CONSUMERS * 4) {  // the producer warp
+    if (lane == 0) {
+      for (int i = 0; i < n_local; ++i) {
+        const int s = i % TC_STAGES;
+        mbar_wait(&empty[s], ((i / TC_STAGES) & 1) ^ 1);
+        const uint32_t dst = ring_u32 + s * TC_STAGE_BYTES;
+        const int k = (st.x + i) * TC_BK;
+        mbar_expect_tx(&full[s], TC_STAGE_BYTES);
+        tma_load_2d(dst, &a_map, &full[s], k, d0);
+        tma_load_2d(dst + TC_A_BYTES, &x_map, &full[s], k, c0);
+        tma_load_2d(dst + TC_A_BYTES + TC_X_BYTES / 2, &x_map, &full[s],
+                    k + TC_X_BOX, c0);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  // this thread's fragment rows g and g + 8 of its warp's 16; every row
+  // is g modulo 8, which is the swizzle's XOR for that row
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + (warp & 3) * 16 + g;
+  float acc[64], stage_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = stage_acc[i] = 0.0f;
+  for (int i = 0; i < n_local; ++i) {
+    const int s = i % TC_STAGES;
+    mbar_wait(&full[s], (i / TC_STAGES) & 1);
+    const unsigned char* xs = ring + s * TC_STAGE_BYTES + TC_A_BYTES;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // columns 2t, 2t + 1 and 2t + 8, 2t + 9
+        const int col = kk * 16 + h * 8 + 2 * t;
+        const int c = col % TC_X_BOX;
+        const unsigned char* box = xs + (col / TC_X_BOX) * (TC_X_BYTES / 2);
+        const int off = (((c >> 2) ^ g) << 4) | ((c & 3) << 2);
+#pragma unroll
+        for (int v = 0; v < 2; ++v)  // rows g, g + 8
+          a[kk][2 * h + v] = pack_bf16x2_rn(*reinterpret_cast<const float2*>(
+              box + (row0 + 8 * v) * 128 + off));
+      }
+    }
+    const uint32_t b = ring_u32 + s * TC_STAGE_BYTES;
+    const int fresh = i % TC_PROMOTE == 0;
+    fence_acc(stage_acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk)
+      wgmma_m64n128k16_rs(stage_acc, a[kk], sw128_desc(b + kk * 32),
+                          kk > 0 || !fresh);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(stage_acc);
+    mbar_arrive(&empty[s]);
+    if (i % TC_PROMOTE == TC_PROMOTE - 1 || i == n_local - 1) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] += stage_acc[j];
+    }
+  }
+
+  // accumulator layout: acc[4j + 2v + e] is row row0 + 8v, column 8j + 2t + e
+  float* out = part + (size_t)blockIdx.z * C * Dp;
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const int c = c0 + row0 + 8 * v;
+    if (c >= C) continue;
+    float* orow = out + (size_t)c * Dp + d0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(acc[4 * j + 2 * v], acc[4 * j + 2 * v + 1]);
   }
 }
 
@@ -548,20 +839,80 @@ int grid_for(size_t n, int threads) {
   return (int)(b < 4096 ? (b ? b : 1) : 4096);
 }
 
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// A tensor map over a row-major (rows, inner) matrix with boxes of
+// (box_rows, box_inner) under the 128-byte swizzle; reads past the last
+// row fill with zeros. Encoded on the host for each call (cheap host work).
+cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr,
+                          CUtensorMapDataType type, int elem_bytes,
+                          int inner, int rows, int box_inner, int box_rows) {
+  static TensorMapEncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<TensorMapEncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the ring is above the 48 KB a block may take without asking
+cudaError_t tc_allow_smem() {
+  return cudaFuncSetAttribute(residual_partial_tc_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              TC_SMEM);
+}
+
+// the split GEMM of the matrix's dtype: bf16 on the tensor cores (Dp a
+// multiple of 128, Mp of 64), f32 SIMT (Dp a multiple of 64, Mp of 16)
 cudaError_t launch_residual_partial(const float* x, const void* A,
                                     int a_bf16, float* part, int splits,
                                     int C, int Dp, int Mp,
                                     cudaStream_t stream) {
-  const int steps = Mp / BK;
-  const int k_per_split = ((steps + splits - 1) / splits) * BK;
-  const dim3 grid(Dp / BN, (C + BM - 1) / BM, splits);
-  if (a_bf16)
-    residual_partial_kernel<__nv_bfloat16><<<grid, GEMM_THREADS, 0, stream>>>(
-        x, static_cast<const __nv_bfloat16*>(A), part, C, Dp, Mp,
-        k_per_split);
-  else
-    residual_partial_kernel<float><<<grid, GEMM_THREADS, 0, stream>>>(
-        x, static_cast<const float*>(A), part, C, Dp, Mp, k_per_split);
+  if (!a_bf16) {
+    if (Dp % BN || Mp % BK || splits < 1 || splits > Mp / BK)
+      return cudaErrorInvalidValue;
+    const dim3 grid(Dp / BN, (C + BM - 1) / BM, splits);
+    residual_partial_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
+        x, static_cast<const float*>(A), part, C, Dp, Mp, splits);
+    return cudaGetLastError();
+  }
+  if (Dp % TC_BN || Mp % TC_BK || splits < 1 || splits > Mp / TC_BK)
+    return cudaErrorInvalidValue;
+  CUtensorMap x_map, a_map;
+  cudaError_t err = tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                  4, Mp, C, TC_X_BOX, TC_BM);
+  if (err != cudaSuccess) return err;
+  err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp, Dp,
+                      TC_BK, TC_BN);
+  if (err != cudaSuccess) return err;
+  err = tc_allow_smem();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Dp / TC_BN, (C + TC_BM - 1) / TC_BM, splits);
+  residual_partial_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+      x_map, a_map, part, C, Dp, Mp / TC_BK, splits);
   return cudaGetLastError();
 }
 
@@ -613,21 +964,32 @@ int lf_step_residual(const float* x, const void* A, int a_bf16,
   return (int)cudaGetLastError();
 }
 
-// resident blocks of the split GEMM per SM, and the SM count, so the
-// caller can choose a split count that fills whole waves
-int lf_residual_occupancy(int a_bf16, int* blocks_per_sm, int* sms) {
-  cudaError_t err =
-      a_bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   blocks_per_sm, residual_partial_kernel<__nv_bfloat16>,
-                   GEMM_THREADS, 0)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   blocks_per_sm, residual_partial_kernel<float>,
-                   GEMM_THREADS, 0);
+// How the split GEMM of the matrix's dtype runs, so the caller can plan
+// a split count that fills whole waves. out[0..4]: resident blocks per
+// SM, the SM count, the block tile's chains and observations, and the K
+// depth of one stage (a slice covers whole stages).
+int lf_residual_occupancy(int a_bf16, int* out) {
+  cudaError_t err;
+  if (a_bf16) {
+    err = tc_allow_smem();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], residual_partial_tc_kernel, TC_THREADS, TC_SMEM);
+    out[2] = TC_BM;
+    out[3] = TC_BN;
+    out[4] = TC_BK;
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], residual_partial_kernel, GEMM_THREADS, 0);
+    out[2] = BM;
+    out[3] = BN;
+    out[4] = BK;
+  }
   if (err != cudaSuccess) return (int)err;
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+  return (int)cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount,
                                      dev);
 }
 

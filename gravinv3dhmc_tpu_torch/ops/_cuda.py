@@ -54,7 +54,7 @@ _SIGNATURES = {
         "lf_residual": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "lf_step_residual": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _F, _P],
-        "lf_residual_occupancy": [_I, _P, _P],
+        "lf_residual_occupancy": [_I, _P],
         "lf_kick": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
                     _P],
         "lf_step_misfit": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
@@ -74,6 +74,7 @@ class KernelLibrary:
     """One loaded shared library plus how it was built."""
 
     def __init__(self, name, path, build_seconds, build_log):
+        self.path = Path(path)
         self.build_seconds = build_seconds
         self.build_log = build_log
         self.cdll = ctypes.CDLL(str(path))

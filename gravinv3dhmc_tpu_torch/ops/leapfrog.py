@@ -30,6 +30,7 @@ launches with no device-to-host synchronisation.
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -197,36 +198,60 @@ _PLANS = {}
 MAX_SPLITS = 8
 
 
+def split_plan(C, Dp, Mp, tile_m, tile_n, k_stage, resident_blocks,
+               max_splits=MAX_SPLITS):
+    """How a split-K GEMM of (C x Mp) by (Dp x Mp)^T cuts K, given its
+    block tile (``tile_m`` chains x ``tile_n`` observations), the K depth
+    of one stage and how many blocks the card holds at once.
+
+    The split count s in 1..min(``max_splits``, stages) is the one whose
+    tiles * s blocks fill the largest share of their last wave of
+    ``resident_blocks`` (the fewest splits on a tie). Slice z covers the
+    stages [z n // s, (z + 1) n // s) of the n = Mp / k_stage, as the
+    kernels cut it: whole stages, none empty, together all of K. Returns
+    the split count, the slices as (k_begin, k_end), the block count and
+    the waves they take."""
+    if Dp % tile_n or Mp % k_stage:
+        raise ValueError(f"Dp = {Dp} must be a multiple of {tile_n} and "
+                         f"Mp = {Mp} of {k_stage}")
+    resident = max(int(resident_blocks), 1)
+    stages = Mp // k_stage
+    tiles = (Dp // tile_n) * (-(-C // tile_m))
+
+    def fill(s):
+        n = tiles * s
+        return Fraction(n, -(-n // resident) * resident)
+
+    splits = max(range(1, min(max_splits, stages) + 1),
+                 key=lambda s: (fill(s), -s))
+    slices = [(z * stages // splits * k_stage,
+               (z + 1) * stages // splits * k_stage) for z in range(splits)]
+    return {"tile": [tile_m, tile_n, k_stage], "splits": splits,
+            "slices": slices, "blocks": tiles * splits,
+            "waves": tiles * splits / resident}
+
+
 def residual_plan(C, Dp, Mp, a_bf16):
-    """How the split residual GEMM (csrc/leapfrog.cu) cuts K for this
-    shape: the split count in 1..``MAX_SPLITS`` whose blocks fill the
-    largest share of their last wave of resident blocks (the fewest
-    splits on a tie), with the occupancy it was planned from. At the
-    uniformgrid shape (16 x 10 output tiles) and 5 resident blocks per SM
-    on 132 SMs that is 4 splits, 640 blocks in one wave. One ``residual``
-    or ``step_residual`` call launches two kernels, the split GEMM and the
-    fixed-order reduce of its slices; its launch count covers the pair."""
+    """How the split residual GEMM (csrc/leapfrog.cu) of the matrix's
+    dtype cuts K for this shape: :func:`split_plan` with the kernel's tile
+    and the resident blocks from the runtime's occupancy query. The bf16
+    tensor-core GEMM takes 128 x 128 tiles of 64-deep stages and one block
+    per SM, so at the uniformgrid shape (8 x 5 tiles) on 132 SMs that is 3
+    slices, 120 blocks; at ratiogrid's (8 x 8) 2 slices, 128 blocks. One
+    ``residual`` or ``step_residual`` call launches two kernels, the split
+    GEMM and the fixed-order reduce of its slices; its launch count covers
+    the pair."""
     key = (C, Dp, Mp, a_bf16)
     if key not in _PLANS:
         if a_bf16 not in _OCCUPANCY:
-            per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+            out = (ctypes.c_int * 5)()
             _cuda.library().call("lf_residual_occupancy", a_bf16,
-                                 ctypes.addressof(per_sm),
-                                 ctypes.addressof(sms))
-            _OCCUPANCY[a_bf16] = (per_sm.value, sms.value)
-        per_sm, sms = _OCCUPANCY[a_bf16]
-        resident = max(per_sm * sms, 1)
-        tiles = (Dp // 64) * (-(-C // 64))
-
-        def fill(s):
-            n = tiles * s
-            return n / (-(-n // resident) * resident)
-
-        splits = max(range(1, min(MAX_SPLITS, Mp // 16) + 1),
-                     key=lambda s: (fill(s), -s))
-        _PLANS[key] = {"splits": splits, "blocks": tiles * splits,
-                       "blocks_per_sm": per_sm, "sms": sms,
-                       "waves": tiles * splits / resident}
+                                 ctypes.addressof(out))
+            _OCCUPANCY[a_bf16] = tuple(out)
+        per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY[a_bf16]
+        _PLANS[key] = {**split_plan(C, Dp, Mp, tile_m, tile_n, k_stage,
+                                    per_sm * sms),
+                       "blocks_per_sm": per_sm, "sms": sms}
     return _PLANS[key]
 
 
