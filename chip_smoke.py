@@ -10,19 +10,32 @@ Phases, one line each (the script stops at the first failure, non-zero):
 1. build   — nvcc compiles every ``gravinv3dhmc_tpu_torch/csrc/*.cu`` for
              sm_90a, one nvcc per source started together; prints the
              build times, the card, ptxas's registers and spills, and the
-             number of HGMMA (wgmma) instructions in the leapfrog
-             library's SASS (``cuobjdump -sass``), which must not be 0.
+             number of HGMMA (wgmma) instructions in the SASS
+             (``cuobjdump -sass``) of each tensor-core kernel
+             (``residual_partial_tc_kernel``, ``kick_tc_kernel``); 0 in
+             either fails.
 2. philox  — the kernel's Philox words equal ``ops/philox.py``'s bit for
-             bit; its 1M normals have mean 0 and variance 1 within 5 sigma.
+             bit; its 1M normals have mean 0 and variance 1 within 5 sigma;
+             the ``draws`` kernel gives the plain version's uniforms bit
+             for bit, its normals within ``KERNEL_RTOL`` and ``refresh``'s
+             normals bit for bit.
 3. kernels — each of the six kernels against its plain PyTorch version on
              the same inputs at the uniformgrid slice's shapes (1024
-             chains, 640 x 6016 bf16 matrix), with both timed. Then the
-             tensor-core residual GEMM (``gemm`` lines) at 1024 chains and
-             at a ragged 200: the split plan (tile, splits, blocks,
-             waves), two launches bit for bit equal, the kernel and the
-             plain version against a float64 product of the same
+             chains, 640 x 6016 bf16 matrix), with both timed, beside the
+             least time the card could take (``bound_ms``) and, for the
+             GEMMs, one PyTorch matmul of the same product. Then the
+             tensor-core GEMMs (``gemm`` lines) at 1024 chains and at a
+             ragged 200. The residual: the split plan (tile, splits,
+             blocks, waves), two launches bit for bit equal, the kernel and
+             the plain version against a float64 product of the same
              bf16-rounded operands, and a NaN guard slice after the
              partials that a store past the last chain would overwrite.
+             The kick: its plan, two launches bit for bit equal, the
+             kernel and the plain version against float64 (r rounded to
+             bf16 as both round it) with the gradient term and with p = 0,
+             s_mod = 0, s_data = -1 (the bare product), NaN guard rows of p
+             after the last chain that must keep their bits, and its time
+             beside its bound and the matmul's.
 4. traj    — the trajectory op (kernels) vs its plain version at 256
              chains, L = 7: f32 and bf16, MS and Damping, with and without
              a diagonal inverse mass.
@@ -44,12 +57,14 @@ Phases, one line each (the script stops at the first failure, non-zero):
              op (``make_chunk_sampler(fused_step=...)``) for 4 chunks of
              64 iterations after a warm chunk: grad-evals/s, accept ratio,
              median ESS, both matrix build times and the launch count of
-             every kernel of the path (each must be > 0); then a small
-             ratiogrid sampled on the card and on the CPU must agree.
-9. step kernels — ``step_residual`` and ``step_misfit`` (and the reused
-             ``drift`` and ``kick``) against their plain versions at the
-             slice's shapes (1024 chains, 1024 x 17,152 bf16), timed; then
-             ``step_residual``'s ``gemm`` lines as in phase 3.
+             every kernel of the path (``draws`` included; each must be
+             > 0); then a small ratiogrid sampled on the card and on the
+             CPU must agree.
+9. step kernels — ``step_residual``, ``step_misfit`` and ``draws`` (and
+             the reused ``drift`` and ``kick``) against their plain
+             versions at the slice's shapes (1024 chains, 1024 x 17,152
+             bf16), timed; then the ``gemm`` lines of ``step_residual``
+             and ``kick`` as in phase 3.
 10. step   — the step op (kernels) vs its plain version at 256 chains, one
              step and each of L = 7 steps on the same input: f32 and
              bf16, MS and Damping, with and without a diagonal inverse
@@ -57,7 +72,9 @@ Phases, one line each (the script stops at the first failure, non-zero):
              for bit.
 
 Slice 1's launch counts are read around phase 6, slice 2's around phase
-8. The last three lines are the card (``nvidia-smi`` name and power limit),
+8; around both, the plain Philox draws (``ops.philox.momentum_normals``,
+``accept_uniforms``) must not be called. The last three lines are the
+card (``nvidia-smi`` name and power limit),
 one JSON object with every kernel's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before
 printing any result.
@@ -86,9 +103,23 @@ TRAJ_RTOL = {"float32": {"x": 1e-4, "p": 1e-4, "g": 1e-4, "U": 1e-4},
 #: chains of the step op's check (the trajectory and iteration checks
 #: run at 256 too)
 STEP_CHAINS = 256
-#: the ragged chain count at which the residual GEMMs are checked beside
-#: the slices' (rows past it come from TMA's zero fill and are not stored)
+#: the ragged chain count at which the tensor-core GEMMs are checked
+#: beside the slices' (rows past it come from TMA's zero fill and are
+#: neither read nor stored)
 RAGGED_CHAINS = 200
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense, at its
+#: 700 W limit): device memory bytes/s, and operations/s by type: bf16
+#: tensor-core FLOP and the f32 rate outside the tensor cores, at which
+#: the 32-bit integer work of Philox is counted too (so the bound stays a
+#: lower bound)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+#: f32 and integer operations per element, counted from csrc/*.cu: a
+#: Philox normal (10 rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2 key adds a
+#: 4-word counter, plus half a Box-Muller), and one prism-gz entry (8
+#: corners of ~24 operations: 3 squares, 2 sums, sqrt, 2 logs with their
+#: guards, atan2 with its products and division, the term and the sign)
+NORMAL_OPS, GZ_OPS = 32, 193
 
 
 def line(phase, **kv):
@@ -133,15 +164,111 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def sass_count(lib, opcode):
-    """Lines of the library's SASS (``cuobjdump -sass``) holding
-    ``opcode``."""
+def sass_counts(lib, opcode):
+    """Lines holding ``opcode`` in the SASS (``cuobjdump -sass``) of each
+    function of the library: {mangled name: count}."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     out = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib.path)],
         capture_output=True, text=True, timeout=120, check=True)
-    return sum(opcode in ln for ln in out.stdout.splitlines())
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in ln:
+            counts[fn] += 1
+    return counts
+
+
+def work(name, a, accepted=None):
+    """(bytes, {type: operations}) that kernel ``name`` must move and do
+    on its arguments ``a``: each input read once and each output written
+    once (scratch such as split partials not counted), and where the work
+    depends on the data (accept's restore of rejected chains) what this
+    run's data needs."""
+    def nb(t):
+        return t.numel() * t.element_size() if t is not None else 0
+
+    def gemm(A, other, flop, f32):
+        # the product on the tensor cores with a bf16 matrix, else SIMT
+        tc = "bf16" if A.dtype != other.dtype else "f32"
+        return {"bf16": flop if tc == "bf16" else 0,
+                "f32": f32 + (flop if tc == "f32" else 0)}
+
+    if name == "refresh":
+        g, U, pscale, im, _, _, _, n01, p, pk, H0 = a
+        C, Mp = g.shape
+        return (nb(g) + nb(U) + nb(pscale) + nb(im) + nb(n01) + nb(p)
+                + nb(pk) + nb(H0),
+                {"f32": (6 + (0 if n01 is not None else NORMAL_OPS)) * C * Mp})
+    if name == "draws":
+        n01, u = a[0], a[1]
+        return nb(n01) + nb(u), {"f32": NORMAL_OPS * n01.numel()
+                                 + 103 * u.numel()}
+    if name == "drift":
+        x, p, pk, im, low, high = a[:6]
+        return (2 * (nb(x) + nb(p)) + nb(pk) + nb(im) + nb(low) + nb(high),
+                {"f32": 7 * x.numel()})
+    if name in ("residual", "step_residual"):
+        x, A = a[0], a[1]
+        C, Dp = x.shape[0], A.shape[0]
+        vecs = a[2:5] if name == "step_residual" else a[2:4]
+        outs = a[6:8] if name == "step_residual" else a[4:5]
+        return (nb(x) + nb(A) + sum(nb(v) for v in vecs)
+                + sum(nb(o) for o in outs),
+                gemm(A, x, 2 * C * Dp * x.shape[1], 4 * C * Dp))
+    if name == "kick":
+        r, A, x, p, aprior, gm_scale = a[:6]
+        return (nb(r) + nb(A) + nb(x) + 2 * nb(p) + nb(aprior)
+                + nb(gm_scale),
+                gemm(A, r, 2 * r.shape[0] * r.shape[1] * A.shape[1],
+                     (11 if a[9] else 5) * p.numel()))
+    if name == "traj_finish":
+        x, p, pk, r, g, U, ud, um, aprior, wmsq = a[:10]
+        return (nb(x) + 2 * nb(p) + nb(pk) + nb(r) + nb(g) + nb(U) + nb(ud)
+                + nb(um) + nb(aprior) + nb(wmsq),
+                {"f32": 10 * x.numel() + 2 * r.numel()})
+    if name == "accept":
+        x, g, U, ud, um, p, H0 = a[:7]
+        C, Mp = x.shape
+        rejected = C - accepted
+        return (nb(p) + nb(a[12]) + nb(U) + nb(H0) + nb(a[15]) + nb(a[16])
+                + rejected * (16 * Mp + 24),
+                {"f32": 3 * p.numel() + (100 + 8) * C})
+    if name == "step_misfit":
+        x = a[0]
+        return (nb(x) + nb(a[1]) + nb(a[2]) + nb(a[3]) + nb(a[4]) + nb(a[5]),
+                {"f32": 6 * x.numel()})
+    if name == "gz":
+        obs, cells = a[0], a[1]
+        D, M = obs.shape[0], cells.numel() // 6
+        return nb(obs) + nb(cells) + 4 * D * M, {"f32": GZ_OPS * D * M}
+    raise KeyError(name)
+
+
+def bound(name, a, accepted=None):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``name`` on ``a`` at its published peaks, the larger of bytes over the
+    memory rate and operations over their peak rates."""
+    nbytes, ops = work(name, a, accepted)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items()) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_call(torch, name, a):
+    """One PyTorch call computing the product of a bf16 GEMM kernel on the
+    same operands (the operand cast to bf16 beforehand), or None."""
+    if name not in ("residual", "step_residual", "kick") or \
+            a[1].dtype != torch.bfloat16:
+        return None
+    if name == "kick":
+        rb, A = a[0].to(torch.bfloat16), a[1]
+        return lambda: torch.matmul(rb, A)
+    xb, At = a[0].to(torch.bfloat16), a[1].T
+    return lambda: torch.matmul(xb, At)
 
 
 def fused_args(module, dobs, high=1.0):
@@ -172,10 +299,26 @@ def phase_philox(torch, tlf, philox, dev):
     mean, var = n.mean().item(), n.var().item()
     ok = (err < 1e-5 and abs(mean) < 5 / np.sqrt(N)
           and abs(var - 1) < 5 * np.sqrt(2 / N))
+    # the draws kernel: its uniforms are the top 24 bits of the accept
+    # words, so equal bit for bit; its normals are refresh's (one device
+    # function) and the plain version's within cos/log ulps
+    draws = tlf.KERNELS["draws"]
+    n_k, u_k = torch.empty((C, width), device=dev), torch.empty(C, device=dev)
+    n_p, u_p = torch.empty_like(n_k), torch.empty_like(u_k)
+    draws(n_k, u_k, salt, 9)
+    draws.plain(n_p, u_p, salt, 9)
+    sync(torch)
+    uniforms_equal = torch.equal(u_k, u_p)
+    as_refresh = torch.equal(n_k, p)
+    draws_err = rel_err(n_k, n_p)[1]
     line("philox", bits_equal=True, normals=N, max_abs_err=err, mean=mean,
-         var=var)
+         var=var, draws_uniforms_bit_equal=uniforms_equal,
+         draws_normals_rel_err=draws_err, draws_equal_refresh=as_refresh)
     if not ok:
         fail("philox normals")
+    if not uniforms_equal or not as_refresh or draws_err > KERNEL_RTOL:
+        fail(f"philox: draws kernel (uniforms equal {uniforms_equal}, "
+             f"normals as refresh's {as_refresh}, rel err {draws_err})")
 
 
 def kernel_cases(torch, op, C, dev):
@@ -266,6 +409,8 @@ def phase_kernels(torch, tlf, op, C, dev):
     check_gemm(torch, tlf, "residual", {
         n: kernel_cases(torch, op, n, dev)["residual"]
         for n in (C, RAGGED_CHAINS)}, "kernel")
+    check_kick(torch, tlf, {n: kernel_cases(torch, op, n, dev)["kick"][0]
+                            for n in (C, RAGGED_CHAINS)}, "kernel")
     return res
 
 
@@ -342,6 +487,95 @@ def check_gemm(torch, tlf, name, cases, phase):
                  f"guard={guarded}, errors {errs} (limit {KERNEL_RTOL})")
 
 
+def kick_reference(a):
+    """The kick's p from the float64 product of the same bf16-rounded r
+    (rounded to nearest even, as the kernel and the plain version round
+    it) and a float64 epilogue."""
+    r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms = a
+    gdata = r.to(A.dtype).double() @ A.double()
+    dm = x.double() - aprior.double()
+    gm = gm_scale.double() * dm / (dm * dm + beta) ** 2 if ms else dm
+    return p.double() - s_data * gdata - s_mod * gm
+
+
+def kick_product(a):
+    """The kick's arguments with p = 0, s_mod = 0 and s_data = -1: its
+    result is the bare product r A, not hidden under |p|."""
+    return a[:3] + (a[3].new_zeros(a[3].shape),) + a[4:6] + (-1.0, 0.0) \
+        + a[8:]
+
+
+def kick_guarded(torch, tlf, a, tile_m):
+    """The kick through the library's entry on x and p with rows past the
+    last chain up to the tile's edge and one more: x finite there, p NaN.
+    Returns whether those rows of p kept their bits (a store there, even
+    of a NaN computed from them, leaves the card's canonical NaN bits)
+    and the rows < C."""
+    from gravinv3dhmc_tpu_torch.ops import _cuda
+
+    r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms = a
+    C, Mp = x.shape
+    rows = -(-C // tile_m) * tile_m + 1
+    xg = torch.full((rows, Mp), 0.5, device=x.device)
+    pg = torch.full((rows, Mp), float("nan"), device=x.device)
+    xg[:C], pg[:C] = x, p
+    guard = pg[C:].clone()
+    f32, P = torch.float32, _cuda.ptr
+    _cuda.library().call(
+        "lf_kick", P(r, f32), P(A, A.dtype), 1, P(xg, f32), P(pg, f32),
+        P(aprior, f32), P(gm_scale, f32), C, r.shape[1], Mp, s_data, s_mod,
+        beta, int(ms), _cuda.stream(x))
+    sync(torch)
+    return (torch.equal(pg[C:].view(torch.int32), guard.view(torch.int32)),
+            pg[:C])
+
+
+def check_kick(torch, tlf, cases, phase):
+    """The tensor-core kick at each chain count of ``cases`` (chains ->
+    args builder): its plan, two launches bit for bit equal, kernel vs
+    plain and both against float64 (``kick_reference``) for the kick as
+    given and for the bare product, all within ``KERNEL_RTOL``; NaN guard
+    rows after the last chain kept bit for bit; its time beside its
+    bound and one PyTorch matmul of the same product."""
+    kern = tlf.KERNELS["kick"]
+    for C, make in cases.items():
+        r, A = make()[:2]
+        Dp, Mp = A.shape
+        plan = tlf.kick_plan(C, Dp, Mp)
+        errs, outs, bit_equal = {}, {}, True
+        for case, build in (("kick", make), ("product",
+                                             lambda: kick_product(make()))):
+            a1, a2, ap, ar = build(), build(), build(), build()
+            kern(*a1)
+            kern(*a2)
+            kern.plain(*ap)
+            sync(torch)
+            ref = kick_reference(ar)
+            bit_equal &= torch.equal(a1[3], a2[3])
+            outs[case] = a1[3]
+            errs[case] = {"kernel_vs_plain": rel_err(a1[3], ap[3])[1],
+                          "kernel_vs_f64": rel_err(a1[3], ref)[1],
+                          "plain_vs_f64": rel_err(ap[3], ref)[1]}
+        guarded, rows = kick_guarded(torch, tlf, make(), plan["tile"][0])
+        same_rows = torch.equal(rows, outs["kick"])
+        bench = make()
+        ms = time_ms(torch, lambda: kern(*bench))
+        library_ms = time_ms(torch, library_call(torch, "kick", bench))
+        bound_ms, bound_by = bound("kick", bench)
+        line(phase, gemm="kick", shape=[C, Dp, Mp], tile=plan["tile"],
+             blocks=plan["blocks"], waves=plan["waves"],
+             blocks_per_sm=plan["blocks_per_sm"], bit_equal=bit_equal,
+             guard_intact=guarded, guard_launch_same=same_rows, **errs,
+             ms=ms, library_ms=library_ms, bound_ms=bound_ms,
+             bound_by=bound_by, share_of_bound=bound_ms / ms)
+        worst = max(e for case in errs.values() for k, e in case.items()
+                    if k != "plain_vs_f64")
+        if not (bit_equal and guarded and same_rows) or worst > KERNEL_RTOL:
+            fail(f"gemm kick at {C} chains: bit_equal={bit_equal}, "
+                 f"guard={guarded}, same rows={same_rows}, errors {errs} "
+                 f"(limit {KERNEL_RTOL})")
+
+
 def run_kernel_cases(torch, tlf, cases, shape, phase):
     """Run each case through the kernel and its plain version, compare,
     time both; returns name -> errors and times."""
@@ -374,9 +608,13 @@ def run_kernel_cases(torch, tlf, cases, shape, phase):
         bench_k, bench_p = make(), make()
         ms = time_ms(torch, lambda: kern(*bench_k))
         plain_ms = time_ms(torch, lambda: kern.plain(*bench_p))
+        lib = library_call(torch, name, bench_k)
+        bound_ms, bound_by = bound(name, bench_k, extra.get("accepted"))
         worst_rel = max(errs.values())
         results[name] = {"max_abs_err": worst_abs, "rel_err": worst_rel,
-                         "ms": ms, "plain_ms": plain_ms}
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": time_ms(torch, lib) if lib else None}
         line(phase, name=name, shape=shape, rel_errs=errs, **extra,
              **results[name])
         if worst_rel > KERNEL_RTOL:
@@ -457,6 +695,34 @@ def phase_iter(torch, tlf, philox, module, dobs, dev):
         fail(f"iter: errors {bad}, kept={kept}, philox={same_philox}")
 
 
+class PlainPhilox:
+    """Counts the calls of the plain Philox draws
+    (``ops.philox.momentum_normals`` and ``accept_uniforms``) made while
+    it is entered: on the card's main paths the kernels draw."""
+    NAMES = ("momentum_normals", "accept_uniforms")
+
+    def __init__(self, philox):
+        self.philox = philox
+        self.calls = 0
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.philox, n) for n in self.NAMES}
+
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for n, fn in self.saved.items():
+            setattr(self.philox, n, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.philox, n, fn)
+
+
 def phase_slice(torch, tlf, module, dobs, dev, smi):
     from gravinv3dhmc_tpu_torch.uniformgrid import SLICE as cfg
     from gravinv3dhmc_tpu_torch.uniformgrid import slice_sampler
@@ -532,8 +798,10 @@ def phase_gz(torch, dev, smi):
     plain_ms = time_ms(torch, lambda: kern.plain(obs, cells_t, scale),
                        reps=3, warmup=1)
     finite = bool(torch.isfinite(out_k).all())
+    bound_ms, bound_by = bound("gz", (obs, cells_t, scale))
     result = {"max_abs_err": (out_k.double() - out_p.double()).abs()
-              .max().item(), "ms": ms, "plain_ms": plain_ms}
+              .max().item(), "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     line("gz", shape=list(out_k.shape), errors=errs, host_f64_s=host_s,
          finite=finite, card=smi, **result)
     bad = [k for k, (e_max, e_fro) in errs.items()
@@ -555,7 +823,7 @@ def phase_slice2(torch, tlf, dev, smi):
     res, carry = ratiogrid.run_chunks(run_chunk, carry, 0, 4, dev)
     sync(torch)
     counts = tlf.launch_counts()
-    path = ("gz",) + tlf.STEP_KERNELS
+    path = ("gz",) + tlf.STEP_KERNELS + ("draws",)
     line("slice2", problem=[int(dobs.size), module.n_active],
          nchains=cfg["nchains"], chunk=cfg["chunk"], **res, **seconds,
          launches={n: counts[n] for n in path}, card=smi)
@@ -599,7 +867,10 @@ def phase_reference2(torch, dev):
 
 def step_kernel_cases(torch, op, C, dev):
     """Inputs for the step's kernels at the op's shapes (a non-zero fix
-    and alpha 0.5, so dropping either shows)."""
+    and alpha 0.5, so dropping either shows) and for the draws its
+    sampler makes."""
+    from gravinv3dhmc_tpu_torch.ops import philox
+
     pp = op._padded
     Mp, Dp = op.Mp, op.Dp
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -616,6 +887,7 @@ def step_kernel_cases(torch, op, C, dev):
     r = randn(C, Dp, scale=0.1) * pp["dmask"]
     fix = randn(Dp, scale=0.1) * pp["dmask"]
     ud = 50.0 + randn(C).abs()
+    salt = philox.salt_from_seed(6)
     e = 0.01
     return {
         "drift": (lambda: (x.clone(), p.clone(), None, pp["im"], pp["low"],
@@ -631,6 +903,8 @@ def step_kernel_cases(torch, op, C, dev):
         "step_misfit": (lambda: (x.clone(), pp["aprior"], pp["wmsq"], ud,
                                  f(C), f(C), 0.5, op.beta, True),
                         lambda a: {"U": a[4], "um": a[5]}),
+        "draws": (lambda: (f(C, Mp), f(C), salt, 7),
+                  lambda a: {"n01": a[0], "u": a[1]}),
     }
 
 
@@ -649,6 +923,9 @@ def phase_step_kernels(torch, tlf, module, dobs, dev):
                            [C, op.Dp, op.Mp], "step_kernel")
     check_gemm(torch, tlf, "step_residual", {
         n: step_kernel_cases(torch, op, n, dev)["step_residual"]
+        for n in (C, RAGGED_CHAINS)}, "step_kernel")
+    check_kick(torch, tlf, {
+        n: step_kernel_cases(torch, op, n, dev)["kick"][0]
         for n in (C, RAGGED_CHAINS)}, "step_kernel")
     return res
 
@@ -750,6 +1027,8 @@ def main():
     from gravinv3dhmc_tpu_torch.ops import _cuda, philox
     from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
 
+    tc_kernels = ("residual_partial_tc_kernel", "kick_tc_kernel")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -760,13 +1039,16 @@ def main():
     ptxas = {name: [ln.strip() for ln in lib.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, lib in libs.items()}
-    hgmma = sass_count(libs["leapfrog"], "HGMMA")
+    counts = sass_counts(libs["leapfrog"], "HGMMA")
+    hgmma = {k: sum(n for fn, n in counts.items() if k in fn)
+             for k in tc_kernels}
     line("build", seconds=time.perf_counter() - t0,
          nvcc_seconds={n: lib.build_seconds for n, lib in libs.items()},
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         ptxas=ptxas, leapfrog_hgmma=hgmma)
-    if hgmma == 0:
-        fail("build: no HGMMA instruction in the leapfrog library's SASS")
+         ptxas=ptxas, leapfrog_hgmma=sum(counts.values()), hgmma=hgmma)
+    if not all(hgmma.values()):
+        fail(f"build: a tensor-core kernel without HGMMA in its SASS: "
+             f"{hgmma}")
 
     phase_philox(torch, tlf, philox, dev)
 
@@ -780,24 +1062,30 @@ def main():
     kres = phase_kernels(torch, tlf, op, uniformgrid.SLICE["nchains"], dev)
     phase_traj(torch, tlf, module, dobs, dev)
     phase_iter(torch, tlf, philox, module, dobs, dev)
-    counts = phase_slice(torch, tlf, module, dobs, dev, smi)
+    with PlainPhilox(philox) as plain:
+        counts = phase_slice(torch, tlf, module, dobs, dev, smi)
     phase_reference(torch, dev)
     del module, op
 
     kres["gz"] = phase_gz(torch, dev, smi)
-    module2, dobs2, counts2 = phase_slice2(torch, tlf, dev, smi)
+    with plain:
+        module2, dobs2, counts2 = phase_slice2(torch, tlf, dev, smi)
+    line("plain_philox", calls_in_slices=plain.calls)
+    if plain.calls:
+        fail(f"the slices called the plain Philox {plain.calls} times")
     phase_reference2(torch, dev)
     sres = phase_step_kernels(torch, tlf, module2, dobs2, dev)
-    for name in ("step_residual", "step_misfit"):
+    for name in ("step_residual", "step_misfit", "draws"):
         kres[name] = sres[name]
     phase_step(torch, tlf, module2, dobs2, dev)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": counts[name] + counts2[name],
-         "max_abs_err": kres[name]["max_abs_err"],
-         "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"]}
+         **{key: kres[name][key] for key in keys}}
         for name, k in tlf.KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

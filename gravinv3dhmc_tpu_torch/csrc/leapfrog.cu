@@ -35,28 +35,35 @@
 //                over the true n_obs, r = ((d - mean) - dobs) * dmask,
 //                ud = sum r^2                                       (_step)
 //   step_misfit  one block per chain: um and U = ud + alpha um      (_step)
+//   draws        elementwise: the momentum normals and accept uniforms
+//                that refresh and accept draw, as inputs for the
+//                trajectory and per-step samplers   (_iter's on-chip PRNG)
 // The per-step op reuses drift and kick as they are; the kick epilogue
 // already applies p -= s_data gdata + s_mod gm, the full kick of _step.
 //
 // What bounds it: each GEMM is 2*C*Mp*Dp FLOP, about 7.9 GFLOP at
 // C=1024, Mp=6016, Dp=640 (36 GFLOP at the ratiogrid's 1024 x 1024 x
 // 17,152), and A_c (7.7 MB bf16, 15.4 MB f32) stays in the 50 MB L2
-// across steps, so the GEMMs are bound by arithmetic.
+// across steps. The residual GEMM is bound by arithmetic; the kick's
+// epilogue reads x and p and writes p (74 MB at uniformgrid), which
+// bounds it by memory (22 us at 3.35 TB/s against 8 us of bf16 tensor
+// work).
 //
-// The residual GEMM with a bf16 matrix (residual and step_residual) runs
-// on the tensor cores: residual_partial_tc_kernel below, wgmma fed by TMA
-// (its comment gives the design). Both operands of the product are bf16
-// values (x is rounded to bf16 as x.astype(matvec_dtype) is in the TPU
-// kernels), a bf16 x bf16 product is exact in f32, and the wgmma sum of
-// every 256-deep run of K is added to the result in IEEE f32, so it
-// computes the same products with the sums in another order. The
-// f32-matrix residual (the future realdata path, which must stay IEEE
-// f32) and the kick GEMM are tiled SIMT GEMMs (64x64 block
-// tile, 4x4 per thread, f32 FMA accumulation, A loaded as bf16 or f32 and
-// widened in registers). The dtype alone picks the residual kernel; there
-// is no fallback between the two. A tensor-core kick, a persistent L-loop
-// that keeps chain tiles on chip, and CUDA graphs over the step launches
-// are later work.
+// Both GEMMs with a bf16 matrix run on the tensor cores: wgmma fed by TMA
+// through one warp-specialised mainloop (tc_mainloop below, whose comment
+// gives the design). The residual (residual and step_residual) reads A
+// as a K-major B (residual_partial_tc_kernel); the kick reads the same A
+// as an MN-major B through wgmma's transpose immediate, with no
+// transposed copy (kick_tc_kernel). Both operands of every product are
+// bf16 values (x and r are rounded to bf16 as .astype(matvec_dtype) is in
+// the TPU kernels), a bf16 x bf16 product is exact in f32, and the wgmma
+// sum of every 256-deep run of K is added to the result in IEEE f32, so
+// they compute the same products with the sums in another order. The
+// f32-matrix GEMMs (the future realdata path, which must stay IEEE f32)
+// are tiled SIMT GEMMs (64x64 block tile, 4x4 per thread, f32 FMA
+// accumulation). The dtype alone picks the kernel; there is no fallback
+// between the two. A persistent L-loop that keeps chain tiles on chip,
+// and CUDA graphs over the step launches, are later work.
 //
 // Random numbers: Philox4x32-10 keyed by a salt from the run seed, with
 // counter (element group, chain, global iteration, stream); the plain
@@ -86,20 +93,19 @@ constexpr int BK = 16;       // reduction depth per shared-memory stage
 constexpr int GEMM_THREADS = 256;
 constexpr int ROW_THREADS = 256;
 
-// the tensor-core residual GEMM (residual_partial_tc_kernel)
-constexpr int TC_BM = 128;      // chains per block tile: two warpgroups of 64
-constexpr int TC_BN = 128;      // observations per block tile (wgmma N)
+// the tensor-core GEMMs (tc_mainloop; TcRing below sizes their rings)
+constexpr int TC_BN = 128;      // output columns per block tile (wgmma N)
 constexpr int TC_BK = 64;       // K per stage: 64 bf16 = one 128-byte row
-constexpr int TC_STAGES = 4;    // shared-memory ring depth
 constexpr int TC_PROMOTE = 4;   // stages the tensor cores sum per IEEE add
-constexpr int TC_CONSUMERS = 2; // consumer warpgroups
-constexpr int TC_THREADS = TC_CONSUMERS * 128 + 32;  // + one producer warp
-constexpr int TC_X_BOX = 32;    // f32 per 128-byte row of an x box
-constexpr int TC_A_BYTES = TC_BN * TC_BK * 2;        // 16 KB
-constexpr int TC_X_BYTES = TC_BM * TC_BK * 4;        // 32 KB, two boxes
-constexpr int TC_STAGE_BYTES = TC_A_BYTES + TC_X_BYTES;
-// the ring plus slack to align it to the 1024-byte swizzle period
-constexpr int TC_SMEM = TC_STAGES * TC_STAGE_BYTES + 1024;
+constexpr int TC_X_BOX = 32;    // f32 per 128-byte row of an x (or r) box
+constexpr int TC_B_BYTES = TC_BN * TC_BK * 2;        // 16 KB of bf16 B
+// an MN-major B tile comes in boxes of 64 columns (one 128-byte row) by
+// TC_BK rows of K, two per TC_BN-wide tile
+constexpr int TC_MN_BOX = 64;
+constexpr int TC_MN_BOX_BYTES = TC_MN_BOX * TC_BK * 2;  // 8 KB
+// the bf16 kick: consumer warpgroups (64 chains each) and ring stages
+constexpr int KICK_CONSUMERS = 2;
+constexpr int KICK_STAGES = 3;
 
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
 constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
@@ -144,6 +150,24 @@ __device__ __forceinline__ float2 box_muller(uint32_t w1, uint32_t w2) {
   return make_float2(rad * cosf(th), rad * sinf(th));
 }
 
+// momentum normals 4j .. 4j + 3 of chain c: Box-Muller over the word
+// pairs of counter (j, c, iteration, STREAM_MOMENTUM)
+__device__ __forceinline__ float4 momentum4(int j, int c, uint32_t iteration,
+                                            uint32_t k0, uint32_t k1) {
+  const uint4 w = philox4x32_10((uint32_t)j, (uint32_t)c, iteration,
+                                STREAM_MOMENTUM, k0, k1);
+  const float2 a = box_muller(w.x, w.y), b = box_muller(w.z, w.w);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// chain c's Metropolis uniform: word 0 of counter (0, c, iteration,
+// STREAM_ACCEPT)
+__device__ __forceinline__ float accept_uniform(int c, uint32_t iteration,
+                                                uint32_t k0, uint32_t k1) {
+  return u24(philox4x32_10(0u, (uint32_t)c, iteration, STREAM_ACCEPT, k0,
+                           k1).x);
+}
+
 // sum over the block; every thread gets the result. sh holds >= 32 floats.
 __device__ float block_sum(float v, float* sh) {
 #pragma unroll
@@ -163,37 +187,9 @@ __device__ float block_sum(float v, float* sh) {
   return out;
 }
 
-// four consecutive matrix elements widened to float
-template <typename T> struct Load4;
-template <> struct Load4<float> {
-  __device__ static float4 load(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-};
-template <> struct Load4<__nv_bfloat16> {
-  __device__ static float4 load(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 a, b;
-    a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-    b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-    const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-    return make_float4(fa.x, fa.y, fb.x, fb.y);
-  }
-};
-
-// the matvec operand rounded to the matrix type, as x.astype(matvec_dtype)
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Load one BM x BK tile of a row-major f32 chain operand S (rows = chains,
-// K contiguous, leading dimension ld) transposed into sS[BK][BM + 4],
-// rounded to the matrix type. Rows past C read as zero.
-template <typename T>
+// K contiguous, leading dimension ld) transposed into sS[BK][BM + 4].
+// Rows past C read as zero.
 __device__ __forceinline__ void load_chain_tile(const float* S, int ld, int C,
                                                 int c0, int k0,
                                                 float (*sS)[BM + 4]) {
@@ -202,10 +198,10 @@ __device__ __forceinline__ void load_chain_tile(const float* S, int ld, int C,
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (c0 + row < C)
     v = *reinterpret_cast<const float4*>(S + (size_t)(c0 + row) * ld + k0 + kq);
-  sS[kq + 0][row] = round_to<T>(v.x);
-  sS[kq + 1][row] = round_to<T>(v.y);
-  sS[kq + 2][row] = round_to<T>(v.z);
-  sS[kq + 3][row] = round_to<T>(v.w);
+  sS[kq + 0][row] = v.x;
+  sS[kq + 1][row] = v.y;
+  sS[kq + 2][row] = v.z;
+  sS[kq + 3][row] = v.w;
 }
 
 // the 4x4 register tile update over one shared-memory stage
@@ -241,16 +237,9 @@ __global__ void refresh_kernel(const float* __restrict__ g,
   const size_t row = (size_t)c * Mp;
   float kin = 0.0f;
   for (int j = threadIdx.x; j < Mp / 4; j += blockDim.x) {
-    float n[4];
-    if (n01) {
-      const float4 v = *reinterpret_cast<const float4*>(n01 + row + 4 * j);
-      n[0] = v.x; n[1] = v.y; n[2] = v.z; n[3] = v.w;
-    } else {
-      const uint4 w = philox4x32_10((uint32_t)j, (uint32_t)c, iteration,
-                                    STREAM_MOMENTUM, k0, k1);
-      const float2 a = box_muller(w.x, w.y), b = box_muller(w.z, w.w);
-      n[0] = a.x; n[1] = a.y; n[2] = b.x; n[3] = b.y;
-    }
+    const float4 v = n01 ? *reinterpret_cast<const float4*>(n01 + row + 4 * j)
+                         : momentum4(j, c, iteration, k0, k1);
+    const float n[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int m = 4 * j + q;
@@ -328,11 +317,11 @@ residual_partial_kernel(const float* __restrict__ x,
   const int t = threadIdx.x;
   float acc[4][4] = {};
   for (int k0 = st.x * BK; k0 < st.y * BK; k0 += BK) {
-    load_chain_tile<float>(x, Mp, C, c0, k0, sX);
+    load_chain_tile(x, Mp, C, c0, k0, sX);
     {  // A rows d0.. (K = m contiguous), stored transposed
       const int row = t >> 2, kq = (t & 3) * 4;
-      const float4 v = Load4<float>::load(A + (size_t)(d0 + row) * Mp + k0 +
-                                          kq);
+      const float4 v = *reinterpret_cast<const float4*>(
+          A + (size_t)(d0 + row) * Mp + k0 + kq);
       sA[kq + 0][row] = v.x;
       sA[kq + 1][row] = v.y;
       sA[kq + 2][row] = v.z;
@@ -353,7 +342,7 @@ residual_partial_kernel(const float* __restrict__ x,
   }
 }
 
-// ----------------------------------------- the tensor-core residual GEMM
+// ------------------------------------------------ the tensor-core GEMMs
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -394,7 +383,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                : "memory");
 }
 
-// one 2-D TMA box (inner coordinate k, outer row) into shared memory
+// one 2-D TMA box at (inner coordinate, row) into shared memory
 __device__ __forceinline__ void tma_load_2d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint64_t* bar, int k, int row) {
@@ -415,6 +404,18 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// wgmma descriptor of an MN-major bf16 tile under the 128-byte swizzle,
+// as TMA writes it in boxes of 64 columns (one 128-byte row) by TC_BK K
+// rows: start address in 16-byte units, leading offset the step from one
+// 64-column box to the next (TC_MN_BOX_BYTES), stride offset the step
+// between groups of 8 K rows (1024 bytes), layout type 1 = 128-byte
+// swizzle (the strides of CuTe's make_gmma_desc<GMMA::Major::MN>)
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
+         ((uint64_t)(TC_MN_BOX_BYTES >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // keeps the compiler from moving accumulator reads and writes across the
 // asynchronous wgmma instructions
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
@@ -422,8 +423,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 128] = a[64 x 16] (bf16, registers) * b[128 x 16]^T (bf16,
-// shared memory through desc_b) + (accumulate ? d : 0), f32 accumulation
+// d[64 x 128] = a[64 x 16] (bf16, registers) * B[16 x 128] (bf16, shared
+// memory through desc_b) + (accumulate ? d : 0), f32 accumulation. B is
+// K-major (TRANS_B = 0: stored as 128 rows of 16 K) or MN-major
+// (TRANS_B = 1: 16 K rows of 128 columns), the instruction's transpose
+// immediate.
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
                                                     uint64_t desc_b,
@@ -439,7 +444,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -457,7 +462,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate)
+        "r"(accumulate), "n"(TRANS_B)
       : "memory");
 }
 
@@ -468,30 +473,72 @@ __device__ __forceinline__ uint32_t pack_bf16x2_rn(float2 v) {
   return *reinterpret_cast<const uint32_t*>(&b);
 }
 
-// GEMM 1 in K slices with a bf16 matrix, on the tensor cores:
-// part[s, c, d] = sum over the s-th slice of m of bf16_rn(x[c, m]) A[d, m],
-// f32 accumulation. Both operands are K-major (a "TN" product).
+// The ring of the warp-specialised tensor-core mainloop: CONSUMERS
+// warpgroups of 64 chain rows each and one producer warp; a stage holds
+// the B tile (TC_BN columns x TC_BK of K, bf16) and the f32 operand's
+// BM x TC_BK tile (two boxes of 128-byte rows).
+template <int CONSUMERS, int STAGES>
+struct TcRing {
+  static constexpr int BM = 64 * CONSUMERS;
+  static constexpr int THREADS = 128 * CONSUMERS + 32;
+  static constexpr int X_BYTES = BM * TC_BK * 4;
+  static constexpr int STAGE_BYTES = TC_B_BYTES + X_BYTES;
+  // the ring plus slack to align it to the 1024-byte swizzle period
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
+};
+// the residual GEMM: 128 x 128 tiles, a 4-stage ring (197 KB), one block
+// an SM
+using ResidualRing = TcRing<2, 4>;
+using KickRing = TcRing<KICK_CONSUMERS, KICK_STAGES>;
+// blocks an SM the kick's registers are bounded for: each consumer thread
+// holds two 64-float accumulators, so only one-warpgroup blocks fit twice
+constexpr int KICK_MIN_BLOCKS = KICK_CONSUMERS == 1 ? 2 : 1;
+// floats per row of the kick's epilogue tile in shared memory: the pad
+// makes the accumulators' float2 writes free of bank conflicts
+constexpr int KICK_TILE_LD = TC_BN + 8;
+static_assert(KickRing::BM * KICK_TILE_LD * 4 <=
+                  KICK_STAGES * KickRing::STAGE_BYTES,
+              "the kick's epilogue tile must fit in its ring");
+
+// the ring: dynamic shared memory aligned to the swizzle's 1024-byte
+// period
+__device__ __forceinline__ unsigned char* tc_ring() {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  return smem_raw + (((raw + 1023u) & ~1023u) - raw);
+}
+
+// this consumer thread's first accumulator row in the block tile; the
+// wgmma accumulator acc[4j + 2v + e] is row tc_row0() + 8v, column
+// 8j + 2 (lane & 3) + e
+__device__ __forceinline__ int tc_row0() {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+}
+
+// The mainloop shared by the tensor-core GEMMs: acc = sum over the K
+// stages [first, first + n) of bf16_rn(X[c0 + row, k]) B[k, n0 + col] for
+// this consumer thread's 64 accumulator entries (tc_row0), f32
+// accumulation. X is an f32 operand (rows = chains, K contiguous) read
+// through x_map; B a bf16 matrix read through b_map, K-major (B_MN false:
+// its rows are the N columns, K contiguous, as A in x A^T) or MN-major
+// (B_MN true: its rows are K, N contiguous, as A in r A). Returns false in
+// the producer warp, which has nothing left to do.
 //
-// What bounds it: a 128 x 128 tile over a 64-deep stage is 2.1 MFLOP
-// against 48 KB of operands (32 KB of f32 x, 16 KB of bf16 A), 43 FLOP a
-// byte moved from L2 into shared memory, so at the tensor-core rate the
-// L2-to-SM traffic, not the tensor cores, is the first limit; the x tile
-// of one (chain tile, slice) is read by all Dp/128 observation tiles,
-// launched next to each other (blockIdx.x) so they find it in L2.
-//
-// Design: one block per 128 chains x 128 observations x one K slice.
-// One producer warp (one thread) keeps a ring of TC_STAGES stages full
-// through TMA: per stage one box of A (128 rows x 64 bf16) and two boxes
-// of x (128 rows x 32 f32, a 128-byte swizzled row each), completion
+// Design: one producer warp (one thread) keeps a ring of STAGES stages
+// full through TMA: per stage the B tile (K-major: one box of 128 rows x
+// 64 bf16; MN-major: two boxes of 64 K rows x 64 columns) and two boxes
+// of X (BM rows x 32 f32, a 128-byte swizzled row each), completion
 // counted on the stage's `full` mbarrier. Rows >= C come from TMA's zero
-// fill and are not stored. Two consumer warpgroups own 64 chain rows
-// each: per 16-deep k step a thread reads its wgmma A fragment (rows g
-// and g + 8 of its warp's 16, columns 2t, 2t + 1, 2t + 8, 2t + 9) from the
-// swizzled f32 x tile, rounds it to bf16 in registers, and issues
-// wgmma.m64n128k16 with B read by descriptor straight from the swizzled A
-// tile. Each warpgroup waits for its stage's wgmmas before it releases
-// the stage (`empty` mbarrier, 256 arrivals); the two warpgroups and the
-// 4-stage ring keep the tensor cores fed meanwhile.
+// fill. Each consumer warpgroup owns 64 chain rows: per 16-deep k step a
+// thread reads its wgmma A fragment (rows g and g + 8 of its warp's 16,
+// columns 2t, 2t + 1, 2t + 8, 2t + 9) from the swizzled f32 tile, rounds
+// it to bf16 in registers, and issues wgmma.m64n128k16 with B read by
+// descriptor straight from the swizzled B tile (the MN-major one with the
+// transpose immediate). Each warpgroup waits for its stage's wgmmas
+// before it releases the stage (`empty` mbarrier, one arrival a consumer
+// thread); the other warpgroups and the ring keep the tensor cores fed
+// meanwhile.
 //
 // Precision: the tensor cores' own f32 accumulation loses bits over a long
 // K chain (one wgmma accumulator per 8576-deep slice missed the float64
@@ -501,62 +548,61 @@ __device__ __forceinline__ uint32_t pack_bf16x2_rn(float2 v) {
 // is then added to an f32 accumulator in registers with IEEE adds: error
 // 5.9e-7, time +2 % (H100, 1024 x 1024 x 17,152). Adding after every
 // stage cost +36 % there for no further gain.
-__global__ void __launch_bounds__(TC_THREADS, 1)
-residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
-                           __grid_constant__ const CUtensorMap a_map,
-                           float* __restrict__ part, int C, int Dp,
-                           int n_stages, int splits) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[TC_STAGES];
-  __shared__ __align__(8) uint64_t empty[TC_STAGES];
-  // the ring, aligned to the swizzle's 1024-byte period
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
-  unsigned char* ring = smem_raw + pad;
-  const uint32_t ring_u32 = raw + pad;
+template <int CONSUMERS, int STAGES, bool B_MN>
+__device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
+                                            const CUtensorMap* b_map,
+                                            int first, int n, int c0,
+                                            int n0, float (&acc)[64]) {
+  using R = TcRing<CONSUMERS, STAGES>;
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  unsigned char* ring = tc_ring();
+  const uint32_t ring_u32 = smem_u32(ring);
 
-  const int2 st = slice_stages(blockIdx.z, n_stages, splits);
-  const int n_local = st.y - st.x;
-  const int c0 = blockIdx.y * TC_BM, d0 = blockIdx.x * TC_BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < TC_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], TC_CONSUMERS * 128);
+      mbar_init(&empty[s], CONSUMERS * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == TC_CONSUMERS * 4) {  // the producer warp
+  if (warp == CONSUMERS * 4) {  // the producer warp
     if (lane == 0) {
-      for (int i = 0; i < n_local; ++i) {
-        const int s = i % TC_STAGES;
-        mbar_wait(&empty[s], ((i / TC_STAGES) & 1) ^ 1);
-        const uint32_t dst = ring_u32 + s * TC_STAGE_BYTES;
-        const int k = (st.x + i) * TC_BK;
-        mbar_expect_tx(&full[s], TC_STAGE_BYTES);
-        tma_load_2d(dst, &a_map, &full[s], k, d0);
-        tma_load_2d(dst + TC_A_BYTES, &x_map, &full[s], k, c0);
-        tma_load_2d(dst + TC_A_BYTES + TC_X_BYTES / 2, &x_map, &full[s],
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        const uint32_t dst = ring_u32 + s * R::STAGE_BYTES;
+        const int k = (first + i) * TC_BK;
+        mbar_expect_tx(&full[s], R::STAGE_BYTES);
+        if (B_MN) {
+          tma_load_2d(dst, b_map, &full[s], n0, k);
+          tma_load_2d(dst + TC_MN_BOX_BYTES, b_map, &full[s], n0 + TC_MN_BOX,
+                      k);
+        } else {
+          tma_load_2d(dst, b_map, &full[s], k, n0);
+        }
+        tma_load_2d(dst + TC_B_BYTES, x_map, &full[s], k, c0);
+        tma_load_2d(dst + TC_B_BYTES + R::X_BYTES / 2, x_map, &full[s],
                     k + TC_X_BOX, c0);
       }
     }
-    return;
+    return false;
   }
 
-  const int wg = warp >> 2;
   // this thread's fragment rows g and g + 8 of its warp's 16; every row
   // is g modulo 8, which is the swizzle's XOR for that row
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = wg * 64 + (warp & 3) * 16 + g;
-  float acc[64], stage_acc[64];
+  const int row0 = tc_row0();
+  float stage_acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = stage_acc[i] = 0.0f;
-  for (int i = 0; i < n_local; ++i) {
-    const int s = i % TC_STAGES;
-    mbar_wait(&full[s], (i / TC_STAGES) & 1);
-    const unsigned char* xs = ring + s * TC_STAGE_BYTES + TC_A_BYTES;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const unsigned char* xs = ring + s * R::STAGE_BYTES + TC_B_BYTES;
     uint32_t a[4][4];
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk) {
@@ -564,7 +610,7 @@ residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
       for (int h = 0; h < 2; ++h) {  // columns 2t, 2t + 1 and 2t + 8, 2t + 9
         const int col = kk * 16 + h * 8 + 2 * t;
         const int c = col % TC_X_BOX;
-        const unsigned char* box = xs + (col / TC_X_BOX) * (TC_X_BYTES / 2);
+        const unsigned char* box = xs + (col / TC_X_BOX) * (R::X_BYTES / 2);
         const int off = (((c >> 2) ^ g) << 4) | ((c & 3) << 2);
 #pragma unroll
         for (int v = 0; v < 2; ++v)  // rows g, g + 8
@@ -572,25 +618,53 @@ residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
               box + (row0 + 8 * v) * 128 + off));
       }
     }
-    const uint32_t b = ring_u32 + s * TC_STAGE_BYTES;
+    const uint32_t b = ring_u32 + s * R::STAGE_BYTES;
     const int fresh = i % TC_PROMOTE == 0;
     fence_acc(stage_acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk)
-      wgmma_m64n128k16_rs(stage_acc, a[kk], sw128_desc(b + kk * 32),
-                          kk > 0 || !fresh);
+      // a k step is 32 bytes along a K-major row, 16 rows of 128 bytes
+      // down an MN-major box
+      wgmma_m64n128k16_rs<B_MN>(
+          stage_acc, a[kk],
+          B_MN ? sw128_mn_desc(b + kk * 16 * 128) : sw128_desc(b + kk * 32),
+          kk > 0 || !fresh);
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(stage_acc);
     mbar_arrive(&empty[s]);
-    if (i % TC_PROMOTE == TC_PROMOTE - 1 || i == n_local - 1) {
+    if (i % TC_PROMOTE == TC_PROMOTE - 1 || i == n - 1) {
 #pragma unroll
       for (int j = 0; j < 64; ++j) acc[j] += stage_acc[j];
     }
   }
+  return true;
+}
 
-  // accumulator layout: acc[4j + 2v + e] is row row0 + 8v, column 8j + 2t + e
+// GEMM 1 in K slices with a bf16 matrix, on the tensor cores:
+// part[s, c, d] = sum over the s-th slice of m of bf16_rn(x[c, m]) A[d, m],
+// f32 accumulation. Both operands are K-major (a "TN" product); one block
+// per 128 chains x 128 observations x one K slice.
+//
+// What bounds it: a 128 x 128 tile over a 64-deep stage is 2.1 MFLOP
+// against 48 KB of operands (32 KB of f32 x, 16 KB of bf16 A), 43 FLOP a
+// byte moved from L2 into shared memory, so at the tensor-core rate the
+// L2-to-SM traffic, not the tensor cores, is the first limit; the x tile
+// of one (chain tile, slice) is read by all Dp/128 observation tiles,
+// launched next to each other (blockIdx.x) so they find it in L2.
+__global__ void __launch_bounds__(ResidualRing::THREADS, 1)
+residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
+                           __grid_constant__ const CUtensorMap a_map,
+                           float* __restrict__ part, int C, int Dp,
+                           int n_stages, int splits) {
+  const int2 st = slice_stages(blockIdx.z, n_stages, splits);
+  const int c0 = blockIdx.y * ResidualRing::BM, d0 = blockIdx.x * TC_BN;
+  float acc[64];
+  if (!tc_mainloop<2, 4, false>(&x_map, &a_map, st.x, st.y - st.x, c0, d0,
+                                acc))
+    return;
+  const int row0 = tc_row0(), t = threadIdx.x & 3;
   float* out = part + (size_t)blockIdx.z * C * Dp;
 #pragma unroll
   for (int v = 0; v < 2; ++v) {
@@ -679,10 +753,27 @@ __global__ void step_misfit_kernel(const float* __restrict__ x,
   }
 }
 
-// p[c, m] = p - s_data * (sum_d round(r[c, d]) A[d, m]) - s_mod * gm(x[c, m])
-template <typename T>
+// One entry of the kick epilogue: p - s_data gdata - s_mod gm(x), with gm
+// the MS (gm_scale dm / (dm^2 + beta)^2) or Damping (dm) gradient of
+// dm = x - aprior, each operation rounded on its own
+__device__ __forceinline__ float kick_value(float p, float gdata, float x,
+                                            float ap, float gs, float s_data,
+                                            float s_mod, float beta, int ms) {
+  const float dm = x - ap;
+  float gm;
+  if (ms) {
+    const float inv = 1.0f / (dm * dm + beta);
+    gm = gs * dm * (inv * inv);
+  } else {
+    gm = dm;
+  }
+  return p - s_data * gdata - s_mod * gm;
+}
+
+// The kick with an f32 matrix, SIMT (IEEE f32, no TF32):
+// p[c, m] = p - s_data * (sum_d r[c, d] A[d, m]) - s_mod * gm(x[c, m])
 __global__ void __launch_bounds__(GEMM_THREADS)
-kick_kernel(const float* __restrict__ r, const T* __restrict__ A,
+kick_kernel(const float* __restrict__ r, const float* __restrict__ A,
             const float* __restrict__ x, float* __restrict__ p,
             const float* __restrict__ aprior,
             const float* __restrict__ gm_scale, int C, int Dp, int Mp,
@@ -693,11 +784,12 @@ kick_kernel(const float* __restrict__ r, const T* __restrict__ A,
   const int t = threadIdx.x;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < Dp; k0 += BK) {
-    load_chain_tile<T>(r, Dp, C, c0, k0, sR);
+    load_chain_tile(r, Dp, C, c0, k0, sR);
     {  // A rows k0.. (N = m contiguous), stored as is
       const int krow = t >> 4, nq = (t & 15) * 4;
-      const float4 v = Load4<T>::load(A + (size_t)(k0 + krow) * Mp + m0 + nq);
-      *reinterpret_cast<float4*>(&sA[krow][nq]) = v;
+      *reinterpret_cast<float4*>(&sA[krow][nq]) =
+          *reinterpret_cast<const float4*>(A + (size_t)(k0 + krow) * Mp + m0 +
+                                           nq);
     }
     __syncthreads();
     mma_stage(sR, sA, acc);
@@ -719,19 +811,88 @@ kick_kernel(const float* __restrict__ r, const T* __restrict__ A,
     const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
     float ps[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float dm = xs[j] - aps[j];
-      float gm;
-      if (ms) {
-        const float inv = 1.0f / (dm * dm + beta);
-        gm = gss[j] * dm * (inv * inv);
-      } else {
-        gm = dm;
-      }
-      ps[j] = ps[j] - s_data * acc[i][j] - s_mod * gm;
-    }
+    for (int j = 0; j < 4; ++j)
+      ps[j] = kick_value(ps[j], acc[i][j], xs[j], aps[j], gss[j], s_data,
+                         s_mod, beta, ms);
     *reinterpret_cast<float4*>(p + off) = make_float4(ps[0], ps[1], ps[2],
                                                       ps[3]);
+  }
+}
+
+// The kick with a bf16 matrix, on the tensor cores:
+// p[c, m] = p - s_data * (sum_d bf16_rn(r[c, d]) A[d, m]) - s_mod gm(x[c, m]),
+// the GEMM f32-accumulated with M = chains, N = m and K = d. A (Dp x Mp,
+// m contiguous) is B as stored, MN-major: tc_mainloop reads it through
+// the transpose immediate, so no transposed copy is kept and A keeps its
+// place in L2. One block per KickRing::BM chains x 128 columns covers all
+// of K (Dp / 64 stages, 10 at uniformgrid, 16 at ratiogrid); no split.
+// The chain tiles run fastest (blockIdx.x), so the blocks that read one
+// 128-column slab of A run side by side and a wave reads 1/8 of A, not
+// all of it. Ring and raster were timed on the H100 (kick_tune.py and
+// PERF.md): 2 consumer warpgroups, 3 stages, 145 KB, one block an SM.
+//
+// What bounds it: memory. A 128 x 128 tile reads 128 KB of x and p and
+// writes 64 KB of p from and to device memory, against 0.5-0.8 MB of
+// operands streamed from L2 by the mainloop (r's f32 rows again for
+// every column tile), and the whole call moves 84 MB (uniformgrid: x and
+// p read, p written, r and A) against 7.9 GFLOP: 25 us at 3.35 TB/s, 8 us
+// at the bf16 tensor rate. A block runs its mainloop and then its
+// epilogue, and with one block an SM nothing overlaps the two; a
+// persistent block that streams the next tile during the epilogue is
+// later work.
+//
+// The epilogue goes through shared memory: the consumers write their
+// accumulators to a padded tile in the ring, idle once the mainloop is
+// done, and each warp then reads x and p and writes p a tile row at a
+// time, 512 contiguous bytes a warp instruction. Read straight from the
+// accumulator layout, a warp instruction touched 8 rows of 32 bytes, and
+// the call took 0.69 ms at 1024 x 640 x 6016 (H100, kick_tune.py), ten
+// times what it takes with this one. Rows >= C are neither read nor
+// written.
+__global__ void __launch_bounds__(KickRing::THREADS, KICK_MIN_BLOCKS)
+kick_tc_kernel(__grid_constant__ const CUtensorMap r_map,
+               __grid_constant__ const CUtensorMap a_map,
+               const float* __restrict__ x, float* __restrict__ p,
+               const float* __restrict__ aprior,
+               const float* __restrict__ gm_scale, int C, int Mp,
+               int n_stages, float s_data, float s_mod, float beta, int ms) {
+  const int c0 = blockIdx.x * KickRing::BM, m0 = blockIdx.y * TC_BN;
+  float acc[64];
+  if (!tc_mainloop<KICK_CONSUMERS, KICK_STAGES, true>(&r_map, &a_map, 0,
+                                                      n_stages, c0, m0, acc))
+    return;
+  constexpr int CONSUMER_THREADS = KICK_CONSUMERS * 128;
+  float* tile = reinterpret_cast<float*>(tc_ring());
+  // every consumer is past the mainloop (the producer warp has left):
+  // the ring is free
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+  const int row0 = tc_row0(), col = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+      *reinterpret_cast<float2*>(tile + (row0 + 8 * v) * KICK_TILE_LD + col +
+                                 8 * j) =
+          make_float2(acc[4 * j + 2 * v], acc[4 * j + 2 * v + 1]);
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = m0 + 4 * lane;
+  const float4 av = *reinterpret_cast<const float4*>(aprior + m);
+  const float4 gv = *reinterpret_cast<const float4*>(gm_scale + m);
+#pragma unroll 4
+  for (int row = warp; row < KickRing::BM; row += CONSUMER_THREADS / 32) {
+    const int c = c0 + row;
+    if (c >= C) break;
+    const size_t off = (size_t)c * Mp + m;
+    const float4 xv = *reinterpret_cast<const float4*>(x + off);
+    const float4 pv = *reinterpret_cast<const float4*>(p + off);
+    const float4 gd =
+        *reinterpret_cast<const float4*>(tile + row * KICK_TILE_LD + 4 * lane);
+    *reinterpret_cast<float4*>(p + off) = make_float4(
+        kick_value(pv.x, gd.x, xv.x, av.x, gv.x, s_data, s_mod, beta, ms),
+        kick_value(pv.y, gd.y, xv.y, av.y, gv.y, s_data, s_mod, beta, ms),
+        kick_value(pv.z, gd.z, xv.z, av.z, gv.z, s_data, s_mod, beta, ms),
+        kick_value(pv.w, gd.w, xv.w, av.w, gv.w, s_data, s_mod, beta, ms));
   }
 }
 
@@ -797,9 +958,7 @@ __global__ void accept_kernel(float* __restrict__ x, float* __restrict__ g,
   }
   const float K1 = 0.5f * block_sum(kin, sh);
   const float H1 = K1 + U[c];
-  const float uu = u ? u[c]
-                     : u24(philox4x32_10(0u, (uint32_t)c, iteration,
-                                         STREAM_ACCEPT, k0, k1).x);
+  const float uu = u ? u[c] : accept_uniform(c, iteration, k0, k1);
   // a NaN Hamiltonian fails both tests and rejects
   const bool acc = (H1 < H0[c]) || (uu < expf(-(H1 - H0[c])));
   __syncthreads();  // every thread has read U[c] before thread 0 may restore it
@@ -816,6 +975,25 @@ __global__ void accept_kernel(float* __restrict__ x, float* __restrict__ g,
       um[c] = um_in[c];
     }
     acc_out[c] = acc ? 1.0f : 0.0f;
+  }
+}
+
+// One iteration's draws for the samplers that take them as inputs (the
+// trajectory and per-step paths): n01 (C, width) the momentum normals and
+// u (C,) the accept uniforms, the same values refresh and accept draw on
+// the iteration path. Bound by writing n01 (70 MB at ratiogrid's 1024 x
+// 17,152) and the ~25 integer operations a normal of Philox.
+__global__ void draws_kernel(float* __restrict__ n01, float* __restrict__ u,
+                             int C, int width, uint32_t k0, uint32_t k1,
+                             uint32_t iteration) {
+  const int groups = width / 4;
+  const size_t total = (size_t)C * groups;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i / groups), j = (int)(i % groups);
+    *reinterpret_cast<float4*>(n01 + (size_t)c * width + 4 * j) =
+        momentum4(j, c, iteration, k0, k1);
+    if (j == 0) u[c] = accept_uniform(c, iteration, k0, k1);
   }
 }
 
@@ -878,11 +1056,32 @@ cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// the ring is above the 48 KB a block may take without asking
+// the rings are above the 48 KB a block may take without asking
 cudaError_t tc_allow_smem() {
-  return cudaFuncSetAttribute(residual_partial_tc_kernel,
+  const cudaError_t err = cudaFuncSetAttribute(
+      residual_partial_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ResidualRing::SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kick_tc_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              TC_SMEM);
+                              KickRing::SMEM);
+}
+
+// out[0..4]: resident blocks per SM of `kernel`, the SM count, and its
+// block tile (chains, columns) and K depth of one stage
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, int smem, int tile_m,
+                      int tile_n, int k_stage, int* out) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  out[2] = tile_m;
+  out[3] = tile_n;
+  out[4] = k_stage;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
 }
 
 // the split GEMM of the matrix's dtype: bf16 on the tensor cores (Dp a
@@ -901,17 +1100,18 @@ cudaError_t launch_residual_partial(const float* x, const void* A,
   }
   if (Dp % TC_BN || Mp % TC_BK || splits < 1 || splits > Mp / TC_BK)
     return cudaErrorInvalidValue;
+  using R = ResidualRing;
   CUtensorMap x_map, a_map;
   cudaError_t err = tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                  4, Mp, C, TC_X_BOX, TC_BM);
+                                  4, Mp, C, TC_X_BOX, R::BM);
   if (err != cudaSuccess) return err;
   err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp, Dp,
                       TC_BK, TC_BN);
   if (err != cudaSuccess) return err;
   err = tc_allow_smem();
   if (err != cudaSuccess) return err;
-  const dim3 grid(Dp / TC_BN, (C + TC_BM - 1) / TC_BM, splits);
-  residual_partial_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+  const dim3 grid(Dp / TC_BN, (C + R::BM - 1) / R::BM, splits);
+  residual_partial_tc_kernel<<<grid, R::THREADS, R::SMEM, stream>>>(
       x_map, a_map, part, C, Dp, Mp / TC_BK, splits);
   return cudaGetLastError();
 }
@@ -969,28 +1169,23 @@ int lf_step_residual(const float* x, const void* A, int a_bf16,
 // SM, the SM count, the block tile's chains and observations, and the K
 // depth of one stage (a slice covers whole stages).
 int lf_residual_occupancy(int a_bf16, int* out) {
-  cudaError_t err;
-  if (a_bf16) {
-    err = tc_allow_smem();
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], residual_partial_tc_kernel, TC_THREADS, TC_SMEM);
-    out[2] = TC_BM;
-    out[3] = TC_BN;
-    out[4] = TC_BK;
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], residual_partial_kernel, GEMM_THREADS, 0);
-    out[2] = BM;
-    out[3] = BN;
-    out[4] = BK;
-  }
+  if (!a_bf16)
+    return (int)occupancy(residual_partial_kernel, GEMM_THREADS, 0, BM, BN,
+                          BK, out);
+  const cudaError_t err = tc_allow_smem();
   if (err != cudaSuccess) return (int)err;
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  return (int)occupancy(residual_partial_tc_kernel, ResidualRing::THREADS,
+                        ResidualRing::SMEM, ResidualRing::BM, TC_BN, TC_BK,
+                        out);
+}
+
+// The bf16 kick's launch, as lf_residual_occupancy: its blocks cover all
+// of K, so the caller only reports the tiling.
+int lf_kick_occupancy(int* out) {
+  const cudaError_t err = tc_allow_smem();
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount,
-                                     dev);
+  return (int)occupancy(kick_tc_kernel, KickRing::THREADS, KickRing::SMEM,
+                        KickRing::BM, TC_BN, TC_BK, out);
 }
 
 int lf_step_misfit(const float* x, const float* aprior, const float* wmsq,
@@ -1001,19 +1196,35 @@ int lf_step_misfit(const float* x, const float* aprior, const float* wmsq,
   return (int)cudaGetLastError();
 }
 
+// the kick of the matrix's dtype: bf16 on the tensor cores (Mp a multiple
+// of 128, Dp of 64), f32 SIMT (Mp a multiple of 64, Dp of 16)
 int lf_kick(const float* r, const void* A, int a_bf16, const float* x,
             float* p, const float* aprior, const float* gm_scale, int C,
             int Dp, int Mp, float s_data, float s_mod, float beta, int ms,
             cudaStream_t stream) {
-  const dim3 grid(Mp / BN, (C + BM - 1) / BM);
-  if (a_bf16)
-    kick_kernel<__nv_bfloat16><<<grid, GEMM_THREADS, 0, stream>>>(
-        r, static_cast<const __nv_bfloat16*>(A), x, p, aprior, gm_scale, C,
-        Dp, Mp, s_data, s_mod, beta, ms);
-  else
-    kick_kernel<float><<<grid, GEMM_THREADS, 0, stream>>>(
+  if (!a_bf16) {
+    if (Mp % BN || Dp % BK) return (int)cudaErrorInvalidValue;
+    const dim3 grid(Mp / BN, (C + BM - 1) / BM);
+    kick_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
         r, static_cast<const float*>(A), x, p, aprior, gm_scale, C, Dp, Mp,
         s_data, s_mod, beta, ms);
+    return (int)cudaGetLastError();
+  }
+  if (Mp % TC_BN || Dp % TC_BK) return (int)cudaErrorInvalidValue;
+  using R = KickRing;
+  CUtensorMap r_map, a_map;
+  cudaError_t err = tensor_map_2d(&r_map, r, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                  4, Dp, C, TC_X_BOX, R::BM);
+  if (err != cudaSuccess) return (int)err;
+  err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp, Dp,
+                      TC_MN_BOX, TC_BK);
+  if (err != cudaSuccess) return (int)err;
+  err = tc_allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((C + R::BM - 1) / R::BM, Mp / TC_BN);
+  kick_tc_kernel<<<grid, R::THREADS, R::SMEM, stream>>>(
+      r_map, a_map, x, p, aprior, gm_scale, C, Mp, Dp / TC_BK, s_data, s_mod,
+      beta, ms);
   return (int)cudaGetLastError();
 }
 
@@ -1037,6 +1248,15 @@ int lf_accept(float* x, float* g, float* U, float* ud, float* um,
   accept_kernel<<<C, ROW_THREADS, 0, stream>>>(x, g, U, ud, um, p, H0, x_in,
                                                g_in, U_in, ud_in, um_in, im,
                                                u, acc, Mp, k0, k1, iteration);
+  return (int)cudaGetLastError();
+}
+
+int lf_draws(float* n01, float* u, int C, int width, uint32_t k0,
+             uint32_t k1, uint32_t iteration, cudaStream_t stream) {
+  if (width % 4) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)C * (width / 4);
+  draws_kernel<<<grid_for(n, 256), 256, 0, stream>>>(n01, u, C, width, k0, k1,
+                                                      iteration);
   return (int)cudaGetLastError();
 }
 

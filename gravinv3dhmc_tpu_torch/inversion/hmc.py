@@ -13,11 +13,13 @@ Randomness. One trajectory length L per iteration, shared by all chains,
 is drawn on the host from a CPU ``torch.Generator`` seeded by (seed,
 chunk), so a chunk's draws depend only on its index, as in the JAX
 package. Momentum normals and accept uniforms come from Philox keyed by
-(salt of the seed, global iteration, chain, element) — inside the CUDA
-kernels on the fused path, in plain torch elsewhere, with identical bits
-(see ``ops/philox.py``). A *draw source* ``draws(chunk_idx, i) ->
-(L, n01, u)`` replaces all three; the parity tests feed the JAX
-sampler's own draws through it.
+(salt of the seed, global iteration, chain, element): on the card, inside
+the ``refresh`` and ``accept`` kernels on the fused-iteration path and
+from one launch of the ``draws`` kernel an iteration on every other path;
+on the CPU from those kernels' plain versions, with identical bits (see
+``ops/philox.py``). A *draw source* ``draws(chunk_idx, i) -> (L, n01, u)``
+replaces all three; the parity tests feed the JAX sampler's own draws
+through it.
 
 Not ported yet: the per-chain masked-L scan, Welford moments and
 step-size/mass adaptation, checkpoints, SPMD meshes and sample files.
@@ -33,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import philox
-from ..ops.leapfrog import LANE, make_fused_iteration, make_fused_trajectory
+from ..ops.leapfrog import (KERNELS, LANE, make_fused_iteration,
+                            make_fused_trajectory)
 
 
 def _unported(what, item):
@@ -134,11 +137,15 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                 inv_mass=inv_mass, n01=n01, u=u)
             return finish(x, U, g, u_data, u_model, accf > 0.5, L, rel,
                           nacc, buf_m, buf_k)
-        if n01 is None:
-            n01 = philox.momentum_normals(salt, git, C, -(-M // LANE) * LANE,
-                                          x.device)[:, :M]
-        if u is None:
-            u = philox.accept_uniforms(salt, git, C, x.device)
+        if n01 is None or u is None:
+            # the Philox normals at the lane-padded width (the words
+            # ``refresh`` draws for this state) and uniforms, one launch
+            n01_d = torch.empty((C, -(-M // LANE) * LANE),
+                                dtype=torch.float32, device=x.device)
+            u_d = torch.empty(C, dtype=torch.float32, device=x.device)
+            KERNELS["draws"](n01_d, u_d, salt, git)
+            n01 = n01_d[:, :M] if n01 is None else n01
+            u = u_d if u is None else u
         n01 = torch.as_tensor(n01, dtype=dtype, device=x.device)
         u = torch.as_tensor(u, dtype=dtype, device=x.device)
         if inv_mass is None:

@@ -4,11 +4,13 @@ step, on the GPU.
 Counterpart of ``gravinv3dhmc_tpu/ops/leapfrog_pallas.py``'s
 ``make_fused_trajectory`` (``_traj_kernel``), ``make_fused_iteration``
 (``_iter_kernel``) and ``make_fused_step`` (``_step_kernel``), with the
-same arguments and return order. The work is split into eight CUDA
+same arguments and return order. The work is split into nine CUDA
 kernels (``csrc/leapfrog.cu``, whose header says why and what bounds
 each): ``refresh``, ``drift``, ``residual``, ``kick``, ``traj_finish`` and
 ``accept`` for the trajectory and iteration; the step reuses ``drift`` and
-``kick`` and adds ``step_residual`` and ``step_misfit``. Each has a plain
+``kick`` and adds ``step_residual`` and ``step_misfit``; ``draws`` gives
+the samplers that call the trajectory or the step the momentum normals
+and accept uniforms that ``refresh`` and ``accept`` draw. Each has a plain
 PyTorch version in this module and a wrapper (:class:`~._cuda.Kernel`)
 that launches the CUDA kernel for a CUDA tensor, counts the launch, and
 takes the plain version only for a CPU tensor. There is no fallback: a
@@ -45,6 +47,8 @@ _F32 = torch.float32
 _TRAJ_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:146"
 _ITER_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:421"
 _STEP_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:87"
+#: the on-chip PRNG of _iter_kernel (pltpu.prng_seed)
+_PRNG_TPU = "gravinv3dhmc_tpu/ops/leapfrog_pallas.py:480"
 
 
 def _round_up(x, m):
@@ -75,6 +79,14 @@ def refresh_plain(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
     pv = p0 - half_eps * g
     p.copy_(pv)
     pk.copy_(pv)
+
+
+def draws_plain(n01, u, salt, iteration):
+    """One iteration's Philox draws into ``n01`` (C, width), the momentum
+    normals, and ``u`` (C,), the accept uniforms."""
+    C, width = n01.shape
+    n01.copy_(philox.momentum_normals(salt, iteration, C, width, n01.device))
+    u.copy_(philox.accept_uniforms(salt, iteration, C, u.device))
 
 
 def drift_plain(x, p, pk, im, low, high, eps):
@@ -184,6 +196,14 @@ def _refresh_cuda(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
         _cuda.stream(g))
 
 
+def _draws_cuda(n01, u, salt, iteration):
+    C, width = n01.shape
+    P = _cuda.ptr
+    _cuda.library().call(
+        "lf_draws", P(n01, _F32, (C, width)), P(u, _F32, (C,)), C, width,
+        *_salt_words(salt, iteration), _cuda.stream(n01))
+
+
 def _drift_cuda(x, p, pk, im, low, high, eps):
     C, Mp = x.shape
     P = _cuda.ptr
@@ -251,6 +271,25 @@ def residual_plan(C, Dp, Mp, a_bf16):
         per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY[a_bf16]
         _PLANS[key] = {**split_plan(C, Dp, Mp, tile_m, tile_n, k_stage,
                                     per_sm * sms),
+                       "blocks_per_sm": per_sm, "sms": sms}
+    return _PLANS[key]
+
+
+def kick_plan(C, Dp, Mp):
+    """How the bf16 tensor-core kick (csrc/leapfrog.cu) covers this
+    shape: one block per tile of chains x 128 columns of the (C x Mp)
+    output, each over all Dp / 64 stages of K (:func:`split_plan` with the
+    roles of Dp and Mp swapped and one split), with the tile and the
+    resident blocks from the runtime's occupancy query."""
+    key = ("kick", C, Dp, Mp)
+    if key not in _PLANS:
+        if "kick" not in _OCCUPANCY:
+            out = (ctypes.c_int * 5)()
+            _cuda.library().call("lf_kick_occupancy", ctypes.addressof(out))
+            _OCCUPANCY["kick"] = tuple(out)
+        per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY["kick"]
+        _PLANS[key] = {**split_plan(C, Mp, Dp, tile_m, tile_n, k_stage,
+                                    per_sm * sms, max_splits=1),
                        "blocks_per_sm": per_sm, "sms": sms}
     return _PLANS[key]
 
@@ -340,7 +379,8 @@ def philox_bits_cuda(salt, iteration, n_chains, width, device):
 
 
 #: the kernels each op launches: the iteration (the trajectory is its
-#: middle four) and the step, which reuses ``drift`` and ``kick``
+#: middle four) and the step, which reuses ``drift`` and ``kick``; a
+#: sampler that calls the trajectory or the step draws with ``draws``
 ITERATION_KERNELS = ("refresh", "drift", "residual", "kick", "traj_finish",
                      "accept")
 STEP_KERNELS = ("drift", "step_residual", "kick", "step_misfit")
@@ -354,7 +394,8 @@ _cuda.register(*(Kernel(name, plain, launch, replaces, "leapfrog")
     ("traj_finish", traj_finish_plain, _traj_finish_cuda, _TRAJ_TPU),
     ("accept", accept_plain, _accept_cuda, _ITER_TPU),
     ("step_residual", step_residual_plain, _step_residual_cuda, _STEP_TPU),
-    ("step_misfit", step_misfit_plain, _step_misfit_cuda, _STEP_TPU))))
+    ("step_misfit", step_misfit_plain, _step_misfit_cuda, _STEP_TPU),
+    ("draws", draws_plain, _draws_cuda, _PRNG_TPU))))
 
 
 # -------------------------------------------------------- the fused ops

@@ -54,7 +54,7 @@ def test_cpu_tensors_take_the_plain_versions():
     # kernel and its CUDA source
     assert set(tlf.KERNELS) == {"refresh", "drift", "residual", "kick",
                                 "traj_finish", "accept", "step_residual",
-                                "step_misfit", "gz"}
+                                "step_misfit", "gz", "draws"}
     for k in tlf.KERNELS.values():
         assert callable(k.plain)
         assert k.replaces.startswith("gravinv3dhmc_tpu/ops/")
