@@ -16,14 +16,18 @@ Phases, one line each (the script stops at the first failure, non-zero):
              either fails.
 2. philox  — the kernel's Philox words equal ``ops/philox.py``'s bit for
              bit; its 1M normals have mean 0 and variance 1 within 5 sigma;
-             the ``draws`` kernel gives the plain version's uniforms bit
-             for bit, its normals within ``KERNEL_RTOL`` and ``refresh``'s
-             normals bit for bit.
-3. kernels — each of the six kernels against its plain PyTorch version on
-             the same inputs at the uniformgrid slice's shapes (1024
-             chains, 640 x 6016 bf16 matrix), with both timed, beside the
-             least time the card could take (``bound_ms``) and, for the
-             GEMMs, one PyTorch matmul of the same product. Then the
+             ``refresh``'s p-only form gives its two-output form's p and
+             H0 bit for bit; the ``draws`` kernel gives the plain version's
+             uniforms bit for bit, its normals within ``KERNEL_RTOL`` and
+             ``refresh``'s normals bit for bit.
+3. kernels — each of the six kernels (and ``refresh``'s p-only form)
+             against its plain PyTorch version on the same inputs at the
+             uniformgrid slice's shapes (1024 chains, 640 x 6016 bf16
+             matrix), with both timed, beside the least time the card
+             could take (``bound_ms``) and, for the GEMMs, one PyTorch
+             matmul of the same product; ``accept`` with about half the
+             chains rejected, each rejected chain's carried state back bit
+             for bit and each accepted one's proposal kept. Then the
              tensor-core GEMMs (``gemm`` lines) at 1024 chains and at a
              ragged 200. The residual: the split plan (tile, splits,
              blocks, waves), two launches bit for bit equal, the kernel and
@@ -47,7 +51,9 @@ Phases, one line each (the script stops at the first failure, non-zero):
              ``HamiltonianMC.sample(use_fused=True)``: grad-evals/s,
              accept ratio, median ESS and the launch count of every
              kernel (each must be > 0); then a small problem sampled on
-             the card and on the CPU with the same seed must agree.
+             the card and on the CPU with the same seed must agree, and
+             the same on the card through the eager shared-L path, whose
+             ``draws`` launches are counted around that run alone.
 7. gz      — the ratiogrid matrix (900 obs x 17,100 ratio prisms): the
              ``gz`` kernel against its plain version and both against the
              f64 host builder, within 1e-3 of max|A| elementwise and 5e-3
@@ -57,22 +63,25 @@ Phases, one line each (the script stops at the first failure, non-zero):
              op (``make_chunk_sampler(fused_step=...)``) for 4 chunks of
              64 iterations after a warm chunk: grad-evals/s, accept ratio,
              median ESS, both matrix build times and the launch count of
-             every kernel of the path (``draws`` included; each must be
-             > 0); then a small ratiogrid sampled on the card and on the
-             CPU must agree.
-9. step kernels — ``step_residual``, ``step_misfit`` and ``draws`` (and
-             the reused ``drift`` and ``kick``) against their plain
-             versions at the slice's shapes (1024 chains, 1024 x 17,152
-             bf16), timed; then the ``gemm`` lines of ``step_residual``
-             and ``kick`` as in phase 3.
+             every kernel of the path (``refresh`` and ``accept``, which
+             open and close each iteration, included; each must be > 0,
+             and ``draws`` must not be launched); then a small ratiogrid
+             sampled on the card and on the CPU must agree.
+9. step kernels — ``refresh`` in its p-only form, ``accept`` with 99 %
+             of the chains accepted, ``step_residual``, ``step_misfit``
+             and ``draws`` (and the reused ``drift`` and ``kick``) against
+             their plain versions at the slice's shapes (1024 chains, 1024
+             x 17,152 bf16), timed; then the ``gemm`` lines of
+             ``step_residual`` and ``kick`` as in phase 3.
 10. step   — the step op (kernels) vs its plain version at 256 chains, one
              step and each of L = 7 steps on the same input: f32 and
              bf16, MS and Damping, with and without a diagonal inverse
              mass; its x' is the clip of the sampler's replayed drift bit
              for bit.
 
-Slice 1's launch counts are read around phase 6, slice 2's around phase
-8; around both, the plain Philox draws (``ops.philox.momentum_normals``,
+Slice 1's launch counts are read around phase 6, the shared-L card run's
+in phase 6's reference, slice 2's around phase 8; around both slices,
+the plain Philox draws (``ops.philox.momentum_normals``,
 ``accept_uniforms``) must not be called. The last three lines are the
 card (``nvidia-smi`` name and power limit),
 one JSON object with every kernel's numbers, and the result line
@@ -150,18 +159,25 @@ def rel_err(out, ref):
     return err, err / scale
 
 
-def time_ms(torch, fn, reps=20, warmup=3):
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+def time_ms(torch, fn, reps=20, warmup=3, rounds=5):
+    """Device time of one call of ``fn``: the median over ``rounds`` of the
+    mean over ``reps`` calls (CUDA events), after ``warmup`` calls. One
+    kernel's 20-launch means spread by up to 1.7x from round to round on
+    the card (the accept kernel read 0.029 and 0.048 ms in one process);
+    the median keeps one slow round out."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    means = []
+    for _ in range(rounds):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    return float(np.median(means))
 
 
 def sass_counts(lib, opcode):
@@ -292,6 +308,10 @@ def phase_philox(torch, tlf, philox, dev):
     H0 = torch.empty(C, device=dev)
     tlf.KERNELS["refresh"](zeros, torch.zeros(C, device=dev), ones, ones,
                            0.0, salt, 9, None, p, pk, H0)
+    # its p-only form (pk null, the per-step path's) draws the same bits
+    p_only, H0_only = torch.empty_like(zeros), torch.empty_like(H0)
+    tlf.KERNELS["refresh"](zeros, torch.zeros(C, device=dev), ones, ones,
+                           0.0, salt, 9, None, p_only, None, H0_only)
     ref = philox.momentum_normals(salt, 9, C, width, dev)
     err, _ = rel_err(p, ref)
     n = p.double()
@@ -310,12 +330,16 @@ def phase_philox(torch, tlf, philox, dev):
     sync(torch)
     uniforms_equal = torch.equal(u_k, u_p)
     as_refresh = torch.equal(n_k, p)
+    p_only_same = (torch.equal(p_only, p) and torch.equal(pk, p)
+                   and torch.equal(H0_only, H0))
     draws_err = rel_err(n_k, n_p)[1]
     line("philox", bits_equal=True, normals=N, max_abs_err=err, mean=mean,
          var=var, draws_uniforms_bit_equal=uniforms_equal,
-         draws_normals_rel_err=draws_err, draws_equal_refresh=as_refresh)
-    if not ok:
-        fail("philox normals")
+         draws_normals_rel_err=draws_err, draws_equal_refresh=as_refresh,
+         refresh_p_only_same=p_only_same)
+    if not ok or not p_only_same:
+        fail(f"philox normals (refresh's p-only form the same: "
+             f"{p_only_same})")
     if not uniforms_equal or not as_refresh or draws_err > KERNEL_RTOL:
         fail(f"philox: draws kernel (uniforms equal {uniforms_equal}, "
              f"normals as refresh's {as_refresh}, rel err {draws_err})")
@@ -347,37 +371,15 @@ def kernel_cases(torch, op, C, dev):
     # ~ N(0, 1)) and a random inverse mass in [0.1, 1]: K ~ 1600.
     im = torch.where(mask > 0, 0.1 + 0.9 * torch.rand(
         Mp, generator=gen, device=dev), torch.ones_like(mask))
-    p1 = randn(C, Mp) * mask
-    acc_iteration = 4
 
     def f(*shape):
         return torch.empty(*shape, device=dev)
-
-    def acc_args():
-        # H0 puts each chain's log accept ratio 0.5 to a chosen side of
-        # its Philox uniform u: accept where u < e^0.5 u, reject where
-        # u >= e^-0.5 u (u clamped away from 0 to keep the log finite).
-        # Both sides are far from a tie at f32 rounding, and a kernel that
-        # drops, halves or mis-weights K1 moves H1 by hundreds, accepting
-        # every planned rejection.
-        u = philox.accept_uniforms(salt, acc_iteration, C, dev).double()
-        H1 = 0.5 * (im * p1 * p1).double().sum(1) + U.double()
-        side = torch.where(torch.rand(C, generator=gen, device=dev) < 0.5,
-                           0.5, -0.5).double()
-        H0 = (H1 + torch.log(u.clamp_min(2.0 ** -24)) - side).float()
-        return (x.clone(), g.clone(), U.clone(), U.clone() * 0.9,
-                U.clone() * 0.1, p1.clone(), H0, x + 1.0, g + 1.0,
-                U + 1.0, U + 2.0, U + 3.0, im, salt, acc_iteration, None,
-                f(C))
-
-    def kinetic0(a):
-        # K0 = H0 - U, in f64 from the kernel's f32 H0
-        return a[10].double() - a[1].double()
 
     return {
         "refresh": (lambda: (g.clone(), U.clone(), mask, im, 0.5 * e, salt,
                              3, None, f(C, Mp), f(C, Mp), f(C)),
                     lambda a: {"p": a[8], "pk": a[9], "K0": kinetic0(a)}),
+        **open_close_cases(torch, g, U, mask, im, e, salt, op.M, 0.5, dev),
         "drift": (lambda: (x.clone(), p.clone(), f(C, Mp), pp["im"],
                            pp["low"], pp["high"], e),
                   lambda a: {"x": a[0], "p": a[1], "pk": a[2]}),
@@ -391,10 +393,49 @@ def kernel_cases(torch, op, C, dev):
                                  pp["wmsq"], 1.0 / e, 1.0, op.beta, True),
                         lambda a: {"p": a[1], "g": a[4], "U": a[5],
                                    "ud": a[6], "um": a[7]}),
-        "accept": (acc_args,
+    }
+
+
+def kinetic0(a):
+    """refresh's K0 = H0 - U, in f64 from the kernel's f32 H0."""
+    return a[10].double() - a[1].double()
+
+
+def open_close_cases(torch, g, U, mask, im, e, salt, M, share, dev):
+    """The cases of the kernels that open and close a fused sampler's
+    iteration at the state's shape: ``refresh`` in its p-only form (the
+    per-step path's, ``pk`` None) and ``accept`` with the share ``share``
+    of chains accepted. Accept's H0 puts each chain's log accept ratio 0.5
+    to a chosen side of its Philox uniform (``accept_tune.operands``), far
+    from a tie at f32 rounding; a kernel that drops, halves or mis-weights
+    K1 moves H1 by hundreds and accepts every planned rejection."""
+    from gravinv3dhmc_tpu_torch.accept_tune import operands
+
+    C, Mp = g.shape
+    return {
+        "refresh (p only)": (
+            lambda: (g.clone(), U.clone(), mask, im, 0.5 * e, salt, 3, None,
+                     torch.empty((C, Mp), device=dev), None,
+                     torch.empty(C, device=dev)),
+            lambda a: {"p": a[8], "K0": kinetic0(a)}),
+        "accept": (lambda: operands(C, Mp, M, share, device=dev),
                    lambda a: {"x": a[0], "g": a[1], "U": a[2], "ud": a[3],
                               "um": a[4], "acc": a[16]}),
     }
+
+
+def accept_rows_keep_bits(torch, before, after):
+    """``accept``'s arguments before and after a launch: every rejected
+    chain's x, g, U, ud, um are its carried x_in, g_in, U_in, ud_in, um_in
+    bit for bit, and every accepted chain's the proposal's."""
+    acc = after[16] > 0.5
+    rows = torch.int32
+    for out, prop, carried in zip(after[:5], before[:5], before[7:12]):
+        want = torch.where(acc.view(-1, *([1] * (out.dim() - 1))), prop,
+                           carried)
+        if not torch.equal(out.view(rows), want.view(rows)):
+            return False
+    return True
 
 
 def phase_kernels(torch, tlf, op, C, dev):
@@ -581,7 +622,8 @@ def run_kernel_cases(torch, tlf, cases, shape, phase):
     time both; returns name -> errors and times."""
     results = {}
     for name, (make, outputs) in cases.items():
-        kern = tlf.KERNELS[name]
+        kname = name.split()[0]   # "refresh (p only)" is refresh's case
+        kern = tlf.KERNELS[kname]
         args_k = make()
         args_p = tuple(a.clone() if torch.is_tensor(a) else a
                        for a in args_k)
@@ -600,16 +642,22 @@ def run_kernel_cases(torch, tlf, cases, shape, phase):
             C = out_k["acc"].shape[0]
             n_acc = int(out_k["acc"].sum().item())
             extra["accepted"] = n_acc
+            extra["rows_keep_bits"] = accept_rows_keep_bits(torch, make(),
+                                                            args_k)
             if not torch.equal(out_k["acc"], out_p["acc"]):
                 fail("kernel accept: decisions differ from the plain ones")
             if not 0 < n_acc < C:
                 fail(f"kernel accept: {n_acc} of {C} accepted, want both "
                      "decisions exercised")
+            if not extra["rows_keep_bits"]:
+                fail("kernel accept: a rejected chain did not get its "
+                     "carried state back bit for bit, or an accepted one "
+                     "lost its proposal's bits")
         bench_k, bench_p = make(), make()
         ms = time_ms(torch, lambda: kern(*bench_k))
         plain_ms = time_ms(torch, lambda: kern.plain(*bench_p))
-        lib = library_call(torch, name, bench_k)
-        bound_ms, bound_by = bound(name, bench_k, extra.get("accepted"))
+        lib = library_call(torch, kname, bench_k)
+        bound_ms, bound_by = bound(kname, bench_k, extra.get("accepted"))
         worst_rel = max(errs.values())
         results[name] = {"max_abs_err": worst_abs, "rel_err": worst_rel,
                          "ms": ms, "plain_ms": plain_ms,
@@ -796,7 +844,7 @@ def phase_gz(torch, dev, smi):
             "plain_vs_f64": rel_fro(out_p, A64)}
     ms = time_ms(torch, lambda: kern(obs, cells_t, scale), reps=10)
     plain_ms = time_ms(torch, lambda: kern.plain(obs, cells_t, scale),
-                       reps=3, warmup=1)
+                       reps=3, warmup=1, rounds=1)
     finite = bool(torch.isfinite(out_k).all())
     bound_ms, bound_by = bound("gz", (obs, cells_t, scale))
     result = {"max_abs_err": (out_k.double() - out_p.double()).abs()
@@ -823,7 +871,7 @@ def phase_slice2(torch, tlf, dev, smi):
     res, carry = ratiogrid.run_chunks(run_chunk, carry, 0, 4, dev)
     sync(torch)
     counts = tlf.launch_counts()
-    path = ("gz",) + tlf.STEP_KERNELS + ("draws",)
+    path = ("gz",) + tlf.STEP_KERNELS + ("refresh", "accept")
     line("slice2", problem=[int(dobs.size), module.n_active],
          nchains=cfg["nchains"], chunk=cfg["chunk"], **res, **seconds,
          launches={n: counts[n] for n in path}, card=smi)
@@ -835,6 +883,9 @@ def phase_slice2(torch, tlf, dev, smi):
     missing = [n for n in path if counts[n] <= 0]
     if missing:
         fail(f"slice2: kernels never launched: {missing}")
+    if counts["draws"]:
+        fail(f"slice2: draws launched {counts['draws']} times; the per-step "
+             "path draws inside refresh and accept")
     return module, dobs, counts
 
 
@@ -887,9 +938,15 @@ def step_kernel_cases(torch, op, C, dev):
     r = randn(C, Dp, scale=0.1) * pp["dmask"]
     fix = randn(Dp, scale=0.1) * pp["dmask"]
     ud = 50.0 + randn(C).abs()
+    g = randn(C, Mp, scale=10.0) * mask
+    U = 200.0 + randn(C)
+    im = torch.where(mask > 0, 0.1 + 0.9 * torch.rand(
+        Mp, generator=gen, device=dev), torch.ones_like(mask))
     salt = philox.salt_from_seed(6)
     e = 0.01
     return {
+        # ratiogrid accepts ~99 % of its proposals
+        **open_close_cases(torch, g, U, mask, im, e, salt, op.M, 0.99, dev),
         "drift": (lambda: (x.clone(), p.clone(), None, pp["im"], pp["low"],
                            pp["high"], e),
                   lambda a: {"x": a[0], "p": a[1]}),
@@ -993,28 +1050,50 @@ def phase_step(torch, tlf, module, dobs, dev):
                          f"replay={replay}, clipped={hits}")
 
 
-def phase_reference(torch, dev):
+def phase_reference(torch, tlf, dev):
     """A small problem sampled through the kernels on the card and through
     the plain versions on the CPU, same seed: the Philox draws are the
     same bits, so the chains take the same decisions (a chain whose
-    decision flips on a rounding tie diverges; at least 95% must agree)."""
+    decision flips on a rounding tie diverges; at least 95% must agree).
+    Then the same problem on the card through the eager shared-L path
+    (``use_fused=False``), the path that draws with the ``draws`` kernel:
+    it must agree with the CPU run as well, and launch ``draws``. Returns
+    the launch counts of that run, set to 0 just before it."""
     from gravinv3dhmc_tpu_torch.uniformgrid import build_problem, sampler
 
     runs = {}
-    for where in (dev, torch.device("cpu")):
+    for where, fused in ((dev, True), (torch.device("cpu"), True),
+                         (dev, False)):
         module, dobs = build_problem(8, 12, 4, device=where)
         chain = sampler(module, dobs, where, 64, 16, 0.05, (3, 8), 0.001,
                         0.001, torch.float32, seed=3, initial=0.3)
-        runs[where.type] = chain.sample(16, 16)
-    a, b = runs["cuda"], runs["cpu"]
-    same = np.asarray(a["accepted"]) == np.asarray(b["accepted"])
-    sa, sb = a["samples"].cpu(), b["samples"]
-    close = torch.isclose(sa, sb, rtol=5e-3, atol=5e-4).flatten(1).all(1)
-    agree = same & close.numpy()
-    line("reference", chains=int(same.size), same_accepts=int(same.sum()),
-         agree=int(agree.sum()), accept_ratio=a["accept_ratio"])
-    if agree.mean() < 0.95 or not 0 < a["accept_ratio"] < 1:
+        chain.use_fused = fused
+        sync(torch)
+        tlf.reset_launch_counts()
+        runs[where.type, fused] = chain.sample(16, 16)
+        sync(torch)
+        counts = tlf.launch_counts()
+    b = runs["cpu", True]
+    agree = {}
+    for key in (("cuda", True), ("cuda", False)):
+        a = runs[key]
+        same = np.asarray(a["accepted"]) == np.asarray(b["accepted"])
+        close = torch.isclose(a["samples"].cpu(), b["samples"], rtol=5e-3,
+                              atol=5e-4).flatten(1).all(1)
+        agree[key] = same & close.numpy()
+    a = runs["cuda", True]
+    line("reference", chains=int(agree["cuda", True].size),
+         agree=int(agree["cuda", True].sum()),
+         shared_L_agree=int(agree["cuda", False].sum()),
+         accept_ratio=a["accept_ratio"],
+         shared_L_accept_ratio=runs["cuda", False]["accept_ratio"],
+         shared_L_launches={n: c for n, c in counts.items() if c})
+    if (min(v.mean() for v in agree.values()) < 0.95
+            or not 0 < a["accept_ratio"] < 1):
         fail("reference: card and CPU runs disagree")
+    if counts["draws"] <= 0:
+        fail("reference: the shared-L card run never launched draws")
+    return counts
 
 
 def main():
@@ -1064,7 +1143,7 @@ def main():
     phase_iter(torch, tlf, philox, module, dobs, dev)
     with PlainPhilox(philox) as plain:
         counts = phase_slice(torch, tlf, module, dobs, dev, smi)
-    phase_reference(torch, dev)
+    counts3 = phase_reference(torch, tlf, dev)
     del module, op
 
     kres["gz"] = phase_gz(torch, dev, smi)
@@ -1084,7 +1163,8 @@ def main():
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": counts[name] + counts2[name],
+         "replaces": k.replaces,
+         "launches": counts[name] + counts2[name] + counts3[name],
          **{key: kres[name][key] for key in keys}}
         for name, k in tlf.KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@
 // the GEMMs instead:
 //
 //   refresh      one block per chain: Philox normals, p0 = pscale*n01, K0,
-//                H0 = K0 + U, leading half kick p = p0 - eps/2 g   (_iter)
+//                H0 = K0 + U, leading half kick p = p0 - eps/2 g, pk = p
+//                (or p alone, the per-step path's form)   (_iter, opens
+//                every fused sampler path's iteration)
 //   drift        elementwise: x += eps*im*p, clip to [low, high], negate p
 //                where clipped (kept as x != clip(x), :203/:517)   (both)
 //   residual     GEMM 1: r = (x A_c^T - dobs') * dmask, K split in slices
@@ -28,16 +30,17 @@
 //   kick         GEMM 2: p -= 2 eps (r A_c) + s_mod gm(x)           (both)
 //   traj_finish  one block per chain: g = (pk - p)/eps, p_half =
 //                (pk + p)/2, ud, um, U                              (both)
-//   accept       one block per chain: K1, H1, Philox uniform, accept,
-//                select of x, g, U, ud, um                          (_iter)
+//   accept       ACCEPT_CHAINS chains a block: K1, H1, Philox uniform,
+//                accept, restore of rejected x, g, U, ud, um   (_iter,
+//                closes every fused sampler path's iteration)
 //   step_residual  GEMM 1's K slices (the residual_partial kernel above)
 //                then one block per chain: d = sum of slices + fix, mean
 //                over the true n_obs, r = ((d - mean) - dobs) * dmask,
 //                ud = sum r^2                                       (_step)
 //   step_misfit  one block per chain: um and U = ud + alpha um      (_step)
 //   draws        elementwise: the momentum normals and accept uniforms
-//                that refresh and accept draw, as inputs for the
-//                trajectory and per-step samplers   (_iter's on-chip PRNG)
+//                that refresh and accept draw, as inputs for the eager
+//                shared-L sampler                   (_iter's on-chip PRNG)
 // The per-step op reuses drift and kick as they are; the kick epilogue
 // already applies p -= s_data gdata + s_mod gm, the full kick of _step.
 //
@@ -106,6 +109,11 @@ constexpr int TC_MN_BOX_BYTES = TC_MN_BOX * TC_BK * 2;  // 8 KB
 // the bf16 kick: consumer warpgroups (64 chains each) and ring stages
 constexpr int KICK_CONSUMERS = 2;
 constexpr int KICK_STAGES = 3;
+// the accept kernel: threads a block, chains a block, 16-byte loads in
+// flight a thread (accept_tune.py sweeps them)
+constexpr int ACCEPT_THREADS = 256;
+constexpr int ACCEPT_CHAINS = 1;
+constexpr int ACCEPT_UNROLL = 4;
 
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
 constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
@@ -224,31 +232,46 @@ __device__ __forceinline__ void mma_stage(float (*sS)[BM + 4],
 
 // ---------------------------------------------------------------- kernels
 
-__global__ void refresh_kernel(const float* __restrict__ g,
-                               const float* __restrict__ U,
-                               const float* __restrict__ pscale,
-                               const float* __restrict__ im,
-                               const float* __restrict__ n01,
-                               float* __restrict__ p, float* __restrict__ pk,
-                               float* __restrict__ H0, int Mp, float half_eps,
-                               uint32_t k0, uint32_t k1, uint32_t iteration) {
+// sum over the four lanes of im * p^2, each product rounded on its own
+__device__ __forceinline__ float kinetic4(float4 w, float4 p) {
+  return ((w.x * p.x) * p.x + (w.y * p.y) * p.y) +
+         ((w.z * p.z) * p.z + (w.w * p.w) * p.w);
+}
+
+// One block per chain, 16 bytes a thread a load: g (read once, streamed),
+// pscale and im (shared by every chain, through the read-only path), the
+// normals drawn in registers (or n01 streamed), p and, unless pk is null
+// (the per-step path's p-only form), pk written as float4.
+__global__ void __launch_bounds__(ROW_THREADS)
+refresh_kernel(const float* __restrict__ g, const float* __restrict__ U,
+               const float* __restrict__ pscale, const float* __restrict__ im,
+               const float* __restrict__ n01, float* __restrict__ p,
+               float* __restrict__ pk, float* __restrict__ H0, int Mp,
+               float half_eps, uint32_t k0, uint32_t k1, uint32_t iteration) {
   __shared__ float sh[32];
   const int c = blockIdx.x;
-  const size_t row = (size_t)c * Mp;
+  const int n4 = Mp / 4;
+  const size_t row4 = (size_t)c * n4;
+  const float4* g4 = reinterpret_cast<const float4*>(g) + row4;
+  const float4* s4 = reinterpret_cast<const float4*>(pscale);
+  const float4* w4 = reinterpret_cast<const float4*>(im);
+  float4* p4 = reinterpret_cast<float4*>(p) + row4;
+  float4* pk4 = pk ? reinterpret_cast<float4*>(pk) + row4 : nullptr;
   float kin = 0.0f;
-  for (int j = threadIdx.x; j < Mp / 4; j += blockDim.x) {
-    const float4 v = n01 ? *reinterpret_cast<const float4*>(n01 + row + 4 * j)
-                         : momentum4(j, c, iteration, k0, k1);
-    const float n[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int m = 4 * j + q;
-      const float p0 = pscale[m] * n[q];
-      kin += im[m] * p0 * p0;
-      const float pv = p0 - half_eps * g[row + m];
-      p[row + m] = pv;
-      pk[row + m] = pv;
-    }
+#pragma unroll 4
+  for (int j = threadIdx.x; j < n4; j += ROW_THREADS) {
+    const float4 v =
+        n01 ? __ldcs(reinterpret_cast<const float4*>(n01) + row4 + j)
+            : momentum4(j, c, iteration, k0, k1);
+    const float4 sc = __ldg(s4 + j), gv = __ldcs(g4 + j);
+    const float4 p0 = make_float4(sc.x * v.x, sc.y * v.y, sc.z * v.z,
+                                  sc.w * v.w);
+    kin += kinetic4(__ldg(w4 + j), p0);
+    const float4 pv = make_float4(
+        p0.x - half_eps * gv.x, p0.y - half_eps * gv.y,
+        p0.z - half_eps * gv.z, p0.w - half_eps * gv.w);
+    p4[j] = pv;
+    if (pk4) pk4[j] = pv;
   }
   const float K0 = 0.5f * block_sum(kin, sh);
   if (threadIdx.x == 0) H0[c] = K0 + U[c];
@@ -932,57 +955,119 @@ __global__ void traj_finish_kernel(const float* __restrict__ x, float* p,
   }
 }
 
-// Metropolis test on H = K(p) + U against H0; rejected chains take back
-// their carried state bit for bit
-__global__ void accept_kernel(float* __restrict__ x, float* __restrict__ g,
-                              float* __restrict__ U, float* __restrict__ ud,
-                              float* __restrict__ um,
-                              const float* __restrict__ p,
-                              const float* __restrict__ H0,
-                              const float* __restrict__ x_in,
-                              const float* __restrict__ g_in,
-                              const float* __restrict__ U_in,
-                              const float* __restrict__ ud_in,
-                              const float* __restrict__ um_in,
-                              const float* __restrict__ im,
-                              const float* __restrict__ u,
-                              float* __restrict__ acc_out, int Mp,
-                              uint32_t k0, uint32_t k1, uint32_t iteration) {
-  __shared__ float sh[32];
-  const int c = blockIdx.x;
-  const size_t row = (size_t)c * Mp;
+// Metropolis test on H1 = K(p) + U against H0; rejected chains take back
+// their carried state bit for bit. Bound by bytes: p read once (72 MB at
+// ratiogrid's 1024 x 17,152), plus x_in and g_in read and x and g written
+// for each rejected chain. So the design keeps many bytes in flight:
+// ACCEPT_CHAINS chains a block of ACCEPT_THREADS threads, each chain's
+// threads issuing ACCEPT_UNROLL independent 16-byte loads of p (streamed,
+// read once) and of im (read-only path, shared by every chain) before
+// they add, into as many partial sums; a block-wide barrier, then one
+// thread a chain takes the decision and restores U, ud, um, and a
+// rejected chain's threads copy x_in and g_in back with the same unrolled
+// 16-byte loads and stores. The configuration was chosen by the sweep of
+// accept_tune.py.
+template <int THREADS, int CHAINS, int UNROLL>
+__global__ void __launch_bounds__(THREADS)
+accept_kernel(float* __restrict__ x, float* __restrict__ g,
+              float* __restrict__ U, float* __restrict__ ud,
+              float* __restrict__ um, const float* __restrict__ p,
+              const float* __restrict__ H0, const float* __restrict__ x_in,
+              const float* __restrict__ g_in, const float* __restrict__ U_in,
+              const float* __restrict__ ud_in,
+              const float* __restrict__ um_in, const float* __restrict__ im,
+              const float* __restrict__ u, float* __restrict__ acc_out, int C,
+              int Mp, uint32_t k0, uint32_t k1, uint32_t iteration) {
+  constexpr int GROUP = THREADS / CHAINS;  // threads a chain
+  static_assert(GROUP % 32 == 0 && GROUP * CHAINS == THREADS,
+                "a chain takes whole warps");
+  constexpr int GROUP_WARPS = GROUP / 32;
+  __shared__ float sh[THREADS / 32];
+  __shared__ int rejected[CHAINS];
+  const int lc = threadIdx.x / GROUP, t = threadIdx.x % GROUP;
+  const int c = blockIdx.x * CHAINS + lc;
+  const int n4 = Mp / 4;
+  const size_t row4 = (size_t)c * n4;
+  float part[UNROLL];
+#pragma unroll
+  for (int q = 0; q < UNROLL; ++q) part[q] = 0.0f;
+  if (c < C) {
+    const float4* p4 = reinterpret_cast<const float4*>(p) + row4;
+    const float4* w4 = reinterpret_cast<const float4*>(im);
+    int j = t;
+    for (; j + (UNROLL - 1) * GROUP < n4; j += UNROLL * GROUP) {
+      float4 pv[UNROLL], wv[UNROLL];
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q) {
+        pv[q] = __ldcs(p4 + j + q * GROUP);
+        wv[q] = __ldg(w4 + j + q * GROUP);
+      }
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q) part[q] += kinetic4(wv[q], pv[q]);
+    }
+    for (; j < n4; j += GROUP)
+      part[0] += kinetic4(__ldg(w4 + j), __ldcs(p4 + j));
+  }
   float kin = 0.0f;
-  for (int m = threadIdx.x; m < Mp; m += blockDim.x) {
-    const float pv = p[row + m];
-    kin += im[m] * pv * pv;
+#pragma unroll
+  for (int q = 0; q < UNROLL; ++q) kin += part[q];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) kin += __shfl_xor_sync(0xffffffffu, kin, o);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = kin;
+  __syncthreads();
+  if (t == 0) {
+    int rej = 0;
+    if (c < C) {
+      float K = 0.0f;
+#pragma unroll
+      for (int w = 0; w < GROUP_WARPS; ++w) K += sh[lc * GROUP_WARPS + w];
+      const float H1 = 0.5f * K + U[c];
+      const float h0 = H0[c];
+      const float uu = u ? u[c] : accept_uniform(c, iteration, k0, k1);
+      // a NaN Hamiltonian fails both tests and rejects
+      const bool acc = (H1 < h0) || (uu < expf(-(H1 - h0)));
+      if (!acc) {
+        U[c] = U_in[c];
+        ud[c] = ud_in[c];
+        um[c] = um_in[c];
+      }
+      acc_out[c] = acc ? 1.0f : 0.0f;
+      rej = !acc;
+    }
+    rejected[lc] = rej;
   }
-  const float K1 = 0.5f * block_sum(kin, sh);
-  const float H1 = K1 + U[c];
-  const float uu = u ? u[c] : accept_uniform(c, iteration, k0, k1);
-  // a NaN Hamiltonian fails both tests and rejects
-  const bool acc = (H1 < H0[c]) || (uu < expf(-(H1 - H0[c])));
-  __syncthreads();  // every thread has read U[c] before thread 0 may restore it
-  if (!acc) {
-    for (int m = threadIdx.x; m < Mp; m += blockDim.x) {
-      x[row + m] = x_in[row + m];
-      g[row + m] = g_in[row + m];
+  __syncthreads();
+  if (!rejected[lc]) return;
+  const float4* xi = reinterpret_cast<const float4*>(x_in) + row4;
+  const float4* gi = reinterpret_cast<const float4*>(g_in) + row4;
+  float4* xo = reinterpret_cast<float4*>(x) + row4;
+  float4* go = reinterpret_cast<float4*>(g) + row4;
+  int j = t;
+  for (; j + (UNROLL - 1) * GROUP < n4; j += UNROLL * GROUP) {
+    float4 xv[UNROLL], gv[UNROLL];
+#pragma unroll
+    for (int q = 0; q < UNROLL; ++q) {
+      xv[q] = __ldcs(xi + j + q * GROUP);
+      gv[q] = __ldcs(gi + j + q * GROUP);
+    }
+#pragma unroll
+    for (int q = 0; q < UNROLL; ++q) {
+      xo[j + q * GROUP] = xv[q];
+      go[j + q * GROUP] = gv[q];
     }
   }
-  if (threadIdx.x == 0) {
-    if (!acc) {
-      U[c] = U_in[c];
-      ud[c] = ud_in[c];
-      um[c] = um_in[c];
-    }
-    acc_out[c] = acc ? 1.0f : 0.0f;
+  for (; j < n4; j += GROUP) {
+    xo[j] = __ldcs(xi + j);
+    go[j] = __ldcs(gi + j);
   }
 }
 
-// One iteration's draws for the samplers that take them as inputs (the
-// trajectory and per-step paths): n01 (C, width) the momentum normals and
-// u (C,) the accept uniforms, the same values refresh and accept draw on
-// the iteration path. Bound by writing n01 (70 MB at ratiogrid's 1024 x
-// 17,152) and the ~25 integer operations a normal of Philox.
+// One iteration's draws for the sampler that takes them as inputs (the
+// eager shared-L path; the fused paths draw inside refresh and accept):
+// n01 (C, width) the momentum normals and u (C,) the accept uniforms, the
+// same values refresh and accept draw. Bound by writing n01 (70 MB at
+// ratiogrid's 1024 x 17,152) and the ~25 integer operations a normal of
+// Philox.
 __global__ void draws_kernel(float* __restrict__ n01, float* __restrict__ u,
                              int C, int width, uint32_t k0, uint32_t k1,
                              uint32_t iteration) {
@@ -1124,6 +1209,7 @@ int lf_refresh(const float* g, const float* U, const float* pscale,
                const float* im, const float* n01, float* p, float* pk,
                float* H0, int C, int Mp, float half_eps, uint32_t k0,
                uint32_t k1, uint32_t iteration, cudaStream_t stream) {
+  if (Mp % 4) return (int)cudaErrorInvalidValue;
   refresh_kernel<<<C, ROW_THREADS, 0, stream>>>(g, U, pscale, im, n01, p, pk,
                                                 H0, Mp, half_eps, k0, k1,
                                                 iteration);
@@ -1245,9 +1331,11 @@ int lf_accept(float* x, float* g, float* U, float* ud, float* um,
               const float* um_in, const float* im, const float* u,
               float* acc, int C, int Mp, uint32_t k0, uint32_t k1,
               uint32_t iteration, cudaStream_t stream) {
-  accept_kernel<<<C, ROW_THREADS, 0, stream>>>(x, g, U, ud, um, p, H0, x_in,
-                                               g_in, U_in, ud_in, um_in, im,
-                                               u, acc, Mp, k0, k1, iteration);
+  if (Mp % 4) return (int)cudaErrorInvalidValue;
+  accept_kernel<ACCEPT_THREADS, ACCEPT_CHAINS, ACCEPT_UNROLL>
+      <<<(C + ACCEPT_CHAINS - 1) / ACCEPT_CHAINS, ACCEPT_THREADS, 0, stream>>>(
+          x, g, U, ud, um, p, H0, x_in, g_in, U_in, ud_in, um_in, im, u, acc,
+          C, Mp, k0, k1, iteration);
   return (int)cudaGetLastError();
 }
 

@@ -14,12 +14,17 @@ is drawn on the host from a CPU ``torch.Generator`` seeded by (seed,
 chunk), so a chunk's draws depend only on its index, as in the JAX
 package. Momentum normals and accept uniforms come from Philox keyed by
 (salt of the seed, global iteration, chain, element): on the card, inside
-the ``refresh`` and ``accept`` kernels on the fused-iteration path and
-from one launch of the ``draws`` kernel an iteration on every other path;
-on the CPU from those kernels' plain versions, with identical bits (see
-``ops/philox.py``). A *draw source* ``draws(chunk_idx, i) -> (L, n01, u)``
-replaces all three; the parity tests feed the JAX sampler's own draws
-through it.
+the ``refresh`` and ``accept`` kernels that open and close every
+iteration of the fused paths (iteration, trajectory and per-step), and
+from one launch of the ``draws`` kernel an iteration on the eager shared-L
+path; on the CPU from those kernels' plain versions, with identical bits
+(see ``ops/philox.py``). A *draw source* ``draws(chunk_idx, i) -> (L,
+n01, u)`` replaces all three; the parity tests feed the JAX sampler's own
+draws through it, and on the fused paths they enter as ``refresh``'s and
+``accept``'s inputs.
+
+Entry points run on ``cuda:0`` unless a device is given (see
+``_device.py``); ``device="cpu"`` runs the plain versions.
 
 Not ported yet: the per-chain masked-L scan, Welford moments and
 step-size/mass adaptation, checkpoints, SPMD meshes and sample files.
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve
 from ..ops import philox
 from ..ops.leapfrog import (KERNELS, LANE, make_fused_iteration,
                             make_fused_trajectory)
@@ -58,7 +64,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                        shared_L=False, fused_step=None,
                        fused_trajectory=None, fused_iteration=None,
                        store_mode="accepted",
-                       store_thin=1, draws=None, device="cpu"):
+                       store_thin=1, draws=None, device=None):
     """Build ``run_chunk(carry, seed, chunk_idx, params=None, dt=...,
     inv_mass=None, store_base=0) -> (carry, stats)``.
 
@@ -67,7 +73,10 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     (chunk_size, C, 5) block [accept, U, u_data, u_model, L]. ``draws``
     is an optional draw source (see the module docstring). At most one of
     ``fused_step``, ``fused_trajectory`` and ``fused_iteration`` is given;
-    each runs with one L shared by all chains.
+    each runs with one L shared by all chains, keeps x and g lane-padded
+    for the whole chunk, and opens and closes each iteration with one
+    ``refresh`` and one ``accept`` launch. ``device`` is ``cuda:0`` when
+    None.
     """
     if store_mode not in ("accepted", "chain", "none"):
         raise ValueError(f"unknown store_mode {store_mode!r}")
@@ -76,7 +85,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     fused = (fused_step, fused_trajectory, fused_iteration)
     if not shared_L and all(f is None for f in fused):
         raise _unported("the per-chain masked-L scan", "item 8")
-    device = torch.device(device)
+    device = resolve(device)
     dt_default = float(dt)
     sigma = float(np.float32(Sigma))
     low_t = torch.as_tensor(np.asarray(low), dtype=dtype, device=device)
@@ -129,14 +138,45 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     def one_iteration(carry, L, n01, u, salt, git, dt, inv_mass, params,
                       rel):
         x, U, g, u_data, u_model, nacc, buf_m, buf_k = carry
-        C, M = x.shape
-        if fused_iteration is not None:
-            # the whole iteration through the fused kernels
-            x, U, g, u_data, u_model, accf = fused_iteration(
-                x, U, g, u_data, u_model, (salt, git), L, dt, alpha_c,
-                inv_mass=inv_mass, n01=n01, u=u)
+        seed = (salt, git)
+        if fused_iteration is not None or fused_trajectory is not None:
+            # refresh, the trajectory kernels and accept; the trajectory
+            # op draws its momentum at this sampler's Sigma
+            op = fused_iteration or fused_trajectory
+            x, U, g, u_data, u_model, accf = op.iterate(
+                x, U, g, u_data, u_model, seed, L, dt, alpha_c,
+                inv_mass=inv_mass, n01=n01, u=u,
+                Sigma=None if fused_iteration is not None else sigma)
             return finish(x, U, g, u_data, u_model, accf > 0.5, L, rel,
                           nacc, buf_m, buf_k)
+        if fused_step is not None:
+            # refresh, then L calls of the per-step op on the padded state.
+            # The op applies a full kick every step and never returns g:
+            # it is recovered from the last two momenta, after replaying
+            # the last step's boundary negation on the pair before it (the
+            # op's own im, low and high, the same products and comparisons
+            # as its drift, so the same mask bit for bit); then accept
+            pp = fused_step.resolve_params(inv_mass=inv_mass, Sigma=sigma)
+            p, H0 = fused_step.open_iteration(pp, g, U, seed, dt, n01)
+            xs, ps = x, p
+            x_prev, p_prev = xs, ps
+            U_new, ud_new, um_new = U, u_data, u_model
+            for _ in range(L):
+                x_prev, p_prev = xs, ps
+                xs, ps, U_new, ud_new, um_new = fused_step(
+                    xs, ps, dt, alpha_c, inv_mass=inv_mass)
+            x_pre = x_prev + dt * (p_prev if inv_mass is None
+                                   else pp["im"] * p_prev)
+            hit = (x_pre > pp["high"]) | (x_pre < pp["low"])
+            p_eff = torch.where(hit, -p_prev, p_prev)
+            # trailing half kick: p_eff - dt/2 g with g = (p_eff - ps)/dt
+            g_new = (p_eff - ps) / dt
+            accf = fused_step.close_iteration(
+                pp, (xs, g_new, U_new, ud_new, um_new), 0.5 * (p_eff + ps),
+                H0, (x, g, U, u_data, u_model), seed, u)
+            return finish(xs, U_new, g_new, ud_new, um_new, accf > 0.5, L,
+                          rel, nacc, buf_m, buf_k)
+        C, M = x.shape
         if n01 is None or u is None:
             # the Philox normals at the lane-padded width (the words
             # ``refresh`` draws for this state) and uniforms, one launch
@@ -156,47 +196,17 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
             p0 = n01 / torch.sqrt(inv_mass)
             K0 = 0.5 * (inv_mass * p0 * p0).sum(-1)
         H0 = K0 + U
-        p = p0 - (0.5 * dt) * g
-        if fused_trajectory is not None:
-            x_new, p_new, g_new, U_new, ud_new, um_new = fused_trajectory(
-                x, p, L, dt, alpha_c, inv_mass=inv_mass)
-        elif fused_step is not None:
-            # L calls of the per-step op, state kept lane-padded. The op
-            # applies a full kick every step and never returns g: it is
-            # recovered from the last two momenta, after replaying the
-            # last step's boundary negation on the pair before it (the
-            # same products and comparisons as the op's drift, so the
-            # same mask bit for bit)
-            pad = (0, fused_step.Mp - M)
-            xs, ps = F.pad(x, pad), F.pad(p, pad)
-            x_prev, p_prev = xs, ps
-            U_new, ud_new, um_new = U, u_data, u_model
-            for _ in range(L):
-                x_prev, p_prev = xs, ps
-                xs, ps, U_new, ud_new, um_new = fused_step(
-                    xs, ps, dt, alpha_c, inv_mass=inv_mass)
-            x_new, p_full = xs[:, :M], ps[:, :M]
-            x_prev, p_prev = x_prev[:, :M], p_prev[:, :M]
-            x_pre = x_prev + dt * (p_prev if inv_mass is None
-                                   else inv_mass * p_prev)
-            hit = (x_pre > high_t) | (x_pre < low_t)
-            p_eff = torch.where(hit, -p_prev, p_prev)
-            # trailing half kick: p_eff - dt/2 g with g = (p_eff - p_full)/dt
-            g_new = (p_eff - p_full) / dt
-            p_new = 0.5 * (p_eff + p_full)
-        else:
-            xs, ps, U_new, g_new = x, p, U, g
-            ud_new, um_new = u_data, u_model
-            for _ in range(L):
-                xs = xs + dt * (ps if inv_mass is None else inv_mass * ps)
-                hit = (xs > high_t) | (xs < low_t)
-                xs = torch.minimum(torch.maximum(xs, low_t), high_t)
-                ps = torch.where(hit, -ps, ps)
-                U_new, g_new, (_, ud_new, um_new) = pot_raw(xs, alpha_c,
-                                                            params)
-                ps = ps - dt * g_new
-            # full kicks everywhere; restore the trailing half kick
-            x_new, p_new = xs, ps + (0.5 * dt) * g_new
+        xs, ps, U_new, g_new = x, p0 - (0.5 * dt) * g, U, g
+        ud_new, um_new = u_data, u_model
+        for _ in range(L):
+            xs = xs + dt * (ps if inv_mass is None else inv_mass * ps)
+            hit = (xs > high_t) | (xs < low_t)
+            xs = torch.minimum(torch.maximum(xs, low_t), high_t)
+            ps = torch.where(hit, -ps, ps)
+            U_new, g_new, (_, ud_new, um_new) = pot_raw(xs, alpha_c, params)
+            ps = ps - dt * g_new
+        # full kicks everywhere; restore the trailing half kick
+        p_new = ps + (0.5 * dt) * g_new
         if inv_mass is None:
             K_new = 0.5 * (p_new * p_new).sum(-1)
         else:
@@ -204,7 +214,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         H_new = K_new + U_new
         accept = (H_new < H0) | (u < torch.exp(-(H_new - H0)))
         acc_col = accept[:, None]
-        return finish(torch.where(acc_col, x_new, x),
+        return finish(torch.where(acc_col, xs, x),
                       torch.where(accept, U_new, U),
                       torch.where(acc_col, g_new, g),
                       torch.where(accept, ud_new, u_data),
@@ -221,10 +231,11 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         Ls = (None if draws is not None else
               _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax))
         M = carry[0].shape[1]
-        if fused_iteration is not None:
-            # the fused op's carry stays lane-padded (zero pads) for the
+        op = fused_iteration or fused_trajectory or fused_step
+        if op is not None:
+            # a fused path's carry stays lane-padded (zero pads) for the
             # whole chunk: no padding or slicing per iteration
-            pad = (0, fused_iteration.Mp - M)
+            pad = (0, op.Mp - M)
             carry = (F.pad(carry[0], pad), carry[1], F.pad(carry[2], pad),
                      *carry[3:])
         stats = []
@@ -234,6 +245,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
             else:
                 L, n01, u = Ls[i], None, None
             if n01 is not None:
+                # injected draws, made (C, M) tensors once an iteration
                 n01 = torch.as_tensor(np.array(n01), dtype=dtype,
                                       device=device)
                 u = torch.as_tensor(np.array(u), dtype=dtype, device=device)
@@ -241,7 +253,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                 carry, int(L), n01, u, salt, chunk_idx * chunk_size + i, dt,
                 inv_mass, params, store_base + i)
             stats.append(st)
-        if fused_iteration is not None:
+        if op is not None:
             carry = (carry[0][:, :M], carry[1], carry[2][:, :M], *carry[3:])
         return carry, torch.stack(stats)
 
@@ -252,9 +264,11 @@ class HamiltonianMC:
     """Chain ensemble sampler with the reference's run semantics.
 
     Attributes mirror the JAX class; ``device`` says where the chains
-    live. ``use_fused`` runs the fused leapfrog kernels (the whole
-    iteration if ``prefer_iteration_kernel``, else the trajectory), which
-    on a CUDA device are the CUDA kernels of ``csrc/leapfrog.cu``.
+    live: ``cuda:0`` while it is None, and then without a card
+    :meth:`prepare` raises (``"cpu"`` runs the plain versions).
+    ``use_fused`` runs the fused leapfrog kernels (the whole iteration if
+    ``prefer_iteration_kernel``, else the trajectory), which on a CUDA
+    device are the CUDA kernels of ``csrc/leapfrog.cu``.
     """
 
     def __init__(self, model):
@@ -272,7 +286,7 @@ class HamiltonianMC:
         self.nchains = 1
         self.chunk_size = 64
         self.dtype = torch.float32
-        self.device = torch.device("cpu")
+        self.device = None
         self.verbose = True
         #: sample files are not ported; True raises
         self.write_files = False
@@ -296,9 +310,9 @@ class HamiltonianMC:
         self.aprior_model = None
         self.dobs = None
 
-    def _build_fused(self):
-        """The fused op this configuration runs: ``(trajectory,
-        iteration)`` with one of them set."""
+    def _build_fused(self, device):
+        """The fused op this configuration runs on ``device``:
+        ``(trajectory, iteration)`` with one of them set."""
         if (self.constraint != "mandatory"
                 or self.regularization not in ("MS", "Damping")
                 or self.jacobian or float(self.temperature) != 1.0):
@@ -312,7 +326,7 @@ class HamiltonianMC:
                  self.aprior_model, self.model.wdiag * self.model.wdiag,
                  self.low, self.high)
         fkw = dict(regularization=self.regularization, beta=self.beta,
-                   matvec_dtype=mv, device=self.device)
+                   matvec_dtype=mv, device=device)
         name = str(mv).replace("torch.", "")
         if self.prefer_iteration_kernel:
             self._fused_mode = f"iteration({name})"
@@ -335,14 +349,14 @@ class HamiltonianMC:
         C = self.nchains
         M = self.initial_model.shape[0]
         dtype = self.dtype
-        device = torch.device(self.device)
+        device = resolve(self.device)
         potential_fn = self.model.make_potential(
             self.aprior_model, self.low, self.high,
             constraint=self.constraint, log_factor=self.log_factor,
             regularization=self.regularization, beta=self.beta, dtype=dtype,
             jacobian=self.jacobian, temperature=float(self.temperature),
             device=device)
-        fused_traj, fused_iter = (self._build_fused() if self.use_fused
+        fused_traj, fused_iter = (self._build_fused(device) if self.use_fused
                                   else (None, None))
         run_chunk = make_chunk_sampler(
             potential_fn, dt=self.dt, Lmin=self.Lrange[0],
@@ -384,7 +398,7 @@ class HamiltonianMC:
         C = self.nchains
         M = self.initial_model.shape[0]
         total = nsamples + ndraws
-        device = torch.device(self.device)
+        device = resolve(self.device)
         chain_mode = self.store_mode == "chain"
         chain_span = ndraws + nsamples * self.store_thin
         data_size = self.dobs.shape[0]

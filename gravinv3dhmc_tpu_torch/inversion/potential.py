@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from .. import mesher
+from .._device import resolve
 from ..ops import prism
 
 
@@ -72,7 +73,8 @@ class GravMagModule:
 
     The constructor keeps the JAX package's signature. Only cartesian
     gravity on a :class:`~gravinv3dhmc_tpu_torch.mesher.PrismMesh` is
-    ported; the other arguments must keep their defaults. ``device`` is
+    ported; the other arguments must keep their defaults. ``device`` (by
+    default ``cuda:0``, see :mod:`~gravinv3dhmc_tpu_torch._device`) is
     where :meth:`make_potential` puts its tensors and, with
     ``kernel_backend="pallas"``, where the f32 matrix is built (the CUDA
     ``gz`` kernel on a GPU, see :func:`~..ops.prism.prism_kernel_matrix`);
@@ -87,7 +89,7 @@ class GravMagModule:
                  field="gravity", mangle=(90, 0), wavelet_mode=None,
                  wavelet=False, kernel_backend="numpy", dtype=torch.float32,
                  kernel_cache=None, kernel_device=False, verbose=True,
-                 device="cpu", **kwargs):
+                 device=None, **kwargs):
         if coordinate != "cartesian" or field != "gravity":
             raise _unported(f"{coordinate} {field}", "items 7 and 11")
         if mseg or wavelet or wavelet_mode or kernel_device or kwargs:
@@ -106,7 +108,7 @@ class GravMagModule:
         self.coordinate = coordinate
         self.field = field
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.lonobs = np.asarray(obsurface[0], dtype=np.float64)
         self.latobs = np.asarray(obsurface[1], dtype=np.float64)
         self.heightobs = np.asarray(obsurface[2], dtype=np.float64)

@@ -31,11 +31,10 @@ CONFIGS = [(2, 2), (2, 3), (2, 4), (1, 2), (1, 3), (1, 4)]
 SHAPES = {"uniformgrid": (1024, 640, 6016), "ratiogrid": (1024, 1024, 17152)}
 
 
-def variant_source(text, consumers, stages):
-    """``leapfrog.cu``'s text with the kick's ring set to ``consumers``
-    warpgroups and ``stages`` stages."""
-    for name, value in (("KICK_CONSUMERS", consumers),
-                        ("KICK_STAGES", stages)):
+def variant_source(text, values):
+    """``leapfrog.cu``'s text with each ``constexpr int NAME`` of
+    ``values`` (name -> int) set to its value."""
+    for name, value in values.items():
         text, n = re.subn(rf"constexpr int {name} = \d+;",
                           f"constexpr int {name} = {value};", text)
         if n != 1:
@@ -43,21 +42,32 @@ def variant_source(text, consumers, stages):
     return text
 
 
-def build_variants(configs):
-    """Build one library per config; returns config -> library name."""
+def build_variants(variants):
+    """Build one library of ``leapfrog.cu`` per variant (library name ->
+    the constants it sets), one nvcc each, started together."""
     base = _cuda.SOURCES["leapfrog"][1].read_text()
     vdir = _cuda.BUILD_DIR / "variants"
     vdir.mkdir(parents=True, exist_ok=True)
-    names = {}
-    for consumers, stages in configs:
-        name = f"leapfrog_kick_c{consumers}_s{stages}"
+    for name, values in variants.items():
         path = vdir / f"{name}.cu"
-        path.write_text(variant_source(base, consumers, stages))
+        path.write_text(variant_source(base, values))
         _cuda.SOURCES[name] = ("lf", path)
         _cuda._SIGNATURES[name] = _cuda._SIGNATURES["leapfrog"]
-        names[consumers, stages] = name
-    _cuda.build_all(list(names.values()))
-    return names
+    _cuda.build_all(list(variants))
+
+
+def card():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def use_library(name):
+    """Point the registry's wrappers, which launch from the "leapfrog"
+    library, at variant ``name``."""
+    _cuda._LIBRARIES["leapfrog"] = _cuda._LIBRARIES[name]
 
 
 def operands(C, Dp, Mp, seed=0, device="cuda"):
@@ -74,15 +84,17 @@ def operands(C, Dp, Mp, seed=0, device="cuda"):
             torch.full((Mp,), 2e-6, device=device), 0.02, 0.01, 0.001, True)
 
 
-def time_kick(args, reps=20, warmup=3):
-    kick = tlf.KERNELS["kick"]
+def time_kernel(name, args, reps=20, warmup=3):
+    """Mean device time of the registry's ``name`` on ``args`` (CUDA
+    events over ``reps`` launches after ``warmup``)."""
+    kern = tlf.KERNELS[name]
     for _ in range(warmup):
-        kick(*args)
+        kern(*args)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        kick(*args)
+        kern(*args)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -93,16 +105,14 @@ def main(argv=None):
     ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kick_tune: CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
-    names = build_variants(CONFIGS)
+    names = {(c, s): f"leapfrog_kick_c{c}_s{s}" for c, s in CONFIGS}
+    build_variants({name: {"KICK_CONSUMERS": c, "KICK_STAGES": s}
+                    for (c, s), name in names.items()})
     for shape, (C, Dp, Mp) in SHAPES.items():
         for config, name in names.items():
-            # the registry's wrapper launches from the "leapfrog" library
-            _cuda._LIBRARIES["leapfrog"] = _cuda._LIBRARIES[name]
+            use_library(name)
             tlf._OCCUPANCY.pop("kick", None)
             tlf._PLANS.pop(("kick", C, Dp, Mp), None)
             plan = tlf.kick_plan(C, Dp, Mp)
@@ -113,7 +123,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             err = ((a_k[3] - a_p[3]).abs().max()
                    / a_p[3].abs().max()).item()
-            ms = time_kick(operands(C, Dp, Mp))
+            ms = time_kernel("kick", operands(C, Dp, Mp))
             print(json.dumps({
                 "shape": shape, "C_Dp_Mp": [C, Dp, Mp],
                 "consumers": config[0], "stages": config[1],

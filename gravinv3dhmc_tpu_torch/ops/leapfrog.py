@@ -8,9 +8,12 @@ same arguments and return order. The work is split into nine CUDA
 kernels (``csrc/leapfrog.cu``, whose header says why and what bounds
 each): ``refresh``, ``drift``, ``residual``, ``kick``, ``traj_finish`` and
 ``accept`` for the trajectory and iteration; the step reuses ``drift`` and
-``kick`` and adds ``step_residual`` and ``step_misfit``; ``draws`` gives
-the samplers that call the trajectory or the step the momentum normals
-and accept uniforms that ``refresh`` and ``accept`` draw. Each has a plain
+``kick`` and adds ``step_residual`` and ``step_misfit``. Every fused
+sampler path opens an iteration with one ``refresh`` launch and closes it
+with one ``accept`` launch (:meth:`_FusedLeapfrog.open_iteration`,
+:meth:`~_FusedLeapfrog.close_iteration`); ``draws`` gives the eager
+shared-L sampler the momentum normals and accept uniforms that those two
+draw. Each has a plain
 PyTorch version in this module and a wrapper (:class:`~._cuda.Kernel`)
 that launches the CUDA kernel for a CUDA tensor, counts the launch, and
 takes the plain version only for a CPU tensor. There is no fallback: a
@@ -28,6 +31,9 @@ so pads stay exactly zero.
 
 The trajectory length L is a host integer, so the L-step loop issues its
 launches with no device-to-host synchronisation.
+
+The builders put the op on ``cuda:0`` unless a device is given
+(``device="cpu"`` runs the plain versions).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _device
 from . import _cuda, philox
 from ._cuda import (  # noqa: F401  (re-exported)
     KERNELS, Kernel, launch_counts, reset_launch_counts)
@@ -70,7 +77,8 @@ def _mv(t, A):
 def refresh_plain(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
                   H0):
     """p0 = pscale*n01 (Philox normals unless ``n01`` is given),
-    H0 = K0 + U, p = pk = p0 - eps/2 g."""
+    H0 = K0 + U, p = p0 - eps/2 g and, unless ``pk`` is None (the per-step
+    path's p-only form), pk = p."""
     if n01 is None:
         n01 = philox.momentum_normals(salt, iteration, g.shape[0],
                                       g.shape[1], g.device)
@@ -78,7 +86,8 @@ def refresh_plain(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
     H0.copy_(0.5 * (im * p0 * p0).sum(1) + U)
     pv = p0 - half_eps * g
     p.copy_(pv)
-    pk.copy_(pv)
+    if pk is not None:
+        pk.copy_(pv)
 
 
 def draws_plain(n01, u, salt, iteration):
@@ -380,7 +389,9 @@ def philox_bits_cuda(salt, iteration, n_chains, width, device):
 
 #: the kernels each op launches: the iteration (the trajectory is its
 #: middle four) and the step, which reuses ``drift`` and ``kick``; a
-#: sampler that calls the trajectory or the step draws with ``draws``
+#: sampler that calls the step opens and closes each iteration with
+#: ``refresh`` and ``accept``, the eager shared-L sampler draws with
+#: ``draws``
 ITERATION_KERNELS = ("refresh", "drift", "residual", "kick", "traj_finish",
                      "accept")
 STEP_KERNELS = ("drift", "step_residual", "kick", "step_misfit")
@@ -424,10 +435,10 @@ def _pad_vec(v, width, value=0.0):
     return out
 
 
-def params_from_jax(np_params, device="cpu"):
+def params_from_jax(np_params, device=None):
     """The port's params from a JAX ``traj.params`` / ``it.params`` /
     ``step.params`` dict (values as numpy arrays, lane-padded to (Dp,
-    Mp)).
+    Mp)), on ``device`` (``cuda:0`` when None).
 
     The pads are sliced off: the true row count comes from ``dmask``, the
     true column count from ``mmask`` when present (iteration params) and
@@ -435,6 +446,8 @@ def params_from_jax(np_params, device="cpu"):
     columns are exactly zero). The step's transposed copy ``At`` is not
     needed: both GEMMs read the one A.
     """
+    device = _device.resolve(device)
+
     def vec(name, n):
         a = np.array(np_params[name], np.float32).reshape(-1)[:n]
         return torch.as_tensor(a, device=device)
@@ -483,7 +496,7 @@ class _FusedLeapfrog(nn.Module):
             raise ValueError("matvec_dtype must be float32 or bfloat16")
         self.regularization = regularization
         self.beta = float(beta)
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         D, M = np.shape(A)
         self.D, self.M = D, M
         self.Dp, self.Mp = _round_up(D, LANE), _round_up(M, LANE)
@@ -513,6 +526,7 @@ class _FusedLeapfrog(nn.Module):
             "im": torch.ones(M, dtype=_F32, device=self.device),
         }
         self._padded = self._pad_params(self.params)
+        self._pscales = {}
         if self.device.type == "cuda":
             # build (or load) the kernels now: set-up, not sampling time
             _cuda.library()
@@ -534,13 +548,24 @@ class _FusedLeapfrog(nn.Module):
         out["gm_scale"] = out["wmsq"] * (2.0 * self.beta)
         return out
 
-    def _resolve(self, params, inv_mass):
+    def resolve_params(self, params=None, inv_mass=None, Sigma=None):
+        """The lane-padded params the kernels read: the op's own (or
+        ``params``), with ``im`` and ``pscale = 1/sqrt(im)`` from a diagonal
+        ``inv_mass``, else with ``pscale = Sigma`` when it is given (a
+        sampler's identity-metric momentum scale)."""
         pp = (self._padded if params is None or params is self.params
               else self._pad_params(params))
         if inv_mass is not None:
             im = torch.as_tensor(inv_mass, dtype=_F32, device=self.device)
             pp = dict(pp, im=_pad_vec(im, self.Mp, 1.0),
                       pscale=_pad_vec(1.0 / torch.sqrt(im), self.Mp))
+        elif Sigma is not None:
+            s = _f32(Sigma)
+            if s not in self._pscales:
+                self._pscales[s] = _pad_vec(
+                    torch.full((self.M,), s, dtype=_F32, device=self.device),
+                    self.Mp)
+            pp = dict(pp, pscale=self._pscales[s])
         return pp
 
     def _width(self, x):
@@ -575,6 +600,64 @@ class _FusedLeapfrog(nn.Module):
                          float(np.float32(1.0) / e), float(alpha), self.beta,
                          ms)
 
+    def open_iteration(self, pp, g, U, seed, eps, n01=None, pk=None,
+                       plain=False):
+        """One ``refresh`` launch from the carried lane-padded g and (C,)
+        U: ``(p, H0)`` with p = pscale n01 - eps/2 g (the leading half
+        kick, Philox normals keyed by ``seed = (salt, iteration)`` unless
+        ``n01`` (C, M) is given) and H0 = K0 + U. ``pk``, when given,
+        receives a copy of p."""
+        salt, iteration = seed
+        p = torch.empty_like(g)
+        H0 = torch.empty(g.shape[0], dtype=_F32, device=g.device)
+        self._kernels(plain)["refresh"](
+            g, U, pp["pscale"], pp["im"],
+            float(np.float32(0.5) * np.float32(_f32(eps))), salt, iteration,
+            None if n01 is None else _pad_rows(n01, self.Mp), p, pk, H0)
+        return p, H0
+
+    def close_iteration(self, pp, proposal, p, H0, carried, seed, u=None,
+                        plain=False):
+        """One ``accept`` launch: the Metropolis test of H1 = K(p) + U1
+        against H0 (the Philox uniform keyed by ``seed`` unless ``u`` is
+        given). ``proposal = (x1, g1, U1, ud1, um1)`` is updated in place:
+        a rejected chain gets ``carried = (x, g, U, ud, um)`` back bit for
+        bit (a NaN Hamiltonian rejects). Returns the (C,) 0/1 flags."""
+        salt, iteration = seed
+        C = p.shape[0]
+        acc = torch.empty(C, dtype=_F32, device=p.device)
+        x_in, g_in, *scalars = carried
+        self._kernels(plain)["accept"](
+            *proposal, p, H0, x_in, g_in,
+            *(v.to(_F32).reshape(C).contiguous() for v in scalars),
+            pp["im"], salt, iteration,
+            None if u is None else u.to(_F32).reshape(C).contiguous(), acc)
+        return acc
+
+    def iterate(self, x, U, g, ud, um, seed, L, eps, alpha, params=None,
+                inv_mass=None, n01=None, u=None, Sigma=None, plain=False):
+        """One whole HMC iteration: ``refresh``, the L-step trajectory and
+        ``accept`` (:class:`FusedIteration`'s ``forward``). ``Sigma``, when
+        given without ``inv_mass``, replaces the op's own momentum scale,
+        so a sampler that drives the trajectory op draws with its own."""
+        pp = self.resolve_params(params, inv_mass, Sigma)
+        C, n = x.shape[0], self._width(x)
+        e = _f32(eps)
+        # padded state is read in place: the kernels never write x_in, g_in
+        x_in = x.contiguous() if n == self.Mp else _pad_rows(x, self.Mp)
+        g_in = g.contiguous() if n == self.Mp else _pad_rows(g, self.Mp)
+        U_in = U.to(_F32).reshape(C).contiguous()
+        xw = x_in.clone()
+        pk = torch.empty_like(x_in)
+        U1, ud1, um1 = (torch.empty(C, dtype=_F32, device=x.device)
+                        for _ in range(3))
+        p, H0 = self.open_iteration(pp, g_in, U_in, seed, e, n01, pk, plain)
+        self._trajectory(self._kernels(plain), pp, xw, p, pk, L, e,
+                         _f32(alpha), pk, U1, ud1, um1)
+        acc = self.close_iteration(pp, (xw, pk, U1, ud1, um1), p, H0,
+                                   (x_in, g_in, U_in, ud, um), seed, u, plain)
+        return xw[:, :n], U1, pk[:, :n], ud1, um1, acc
+
 
 class FusedTrajectory(_FusedLeapfrog):
     """``traj(x, p_half, L, eps, alpha) -> (x', p', g', U, ud, um)``.
@@ -586,7 +669,7 @@ class FusedTrajectory(_FusedLeapfrog):
 
     def forward(self, x, p, L, eps, alpha, params=None, inv_mass=None,
                 plain=False):
-        pp = self._resolve(params, inv_mass)
+        pp = self.resolve_params(params, inv_mass)
         C, n = x.shape[0], self._width(x)
         xw = _pad_rows(x, self.Mp)
         pw = _pad_rows(p, self.Mp)
@@ -613,35 +696,9 @@ class FusedIteration(_FusedLeapfrog):
 
     def forward(self, x, U, g, ud, um, seed, L, eps, alpha, params=None,
                 inv_mass=None, n01=None, u=None, plain=False):
-        pp = self._resolve(params, inv_mass)
-        k = self._kernels(plain)
-        C, n = x.shape[0], self._width(x)
-        salt, iteration = seed
-        e = _f32(eps)
-        dev = x.device
-
-        def col(v):
-            return v.to(_F32).reshape(C).contiguous()
-
-        # padded state is read in place: the kernels never write x_in, g_in
-        x_in = x.contiguous() if n == self.Mp else _pad_rows(x, self.Mp)
-        g_in = g.contiguous() if n == self.Mp else _pad_rows(g, self.Mp)
-        U_in, ud_in, um_in = col(U), col(ud), col(um)
-        xw = x_in.clone()
-        p = torch.empty_like(x_in)
-        pk = torch.empty_like(x_in)
-        H0, U1, ud1, um1, acc = (torch.empty(C, dtype=_F32, device=dev)
-                                 for _ in range(5))
-        k["refresh"](g_in, U_in, pp["pscale"], pp["im"],
-                     float(np.float32(0.5) * np.float32(e)), salt, iteration,
-                     None if n01 is None else _pad_rows(n01, self.Mp),
-                     p, pk, H0)
-        self._trajectory(k, pp, xw, p, pk, L, e, _f32(alpha), pk, U1, ud1,
-                         um1)
-        k["accept"](xw, pk, U1, ud1, um1, p, H0, x_in, g_in, U_in, ud_in,
-                    um_in, pp["im"], salt, iteration,
-                    None if u is None else col(u), acc)
-        return xw[:, :n], U1, pk[:, :n], ud1, um1, acc
+        return self.iterate(x, U, g, ud, um, seed, L, eps, alpha,
+                            params=params, inv_mass=inv_mass, n01=n01, u=u,
+                            plain=plain)
 
 
 class FusedStep(_FusedLeapfrog):
@@ -661,7 +718,7 @@ class FusedStep(_FusedLeapfrog):
 
     def forward(self, x, p, eps, alpha, params=None, inv_mass=None,
                 plain=False):
-        pp = self._resolve(params, inv_mass)
+        pp = self.resolve_params(params, inv_mass)
         k = self._kernels(plain)
         C, n = x.shape[0], self._width(x)
         ms = self.regularization == "MS"
@@ -683,10 +740,11 @@ class FusedStep(_FusedLeapfrog):
 
 def make_fused_step(A, dobs_centered, grav_fix, aprior, wm_sq, low, high, *,
                     regularization="MS", beta=0.001,
-                    matvec_dtype=torch.bfloat16, device="cpu"):
+                    matvec_dtype=torch.bfloat16, device=None):
     """Build the per-step op (arguments as the JAX builder's, minus the TPU
-    tiling options): ``A`` is the weighted, uncentred kernel (D, M),
-    ``grav_fix`` the frozen-cell data or None."""
+    tiling options) on ``device``, ``cuda:0`` when None, as every builder
+    here: ``A`` is the weighted, uncentred kernel (D, M), ``grav_fix`` the
+    frozen-cell data or None."""
     return FusedStep(A, dobs_centered, grav_fix, aprior, wm_sq, low, high,
                      regularization=regularization, beta=beta,
                      matvec_dtype=matvec_dtype, Sigma=1.0, device=device,
@@ -695,7 +753,7 @@ def make_fused_step(A, dobs_centered, grav_fix, aprior, wm_sq, low, high, *,
 
 def make_fused_trajectory(A, dobs_centered, grav_fix, aprior, wm_sq, low,
                           high, *, regularization="MS", beta=0.001,
-                          matvec_dtype=torch.bfloat16, device="cpu"):
+                          matvec_dtype=torch.bfloat16, device=None):
     """Build the trajectory op (arguments as the JAX builder's, minus the
     TPU tiling options)."""
     return FusedTrajectory(A, dobs_centered, grav_fix, aprior, wm_sq, low,
@@ -707,7 +765,7 @@ def make_fused_trajectory(A, dobs_centered, grav_fix, aprior, wm_sq, low,
 def make_fused_iteration(A, dobs_centered, grav_fix, aprior, wm_sq, low,
                          high, *, regularization="MS", beta=0.001,
                          matvec_dtype=torch.bfloat16, Sigma=1.0,
-                         device="cpu"):
+                         device=None):
     """Build the whole-iteration op; ``Sigma`` scales the identity-metric
     momentum, as in the JAX builder."""
     return FusedIteration(A, dobs_centered, grav_fix, aprior, wm_sq, low,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import constants
+from .._device import resolve
 from .prism_gz import gz_kernel_matrix
 
 __all__ = ["gz", "prism_kernel_matrix"]
@@ -89,14 +90,14 @@ def _as_cells(mesh_or_cells, prop="density"):
 
 
 def prism_kernel_matrix(field, xo, yo, zo, mesh_or_cells, backend="numpy",
-                        obs_chunk=None, device="cpu"):
+                        obs_chunk=None, device=None):
     """Dense (D, M) gz sensitivity matrix in mGal per g/cm^3.
 
     ``backend="numpy"``: f64 on the host. ``backend="pallas"`` (the JAX
     package's name for its f32 device builder): the f32 matrix from the
-    CUDA ``gz`` kernel when ``device`` is a CUDA device, from its plain
-    PyTorch version on the CPU; returned as a numpy f32 array, as the JAX
-    package returns it.
+    CUDA ``gz`` kernel when ``device`` is a CUDA device (``cuda:0`` when
+    None), from its plain PyTorch version on the CPU; returned as a numpy
+    f32 array, as the JAX package returns it.
     """
     if field not in _SCALES:
         raise NotImplementedError(
@@ -114,7 +115,7 @@ def prism_kernel_matrix(field, xo, yo, zo, mesh_or_cells, backend="numpy",
     if backend == "pallas":
         obs = np.stack([xo, yo, zo], axis=1)
         return gz_kernel_matrix(obs, cells, _SCALES[field],
-                                device).cpu().numpy()
+                                resolve(device)).cpu().numpy()
     D, M = xo.size, cells.shape[0]
     if obs_chunk is None:
         obs_chunk = max(1, min(D, int(2e6 // max(M, 1)) or 1))

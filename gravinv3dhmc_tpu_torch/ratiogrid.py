@@ -52,14 +52,14 @@ def density_model(shape):
     return rho
 
 
-def build_problem(device="cpu", kernel_backend="pallas", n=30, spacing=200.0):
+def build_problem(device=None, kernel_backend="pallas", n=30, spacing=200.0):
     """``(module, dobs, seconds)``: n x n observations at z = 0 over a cube
     of n * spacing metres cut into n x n columns of ratio-1.05 prisms; the
     default is ratiogrid's 900 x 17,100 problem. Data come from the f64
     host builder with 2 % noise (seed 1); the module's own matrix from
-    ``kernel_backend`` on ``device``. ``seconds`` holds the wall times of
-    the f64 host forward (which builds the whole f64 matrix) and of the
-    module's matrix build."""
+    ``kernel_backend`` on ``device`` (``cuda:0`` when None). ``seconds``
+    holds the wall times of the f64 host forward (which builds the whole
+    f64 matrix) and of the module's matrix build."""
     d = float(spacing)
     bounds = (0, n * d, 0, n * d, 0, n * d)
     mesh = mesher.PrismMesh(bounds, (d, d, d), RATIO)

@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from . import mesher, utils
+from . import _device, mesher, utils
 from .inversion.hmc import HamiltonianMC
 from .inversion.potential import GravMagModule
 from .ops import leapfrog
@@ -39,10 +39,11 @@ def density_model(nx, ny, nz):
     return rho
 
 
-def build_problem(nx=20, ny=30, nz=10, spacing=100.0, device="cpu"):
+def build_problem(nx=20, ny=30, nz=10, spacing=100.0, device=None):
     """``(module, dobs)``: nx * ny observations at z = 0 over nx * ny * nz
     prisms of ``spacing`` metres, data from the f64 prism builder with 2 %
-    noise (seed 1). The default is the bench's 600 x 6000 problem."""
+    noise (seed 1), the module on ``device`` (``cuda:0`` when None). The
+    default is the bench's 600 x 6000 problem."""
     d = spacing
     bounds = (0, nx * d, 0, ny * d, 0, nz * d)
     mesh = mesher.PrismMesh(bounds, (d, d, d))
@@ -116,8 +117,8 @@ def profile_chunk(chain, chunk_idx=1):
     """One chunk of ``chain`` under ``torch.profiler`` after a warm chunk:
     host wall time, device busy time and device time by kernel."""
     run_chunk, carry = chain.prepare(nsamples=chain.chunk_size, ndraws=0)
-    return profile_run(run_chunk, carry, chain.seed, chain.device,
-                       chunk_idx)
+    return profile_run(run_chunk, carry, chain.seed,
+                       _device.resolve(chain.device), chunk_idx)
 
 
 def profile_run(run_chunk, carry, seed, device, chunk_idx=1):
@@ -145,11 +146,21 @@ def profile_run(run_chunk, carry, seed, device, chunk_idx=1):
         ms, n = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (ms + (b - a) / 1e3, n + 1)
     busy_ms = _union_us(spans) / 1e3 if spans else None
+    # device time by owner: the port's kernels (csrc/*.cu, all in an
+    # anonymous namespace), device-to-device copies, and PyTorch's own
+    # kernels (the eager ops around them)
+    owners = dict.fromkeys(("port", "memcpy", "torch"), 0.0)
+    for name, (ms, _) in by_kernel.items():
+        owners["port" if name.startswith("(anonymous namespace)::") else
+               "memcpy" if name.startswith("Memcpy") else "torch"] += ms
     return {
         "iterations": stats.shape[0], "chains": stats.shape[1],
         "steps": int(stats[:, 0, 4].sum().item()),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": None if busy_ms is None else busy_ms / wall_ms,
+        "device_ms_by_owner": owners if busy_ms else None,
+        "share_of_busy_by_owner": ({k: v / busy_ms for k, v in owners.items()}
+                                   if busy_ms else None),
         "launches": launches,
         "by_kernel": sorted(([k, ms, n] for k, (ms, n) in by_kernel.items()),
                             key=lambda r: -r[1]),

@@ -57,7 +57,7 @@ def torch_module(small_module):
     jmod, dobs, _ = small_module
     return GravMagModule(dobs, (0, 800, 0, 1200, 0, 400), (100, 100, 100),
                          (jmod.lonobs, jmod.latobs, jmod.heightobs),
-                         verbose=False)
+                         verbose=False, device="cpu")
 
 
 def _bounds(module):
@@ -99,7 +99,8 @@ def test_chunk_matches_jax_shared_L(small_module, torch_module, path,
                                        regularization="MS", beta=0.001)
     fargs = (torch_module.Aw, dobs - dobs.mean(), None, aprior,
              torch_module.wdiag ** 2, low, high)
-    fkw = dict(regularization="MS", beta=0.001, matvec_dtype=torch.float32)
+    fkw = dict(regularization="MS", beta=0.001, matvec_dtype=torch.float32,
+               device="cpu")
     fused = {}
     if path == "iteration":
         fused["fused_iteration"] = tlf.make_fused_iteration(
@@ -107,7 +108,8 @@ def test_chunk_matches_jax_shared_L(small_module, torch_module, path,
     elif path == "trajectory":
         fused["fused_trajectory"] = tlf.make_fused_trajectory(*fargs, **fkw)
     run_t = thmc.make_chunk_sampler(
-        tpot, draws=jax_draws(seed, chunk, C, M), **common, **fused)
+        tpot, draws=jax_draws(seed, chunk, C, M), device="cpu", **common,
+        **fused)
     xt = torch.from_numpy(x0)
     U, g, (_, ud, um) = tpot(xt, 1.0)
     carry_t = (xt, U, g, ud, um, torch.zeros(C, dtype=torch.int32),
@@ -147,6 +149,7 @@ def _configure(chain, module, dobs, nchains=8):
     chain.initial_model = 300.0 * aprior
     chain.aprior_model = aprior
     chain.dobs = dobs
+    chain.device = "cpu"
     return chain
 
 

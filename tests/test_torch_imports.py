@@ -44,7 +44,7 @@ def test_cpu_tensors_take_the_plain_versions():
     it = tlf.make_fused_iteration(A, rng.randn(D), None, np.zeros(M),
                                   np.ones(M), np.full(M, -5.0),
                                   np.full(M, 5.0), Sigma=0.1,
-                                  matvec_dtype=torch.bfloat16)
+                                  matvec_dtype=torch.bfloat16, device="cpu")
     x = torch.zeros(C, M)
     out = it(x, torch.zeros(C), torch.zeros(C, M), torch.zeros(C),
              torch.zeros(C), ((5, 6), 0), 3, 0.01, 1.0)

@@ -9,12 +9,14 @@ pins down what it must compute. The tolerance, 1e-5 of the largest
 epilogue; rounding r by truncation instead moves the bare product by
 ~1e-3 of it.
 
-``draws`` gives the fused-trajectory, fused-step and shared-L samplers
-the Philox normals (at the lane-padded width) and uniforms that the
-``refresh`` and ``accept`` kernels draw on the fused-iteration path. Its
-plain version must be ``philox.momentum_normals`` and
+``draws`` gives the eager shared-L sampler the Philox normals (at the
+lane-padded width) and uniforms that the ``refresh`` and ``accept``
+kernels draw on the fused paths (iteration, trajectory and per-step),
+which open and close each iteration with one call of each. Its plain
+version must be ``philox.momentum_normals`` and
 ``philox.accept_uniforms`` bit for bit, and a sampler that draws through
-it must carry exactly what it carried when it called those two itself.
+the registry must carry exactly what it carried when it called those two
+itself.
 
 ``kick_plan`` is ``split_plan`` with the kick's roles: N = Mp, K = Dp, one
 split.
@@ -123,7 +125,7 @@ CHAINS, CHUNK, LMIN, LMAX, SEED = 6, 5, 3, 6, 13
 
 @pytest.fixture(scope="module")
 def problem():
-    return uniformgrid.build_problem(NX, NY, NZ)
+    return uniformgrid.build_problem(NX, NY, NZ, device="cpu")
 
 
 def _sampler(problem, path, draws=None):
@@ -134,7 +136,8 @@ def _sampler(problem, path, draws=None):
     pot = module.make_potential(aprior, low, high, regularization="MS",
                                 beta=0.001)
     fargs = (module.Aw, dobs - dobs.mean(), None, aprior, w * w, low, high)
-    fkw = dict(regularization="MS", beta=0.001, matvec_dtype=torch.float32)
+    fkw = dict(regularization="MS", beta=0.001, matvec_dtype=torch.float32,
+               device="cpu")
     fused = {}
     if path == "step":
         fused["fused_step"] = tlf.make_fused_step(*fargs, **fkw)
@@ -147,7 +150,8 @@ def _sampler(problem, path, draws=None):
         pot, dt=0.05, Lmin=LMIN, Lmax=LMAX, Sigma=0.001, low=low, high=high,
         constraint="mandatory", alpha=1.0, chunk_size=CHUNK, nsamples=4,
         ndraws=0, wdiag_inv=module.wdiag_inv, data_size=dobs.size,
-        shared_L=True, store_mode="chain", draws=draws, **fused)
+        shared_L=True, store_mode="chain", draws=draws, device="cpu",
+        **fused)
     x = torch.as_tensor(np.tile(300.0 * aprior, (CHAINS, 1)),
                         dtype=torch.float32)
     U, g, (_, ud, um) = pot(x, 1.0)
@@ -157,26 +161,50 @@ def _sampler(problem, path, draws=None):
 
 
 @pytest.mark.parametrize("path, calls", [
-    ("step", CHUNK), ("trajectory", CHUNK), ("shared_L", CHUNK),
-    ("iteration", 0)])
+    pytest.param("step", {"refresh": CHUNK, "accept": CHUNK, "draws": 0},
+                 id="step-5"),
+    pytest.param("trajectory",
+                 {"refresh": CHUNK, "accept": CHUNK, "draws": 0},
+                 id="trajectory-5"),
+    pytest.param("shared_L", {"refresh": 0, "accept": 0, "draws": CHUNK},
+                 id="shared_L-5"),
+    pytest.param("iteration",
+                 {"refresh": CHUNK, "accept": CHUNK, "draws": 0},
+                 id="iteration-0")])
 def test_samplers_draw_through_the_registry(problem, monkeypatch, path,
                                             calls):
-    """One ``draws`` call an iteration where the sampler draws for the op
-    (none on the fused-iteration path, whose kernels draw), at the
-    lane-padded width."""
-    seen = []
-    plain = tlf.draws_plain
+    """Each fused path opens an iteration with one ``refresh`` call and
+    closes it with one ``accept`` call, which draw; the eager shared-L
+    path makes one ``draws`` call instead. All at the lane-padded width,
+    keyed by the global iteration; only the per-step path takes
+    ``refresh``'s p-only form (no pk)."""
+    seen = {name: [] for name in calls}
 
-    def counting(n01, u, salt, iteration):
-        seen.append((tuple(n01.shape), tuple(u.shape), int(iteration)))
-        plain(n01, u, salt, iteration)
+    def counting(name):
+        plain = tlf.KERNELS[name].plain
 
-    monkeypatch.setattr(tlf.KERNELS["draws"], "plain", counting)
+        def wrapper(*a):
+            # (padded width, pk given) for refresh, else the width
+            if name == "refresh":
+                seen[name].append((a[0].shape, a[9] is not None, a[6]))
+            elif name == "accept":
+                seen[name].append((a[0].shape, a[14]))
+            else:
+                seen[name].append((a[0].shape, a[3]))
+            return plain(*a)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(tlf.KERNELS[name], "plain", counting(name))
     run, carry = _sampler(problem, path)
     run(carry, SEED, 2)
-    assert len(seen) == calls
-    assert all(s == ((CHAINS, 256), (CHAINS,), 2 * CHUNK + i)
-               for i, s in enumerate(seen))
+    assert {name: len(v) for name, v in seen.items()} == calls
+    shape = (CHAINS, 256)
+    for name, rows in seen.items():
+        for i, row in enumerate(rows):
+            assert row[0] == shape and row[-1] == 2 * CHUNK + i
+        if name == "refresh":
+            assert all(row[1] == (path != "step") for row in rows)
 
 
 def _direct_philox_draws(M):

@@ -55,7 +55,7 @@ def _trajectory_pair(module, dobs, reg, inv_mass, jax_dtype, torch_dtype):
                                    tile_c=8, matvec_dtype=jax_dtype,
                                    interpret=True)
     tt = tlf.make_fused_trajectory(*fargs, regularization=reg, beta=0.001,
-                                   matvec_dtype=torch_dtype)
+                                   matvec_dtype=torch_dtype, device="cpu")
     C = 8
     rng = np.random.RandomState(3)
     x = (rng.uniform(0.1, 0.6, (C, M))
@@ -66,7 +66,7 @@ def _trajectory_pair(module, dobs, reg, inv_mass, jax_dtype, torch_dtype):
     out_j = jt(jnp.asarray(x), jnp.asarray(p), jnp.int32(5),
                jnp.float32(0.01), jnp.float32(1.0), params=jt.params,
                inv_mass=None if im is None else jnp.asarray(im))
-    params = tlf.params_from_jax(_np_params(jt.params))
+    params = tlf.params_from_jax(_np_params(jt.params), device="cpu")
     assert params["A"].dtype == torch_dtype
     out_t = tt(torch.from_numpy(x), torch.from_numpy(p), 5, 0.01, 1.0,
                params=params,
@@ -146,7 +146,8 @@ def _iteration_pair(module, dobs, reg, jax_dtype, torch_dtype):
     kw = dict(regularization=reg, beta=0.001, Sigma=0.001)
     jit_ = jlf.make_fused_iteration(*fargs, tile_c=8, matvec_dtype=jax_dtype,
                                     **kw)
-    tit = tlf.make_fused_iteration(*fargs, matvec_dtype=torch_dtype, **kw)
+    tit = tlf.make_fused_iteration(*fargs, matvec_dtype=torch_dtype,
+                                   device="cpu", **kw)
     C = 8
     x, U, g, ud, um = _state(module, dobs, reg, C, 5)
     with pltpu.force_tpu_interpret_mode():
@@ -155,7 +156,7 @@ def _iteration_pair(module, dobs, reg, jax_dtype, torch_dtype):
                      jnp.int32(4), jnp.float32(0.01), jnp.float32(1.0),
                      params=jit_.params)
     t = torch.from_numpy
-    params = tlf.params_from_jax(_np_params(jit_.params))
+    params = tlf.params_from_jax(_np_params(jit_.params), device="cpu")
     assert params["A"].dtype == torch_dtype
     out_t = tit(t(x), t(U), t(g), t(ud), t(um), ((1, 2), 7), 4, 0.01, 1.0,
                 params=params, n01=t(_stub_normals(C, M)), u=torch.zeros(C))
@@ -201,7 +202,7 @@ def test_iteration_takes_lane_padded_state():
     tit = tlf.make_fused_iteration(
         rng.randn(D, M) * 0.1, rng.randn(D), None, np.full(M, 0.5),
         np.ones(M), np.zeros(M), np.ones(M), regularization="MS",
-        matvec_dtype=torch.bfloat16, Sigma=0.01)
+        matvec_dtype=torch.bfloat16, Sigma=0.01, device="cpu")
     Mp = tit.Mp
     assert Mp == 256
     x = torch.from_numpy(rng.uniform(0.2, 0.8, (C, M)).astype(np.float32))
@@ -234,7 +235,8 @@ def test_iteration_rejection_keeps_state(small_module):
     kw = dict(regularization="Damping", beta=0.001, Sigma=0.001)
     jit_ = jlf.make_fused_iteration(*fargs, tile_c=8,
                                     matvec_dtype=jnp.float32, **kw)
-    tit = tlf.make_fused_iteration(*fargs, matvec_dtype=torch.float32, **kw)
+    tit = tlf.make_fused_iteration(*fargs, matvec_dtype=torch.float32,
+                                   device="cpu", **kw)
     C = 8
     x0 = np.tile(0.5 * np.asarray(module.wdiag, np.float32), (C, 1))
     g0 = np.random.RandomState(0).randn(C, M).astype(np.float32)
@@ -260,7 +262,8 @@ def test_iteration_nan_hamiltonian_rejects(small_module):
     module, dobs, _ = small_module
     tit = tlf.make_fused_iteration(*_fargs(module, dobs),
                                    regularization="MS",
-                                   matvec_dtype=torch.float32, Sigma=0.001)
+                                   matvec_dtype=torch.float32, Sigma=0.001,
+                                   device="cpu")
     C, M = 4, module.n_active
     x, U, g, ud, um = (torch.from_numpy(a)
                        for a in _state(module, dobs, "MS", C, 1))
@@ -311,8 +314,10 @@ def test_bf16_storage_rounds_matvec_operands(small_module):
     on the first step's residual, and stays close to the f32 trajectory."""
     module, dobs, _ = small_module
     fargs = _fargs(module, dobs)
-    tb = tlf.make_fused_trajectory(*fargs, matvec_dtype=torch.bfloat16)
-    tf = tlf.make_fused_trajectory(*fargs, matvec_dtype=torch.float32)
+    tb = tlf.make_fused_trajectory(*fargs, matvec_dtype=torch.bfloat16,
+                                   device="cpu")
+    tf = tlf.make_fused_trajectory(*fargs, matvec_dtype=torch.float32,
+                                   device="cpu")
     assert tb.params["A"].dtype == torch.bfloat16
     C, M = 4, module.n_active
     rng = np.random.RandomState(2)

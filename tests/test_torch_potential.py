@@ -30,7 +30,8 @@ def _modules(small_module, fixed):
         kw = dict(fixed=True,
                   grav_fix=np.random.RandomState(1).randn(dobs.size))
     return (JModule(dobs, BOUNDS, SPACING, obs, verbose=False, **kw),
-            GravMagModule(dobs, BOUNDS, SPACING, obs, verbose=False, **kw))
+            GravMagModule(dobs, BOUNDS, SPACING, obs, verbose=False,
+                          device="cpu", **kw))
 
 
 @pytest.mark.parametrize("fixed", [False, True])

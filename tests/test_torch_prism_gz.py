@@ -60,7 +60,8 @@ def test_plain_gz_matches_jax_pallas_and_f64(spacing, ratio, z):
     obs = np.stack([xo, yo, zo], axis=1)
     scale = constants.G * constants.SI2MGAL
     A64 = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh)
-    At = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh, backend="pallas")
+    At = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh, backend="pallas",
+                                   device="cpu")
     assert At.dtype == np.float32 and At.shape == A64.shape
     # as the JAX package's own pallas branch runs it (ops/prism.py:247-255)
     with jax.enable_x64(False):
@@ -95,7 +96,8 @@ def test_guarded_branches_are_taken():
         hits["r0"] += int(((dx == 0).any(1) & (dy == 0).any(1)
                            & (dz == 0).any(1)).sum())
     assert all(v > 0 for v in hits.values()), hits
-    A = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh, backend="pallas")
+    A = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh, backend="pallas",
+                                  device="cpu")
     assert np.isfinite(A).all()
 
 
@@ -110,9 +112,9 @@ def test_module_pallas_backend_matches_jax():
     jm = JModule(dobs, BOUNDS, spacing, obs, mratio=1.3,
                  kernel_backend="pallas", verbose=False)
     tm = GravMagModule(dobs, BOUNDS, spacing, obs, mratio=1.3,
-                       kernel_backend="pallas", verbose=False)
+                       kernel_backend="pallas", verbose=False, device="cpu")
     t64 = GravMagModule(dobs, BOUNDS, spacing, obs, mratio=1.3,
-                        verbose=False)
+                        verbose=False, device="cpu")
     assert tm.Aw.dtype == np.float32 and tm.wdiag.dtype == np.float32
     assert np.asarray(jm.Aw).dtype == np.float32
     assert tm.kernel_build_s >= 0

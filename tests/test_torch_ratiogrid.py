@@ -58,7 +58,7 @@ def test_reduced_ratiogrid_samples_through_the_per_step_branch():
     within the f32 bound of the f64 one; one chunk through the per-step
     op stores finite samples of the expected shape, its stats carry the
     draw source's L, and the accepted counts are the sums of the flags."""
-    module, dobs, seconds = ratiogrid.build_problem(n=12)
+    module, dobs, seconds = ratiogrid.build_problem(device="cpu", n=12)
     M = module.n_active
     assert module.mshape == (9, 12, 12) and dobs.shape == (144,)
     assert module.A.dtype == np.float32
@@ -93,7 +93,7 @@ def test_reduced_ratiogrid_samples_through_the_per_step_branch():
 def test_run_chunks_counts_the_draws():
     """The timed loop: grad-evals are the chains times the drawn L of the
     timed chunks (the warm chunk 0 not counted), and the result is finite."""
-    module, dobs, _ = ratiogrid.build_problem(n=10)
+    module, dobs, _ = ratiogrid.build_problem(device="cpu", n=10)
     C, chunk = 4, 3
     draws = _numpy_draws(C, module.n_active, 9)
     run_chunk, carry, _ = ratiogrid.step_sampler(

@@ -63,7 +63,8 @@ def test_step_matches_jax_kernel(small_module, reg, dtype, inv_mass, fix):
                                 tile_c=8, matvec_dtype=getattr(jnp, dtype),
                                 interpret=True)
     tstep = tlf.make_fused_step(*fargs, regularization=reg, beta=0.001,
-                                matvec_dtype=getattr(torch, dtype))
+                                matvec_dtype=getattr(torch, dtype),
+                                device="cpu")
     C = 8
     w = np.asarray(module.wdiag, np.float32)
     x = (rng.uniform(0.0, 1.0, (C, M)) * w).astype(np.float32)
@@ -74,7 +75,7 @@ def test_step_matches_jax_kernel(small_module, reg, dtype, inv_mass, fix):
     out_j = jstep(jnp.asarray(x), jnp.asarray(p), jnp.float32(0.01),
                   jnp.float32(1.0), params=jstep.params,
                   inv_mass=None if im is None else jnp.asarray(im))
-    params = tlf.params_from_jax(_np_params(jstep.params))
+    params = tlf.params_from_jax(_np_params(jstep.params), device="cpu")
     assert params["A"].dtype == getattr(torch, dtype)
     assert ("fix" in params) and torch.equal(
         params["fix"] != 0, torch.full((dobs.size,), fix))
@@ -105,7 +106,7 @@ def test_step_keeps_its_inputs_and_lane_pads():
     step = tlf.make_fused_step(
         rng.randn(D, M) * 0.1, rng.randn(D), rng.randn(D), np.full(M, 0.5),
         np.ones(M), np.zeros(M), np.ones(M), regularization="MS",
-        matvec_dtype=torch.bfloat16)
+        matvec_dtype=torch.bfloat16, device="cpu")
     Mp = step.Mp
     x = torch.from_numpy(rng.uniform(0, 1, (C, M)).astype(np.float32))
     p = torch.from_numpy(rng.randn(C, M).astype(np.float32))
@@ -128,7 +129,7 @@ def torch_module(small_module):
     jmod, dobs, _ = small_module
     return GravMagModule(dobs, (0, 800, 0, 1200, 0, 400), (100, 100, 100),
                          (jmod.lonobs, jmod.latobs, jmod.heightobs),
-                         verbose=False)
+                         verbose=False, device="cpu")
 
 
 @pytest.mark.parametrize("store_mode,inv_mass", [
@@ -172,11 +173,11 @@ def test_chunk_matches_jax_per_step(small_module, torch_module, store_mode,
                                        regularization="MS", beta=0.001)
     tstep = tlf.make_fused_step(*_fargs(torch_module, dobs, None),
                                 regularization="MS", beta=0.001,
-                                matvec_dtype=torch.float32)
+                                matvec_dtype=torch.float32, device="cpu")
     # both samplers scale the same normals by 1/sqrt(inv_mass)
     run_t = thmc.make_chunk_sampler(tpot, fused_step=tstep,
                                     draws=jax_draws(seed, chunk, C, M),
-                                    **common)
+                                    device="cpu", **common)
     xt = torch.from_numpy(x0)
     U, g, (_, ud, um) = tpot(xt, 1.0)
     carry_t = (xt, U, g, ud, um, torch.zeros(C, dtype=torch.int32),

@@ -21,7 +21,7 @@ def test_profile_chunk_on_cpu():
     """A profiled chunk of a tiny problem: the step count is the chunk's
     sum of L, no kernel launch is counted for CPU tensors and the device
     figures are absent, not zero."""
-    module, dobs = uniformgrid.build_problem(8, 12, 4)
+    module, dobs = uniformgrid.build_problem(8, 12, 4, device="cpu")
     assert dobs.shape == (96,) and module.n_active == 384
     chain = uniformgrid.sampler(module, dobs, "cpu", 8, 4, 0.01, (3, 6),
                                 0.001, 0.001, torch.float32, seed=2)
@@ -31,6 +31,7 @@ def test_profile_chunk_on_cpu():
     assert summary["wall_ms"] > 0
     assert summary["device_busy_ms"] is None
     assert summary["busy_share"] is None
+    assert summary["device_ms_by_owner"] is None
     assert summary["launches"] == {name: 0 for name in tlf.KERNELS}
 
 
@@ -39,7 +40,7 @@ def test_padded_fused_carry_matches_unfused_path():
     which keeps its carry lane-padded through each chunk, takes the same
     accept decisions as the unfused shared-L path over two chunks (the
     same Philox draws), with samples within f32 summation-order error."""
-    module, dobs = uniformgrid.build_problem(6, 10, 3)
+    module, dobs = uniformgrid.build_problem(6, 10, 3, device="cpu")
     assert module.n_active == 180
     runs = []
     for fused in (True, False):
