@@ -12,8 +12,9 @@ Phases, one line each (the script stops at the first failure, non-zero):
              build times, the card, ptxas's registers and spills, and the
              number of HGMMA (wgmma) instructions in the SASS
              (``cuobjdump -sass``) of each tensor-core kernel
-             (``residual_partial_tc_kernel``, ``kick_tc_kernel``); 0 in
-             either fails.
+             (``residual_partial_tc_kernel``, ``kick_tc_kernel`` and the
+             f32-matrix ``residual_partial_split_kernel``,
+             ``kick_split_kernel``); 0 in any fails.
 2. philox  — the kernel's Philox words equal ``ops/philox.py``'s bit for
              bit; its 1M normals have mean 0 and variance 1 within 5 sigma;
              ``refresh``'s p-only form gives its two-output form's p and
@@ -50,10 +51,30 @@ Phases, one line each (the script stops at the first failure, non-zero):
              port's own mesh and prism builder), 1024 chains, through
              ``HamiltonianMC.sample(use_fused=True)``: grad-evals/s,
              accept ratio, median ESS and the launch count of every
-             kernel (each must be > 0); then a small problem sampled on
-             the card and on the CPU with the same seed must agree, and
-             the same on the card through the eager shared-L path, whose
-             ``draws`` launches are counted around that run alone.
+             kernel (each must be > 0); the same with an f32 matrix
+             (``slice_f32``: the f32 GEMM kernels); then a small problem
+             sampled on the card and on the CPU with the same seed must
+             agree, and the same on the card through the eager shared-L
+             path, whose ``draws`` launches are counted around that run
+             alone.
+6b. f32    — the f32-matrix GEMMs (``residual_f32``,
+             ``step_residual_f32``, ``kick_f32``: six bf16 products of
+             three pieces of each operand on the tensor cores) at
+             realdata's 256 x 640 x 10,496 (a synthetic f32 matrix whose
+             column scales span four decades, ``f32_gemm_check.py``), at a
+             ragged 200 chains there and at uniformgrid's 1024 x 640 x
+             6016 (its own matrix): two launches bit for bit equal; the
+             kernel and the plain version (one IEEE-f32 matmul, TF32 off)
+             against the float64 product of the same f32 operands, the
+             kernel's error over max|product| at most ``F32_ERR_RATIO``
+             times the plain version's; NaN guards past the last chain;
+             times beside both bounds (six bf16 products on the tensor
+             cores, one f32 product outside them) and one matmul. Then the
+             f32 trajectory op at realdata's width (256 chains, L = 22)
+             against its plain version to ``TRAJ_RTOL["float32"]``, its
+             launches counted. After phase 8 the same GEMM checks at
+             ratiogrid's 1024 x 1024 x 17,152, where ``slice2_f32``
+             launches ``step_residual_f32``.
 7. gz      — the ratiogrid matrix (900 obs x 17,100 ratio prisms): the
              ``gz`` kernel against its plain version and both against the
              f64 host builder, within 1e-3 of max|A| elementwise and 5e-3
@@ -65,8 +86,11 @@ Phases, one line each (the script stops at the first failure, non-zero):
              median ESS, both matrix build times and the launch count of
              every kernel of the path (``refresh`` and ``accept``, which
              open and close each iteration, included; each must be > 0,
-             and ``draws`` must not be launched); then a small ratiogrid
-             sampled on the card and on the CPU must agree.
+             and ``draws`` must not be launched); the same problem with
+             an f32 matrix (``slice2_f32``, through
+             ``step_residual_f32`` and ``kick_f32``); then a
+             small ratiogrid sampled on the card and on the CPU must
+             agree (an f32 matrix, its launches on its own line).
 9. step kernels — ``refresh`` in its p-only form, ``accept`` with 99 %
              of the chains accepted, ``step_residual``, ``step_misfit``
              and ``draws`` (and the reused ``drift`` and ``kick``) against
@@ -79,8 +103,11 @@ Phases, one line each (the script stops at the first failure, non-zero):
              mass; its x' is the clip of the sampler's replayed drift bit
              for bit.
 
-Slice 1's launch counts are read around phase 6, the shared-L card run's
-in phase 6's reference, slice 2's around phase 8; around both slices,
+Slice 1's launch counts are read around phase 6 (bf16 and f32), the
+shared-L card run's in phase 6's reference, the realdata-width f32
+trajectory's in phase 6b, slice 2's (bf16 and f32) in phase 8: these
+runs' counts make the ``launches`` of the kernels line. Around the
+slices,
 the plain Philox draws (``ops.philox.momentum_normals``,
 ``accept_uniforms``) must not be called. The last three lines are the
 card (``nvidia-smi`` name and power limit),
@@ -112,6 +139,9 @@ TRAJ_RTOL = {"float32": {"x": 1e-4, "p": 1e-4, "g": 1e-4, "U": 1e-4},
 #: chains of the step op's check (the trajectory and iteration checks
 #: run at 256 too)
 STEP_CHAINS = 256
+#: the f32-matrix GEMMs against float64: their error over max|product|
+#: may be at most this many times that of one IEEE-f32 matmul
+F32_ERR_RATIO = 2.0
 #: the ragged chain count at which the tensor-core GEMMs are checked
 #: beside the slices' (rows past it come from TMA's zero fill and are
 #: neither read nor stored)
@@ -161,23 +191,15 @@ def rel_err(out, ref):
 
 def time_ms(torch, fn, reps=20, warmup=3, rounds=5):
     """Device time of one call of ``fn``: the median over ``rounds`` of the
-    mean over ``reps`` calls (CUDA events), after ``warmup`` calls. One
-    kernel's 20-launch means spread by up to 1.7x from round to round on
-    the card (the accept kernel read 0.029 and 0.048 ms in one process);
-    the median keeps one slow round out."""
+    mean over ``reps`` calls (``timing.device_ms``: CUDA events around
+    calls queued behind a spin of the card, so that the host's issue time
+    is not timed), after ``warmup`` calls."""
+    from gravinv3dhmc_tpu_torch.timing import device_ms
+
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    means = []
-    for _ in range(rounds):
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        means.append(start.elapsed_time(end) / reps)
-    return float(np.median(means))
+    return float(np.median([device_ms(fn, reps, warmup=0)
+                            for _ in range(rounds)]))
 
 
 def sass_counts(lib, opcode):
@@ -198,20 +220,27 @@ def sass_counts(lib, opcode):
     return counts
 
 
-def work(name, a, accepted=None):
+def work(name, a, accepted=None, simt=False):
     """(bytes, {type: operations}) that kernel ``name`` must move and do
     on its arguments ``a``: each input read once and each output written
-    once (scratch such as split partials not counted), and where the work
+    once (scratch such as split partials, and an f32 matrix's bf16
+    pieces, not counted: the matrix is read as f32), and where the work
     depends on the data (accept's restore of rejected chains) what this
-    run's data needs."""
+    run's data needs. ``simt``: a GEMM's product as one f32 product
+    outside the tensor cores."""
     def nb(t):
         return t.numel() * t.element_size() if t is not None else 0
 
-    def gemm(A, other, flop, f32):
-        # the product on the tensor cores with a bf16 matrix, else SIMT
-        tc = "bf16" if A.dtype != other.dtype else "f32"
-        return {"bf16": flop if tc == "bf16" else 0,
-                "f32": f32 + (flop if tc == "f32" else 0)}
+    def gemm(A, flop, f32):
+        # on the tensor cores one bf16 product with a bf16 matrix, six
+        # with an f32 one (three bf16 pieces of each operand)
+        if simt:
+            return {"f32": f32 + flop}
+        return {"bf16": (1 if A.element_size() == 2 else 6) * flop,
+                "f32": f32}
+
+    if name.endswith("_f32"):
+        name = name[:-len("_f32")]
 
     if name == "refresh":
         g, U, pscale, im, _, _, _, n01, p, pk, H0 = a
@@ -234,12 +263,12 @@ def work(name, a, accepted=None):
         outs = a[6:8] if name == "step_residual" else a[4:5]
         return (nb(x) + nb(A) + sum(nb(v) for v in vecs)
                 + sum(nb(o) for o in outs),
-                gemm(A, x, 2 * C * Dp * x.shape[1], 4 * C * Dp))
+                gemm(A, 2 * C * Dp * x.shape[1], 4 * C * Dp))
     if name == "kick":
         r, A, x, p, aprior, gm_scale = a[:6]
         return (nb(r) + nb(A) + nb(x) + 2 * nb(p) + nb(aprior)
                 + nb(gm_scale),
-                gemm(A, r, 2 * r.shape[0] * r.shape[1] * A.shape[1],
+                gemm(A, 2 * r.shape[0] * r.shape[1] * A.shape[1],
                      (11 if a[9] else 5) * p.numel()))
     if name == "traj_finish":
         x, p, pk, r, g, U, ud, um, aprior, wmsq = a[:10]
@@ -264,11 +293,11 @@ def work(name, a, accepted=None):
     raise KeyError(name)
 
 
-def bound(name, a, accepted=None):
+def bound(name, a, accepted=None, simt=False):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``name`` on ``a`` at its published peaks, the larger of bytes over the
     memory rate and operations over their peak rates."""
-    nbytes, ops = work(name, a, accepted)
+    nbytes, ops = work(name, a, accepted, simt)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items()) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -280,6 +309,7 @@ def library_call(torch, name, a):
     if name not in ("residual", "step_residual", "kick") or \
             a[1].dtype != torch.bfloat16:
         return None
+    # (the f32 GEMMs' call is f32_gemm_check.library_fn)
     if name == "kick":
         rb, A = a[0].to(torch.bfloat16), a[1]
         return lambda: torch.matmul(rb, A)
@@ -471,25 +501,27 @@ def gemm_reference(torch, name, args):
     return {"r": r, "ud": (r * r).sum(1)}
 
 
-def partials_guarded(torch, tlf, x, A):
+def partials_guarded(torch, tlf, x, A, pieces=None):
     """The split GEMM alone, through the library's entry, with a NaN guard
     slice after its partials: True when a store past the last chain row
-    (which would land in the guard) did not happen."""
+    (which would land in the guard) did not happen. An f32 A takes its
+    bf16 ``pieces``."""
     from gravinv3dhmc_tpu_torch.ops import _cuda
 
     C, Mp = x.shape
     Dp = A.shape[0]
     f32 = torch.float32
-    splits = tlf.residual_plan(C, Dp, Mp, 1)["splits"]
+    mode = tlf._a_mode(A)
+    splits = tlf.residual_plan(C, Dp, Mp, mode)["splits"]
     part = torch.full((splits + 1, C, Dp), float("nan"), device=x.device)
     r = torch.empty((C, Dp), device=x.device)
     zeros = torch.zeros(Dp, device=x.device)
     ones = torch.ones(Dp, device=x.device)
     P = _cuda.ptr
     _cuda.library().call(
-        "lf_residual", P(x, f32), P(A, A.dtype), 1, P(zeros, f32),
-        P(ones, f32), P(r, f32), P(part, f32), splits, C, Dp, Mp,
-        _cuda.stream(x))
+        "lf_residual", P(x, f32), tlf._matrix(mode, A, pieces), mode,
+        P(zeros, f32), P(ones, f32), P(r, f32), P(part, f32), splits, C, Dp,
+        Mp, _cuda.stream(x))
     sync(torch)
     return bool(torch.isnan(part[splits]).all())
 
@@ -554,7 +586,9 @@ def kick_guarded(torch, tlf, a, tile_m):
     and the rows < C."""
     from gravinv3dhmc_tpu_torch.ops import _cuda
 
-    r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms = a
+    r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms = a[:10]
+    pieces = a[10] if len(a) > 10 else None
+    mode = tlf._a_mode(A)
     C, Mp = x.shape
     rows = -(-C // tile_m) * tile_m + 1
     xg = torch.full((rows, Mp), 0.5, device=x.device)
@@ -563,9 +597,9 @@ def kick_guarded(torch, tlf, a, tile_m):
     guard = pg[C:].clone()
     f32, P = torch.float32, _cuda.ptr
     _cuda.library().call(
-        "lf_kick", P(r, f32), P(A, A.dtype), 1, P(xg, f32), P(pg, f32),
-        P(aprior, f32), P(gm_scale, f32), C, r.shape[1], Mp, s_data, s_mod,
-        beta, int(ms), _cuda.stream(x))
+        "lf_kick", P(r, f32), tlf._matrix(mode, A, pieces), mode, P(xg, f32),
+        P(pg, f32), P(aprior, f32), P(gm_scale, f32), C, r.shape[1], Mp,
+        s_data, s_mod, beta, int(ms), _cuda.stream(x))
     sync(torch)
     return (torch.equal(pg[C:].view(torch.int32), guard.view(torch.int32)),
             pg[:C])
@@ -771,11 +805,15 @@ class PlainPhilox:
             setattr(self.philox, n, fn)
 
 
-def phase_slice(torch, tlf, module, dobs, dev, smi):
+def phase_slice(torch, tlf, module, dobs, dev, smi, matvec=None):
+    """The uniformgrid slice with a ``matvec`` (bf16 when None) matrix;
+    returns the launch counts of its run, set to 0 just before it."""
     from gravinv3dhmc_tpu_torch.uniformgrid import SLICE as cfg
     from gravinv3dhmc_tpu_torch.uniformgrid import slice_sampler
 
-    chain = slice_sampler(module, dobs, dev)
+    matvec = matvec or torch.bfloat16
+    path = tlf.path_kernels(tlf.ITERATION_KERNELS, matvec)
+    chain = slice_sampler(module, dobs, dev, matvec=matvec)
     sync(torch)
     tlf.reset_launch_counts()
     res = chain.sample(cfg["nsamples"], cfg["ndraws"])
@@ -783,23 +821,142 @@ def phase_slice(torch, tlf, module, dobs, dev, smi):
     counts = tlf.launch_counts()
     samples = res["samples"]
     finite = bool(torch.isfinite(samples).all())
-    line("slice", problem=[int(dobs.size), module.n_active],
+    line("slice" if matvec == torch.bfloat16 else "slice_f32",
+         problem=[int(dobs.size), module.n_active],
          nchains=cfg["nchains"], chunk=cfg["chunk"],
          iterations=res["attempted"] // cfg["nchains"],
          fused_mode=res["fused_mode"],
          grad_evals_per_s=res["grad_evals_per_s"],
          elapsed_s=res["elapsed_s"], accept_ratio=res["accept_ratio"],
          ess_median=res["ess_median"],
-         launches={n: counts[n] for n in tlf.ITERATION_KERNELS},
+         launches={n: counts[n] for n in path},
          samples_shape=list(samples.shape), finite=finite, card=smi)
     if not finite or not 0 < res["accept_ratio"] <= 1:
         fail("slice: non-finite samples or accept ratio out of (0, 1]")
     if tuple(samples.shape) != (cfg["nchains"], cfg["nsamples"],
                                 module.n_active):
         fail(f"slice: samples shape {tuple(samples.shape)}")
-    missing = [n for n in tlf.ITERATION_KERNELS if counts[n] <= 0]
+    missing = [n for n in path if counts[n] <= 0]
     if missing:
         fail(f"slice: kernels never launched: {missing}")
+    return counts
+
+
+def f32_gemm_ops(torch, tlf, module, dobs, dev):
+    """The f32 ops whose padded matrices the f32 GEMMs are checked on:
+    (label -> (op, chains)) at realdata's width (a synthetic 625 x 10,427
+    matrix, ``f32_gemm_check.synthetic_problem``), at a ragged 200 chains
+    there, and at uniformgrid's (its own 600 x 6000 matrix)."""
+    from gravinv3dhmc_tpu_torch import f32_gemm_check as ft
+
+    C, D, M = ft.SHAPES["realdata"]
+    kw = dict(regularization="MS", beta=0.001, matvec_dtype=torch.float32,
+              device=dev)
+    rd = tlf.make_fused_trajectory(*ft.synthetic_problem(D, M), **kw)
+    ug = tlf.make_fused_trajectory(*fused_args(module, dobs), **kw)
+    return {"realdata": (rd, C), "realdata, ragged": (rd, RAGGED_CHAINS),
+            "uniformgrid": (ug, ft.SHAPES["uniformgrid"][0])}
+
+
+def phase_f32_gemms(torch, tlf, ops, smi):
+    """The f32-matrix GEMMs at each (op, chains) of ``ops``, on the bare
+    products of ``f32_gemm_check.gemm_operands``: two launches bit for bit
+    equal; the kernel within ``KERNEL_RTOL`` of the plain version and its
+    error against the float64 product of the same f32 operands, over
+    max|product|, at most ``F32_ERR_RATIO`` times the plain version's
+    (one IEEE-f32 matmul, TF32 off); no store past the last chain (a NaN
+    guard slice after the residual's partials, NaN guard rows of the
+    kick's p); its time beside the plain version's, one matmul's and
+    both bounds. Returns name -> the kernels line's numbers at the first
+    op of ``ops``."""
+    from gravinv3dhmc_tpu_torch import f32_gemm_check as ft
+
+    results = {}
+    for label, (op, C) in ops.items():
+        cases = ft.gemm_operands(op, C)
+        for name in ft.GEMMS:
+            kern, make = tlf.KERNELS[name], cases[name]
+            a1, a2, ap = make(), make(), make()
+            ref = ft.f64_reference(name, make())
+            kern(*a1)
+            kern(*a2)
+            kern.plain(*ap)
+            sync(torch)
+            o1, o2, o_p = (ft.product_out(name, a) for a in (a1, a2, ap))
+            bit_equal = torch.equal(o1, o2)
+            abs_err, vs_plain = rel_err(o1, o_p)
+            err_k, err_p = (ft.rel_to_f64(name, a1, ref),
+                            ft.rel_to_f64(name, ap, ref))
+            if name == "kick_f32":
+                plan = tlf.kick_plan(C, op.Dp, op.Mp, tlf.A_F32_SPLIT)
+                guarded, rows = kick_guarded(torch, tlf, make(),
+                                             plan["tile"][0])
+                guarded &= torch.equal(rows, o1)
+            else:
+                plan = tlf.residual_plan(C, op.Dp, op.Mp, tlf.A_F32_SPLIT)
+                guarded = partials_guarded(torch, tlf, a1[0], a1[1], a1[-1])
+            bench, bench_p = make(), make()
+            res = {"max_abs_err": abs_err,
+                   "ms": time_ms(torch, lambda: kern(*bench)),
+                   "plain_ms": time_ms(torch, lambda: kern.plain(*bench_p)),
+                   "library_ms": time_ms(torch, ft.library_fn(name, bench))}
+            res["bound_ms"], res["bound_by"] = bound(name, bench)
+            simt_ms, simt_by = bound(name, bench, simt=True)
+            line("f32_gemm", gemm=name, problem=label,
+                 shape=[C, op.Dp, op.Mp], tile=plan["tile"],
+                 splits=plan["splits"], blocks=plan["blocks"],
+                 waves=plan["waves"], bit_equal=bit_equal,
+                 guard_intact=guarded, kernel_vs_plain=vs_plain,
+                 kernel_vs_f64=err_k, plain_vs_f64=err_p,
+                 f64_err_ratio=err_k / max(err_p, 1e-30), **res,
+                 share_of_bound=res["bound_ms"] / res["ms"],
+                 bound_simt_ms=simt_ms, bound_simt_by=simt_by, card=smi)
+            results.setdefault(name, res)
+            if (not bit_equal or not guarded or vs_plain > KERNEL_RTOL
+                    or err_k > F32_ERR_RATIO * err_p):
+                fail(f"f32 gemm {name} ({label}, {C} chains): bit_equal="
+                     f"{bit_equal}, guard={guarded}, vs plain {vs_plain}, "
+                     f"vs f64 {err_k} against the plain version's {err_p}")
+    return results
+
+
+def phase_traj_realdata(torch, tlf, op, dev, smi):
+    """The f32 trajectory op at realdata's width (``op``: the synthetic
+    625 x 10,427 matrix; the real tesseroid matrix comes with the realdata
+    slice): 256 chains, L = 22, through the kernels and through the plain
+    versions, every output within ``TRAJ_RTOL["float32"]``. The op's
+    bounds are moved out to [-10, 10] so that no cell clips (a one-ulp
+    difference would flip a clip and its momentum's sign). Returns the
+    launch counts of the kernel run, set to 0 just before it."""
+    from gravinv3dhmc_tpu_torch import f32_gemm_check as ft
+
+    C, L, eps = ft.SHAPES["realdata"][0], 22, 0.005
+    M = op.M
+    wide = dict(op.params, low=torch.full((M,), -10.0, device=dev),
+                high=torch.full((M,), 10.0, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = 0.25 + 0.05 * torch.randn(C, M, generator=gen, device=dev)
+    p = 1e-3 * torch.randn(C, M, generator=gen, device=dev)
+    sync(torch)
+    tlf.reset_launch_counts()
+    out_k = op(x, p, L, eps, 1.0, params=wide)
+    sync(torch)
+    counts = tlf.launch_counts()
+    out_p = op(x, p, L, eps, 1.0, params=wide, plain=True)
+    errs = {}
+    for nm, a, b in zip(("x", "p", "g", "U", "ud", "um"), out_k, out_p):
+        if not torch.isfinite(a).all():
+            fail(f"traj_realdata: non-finite {nm}")
+        errs[nm] = rel_err(a, b)[1]
+    lim = TRAJ_RTOL["float32"]
+    bad = [nm for nm in errs if errs[nm] > lim.get(nm, lim["U"])]
+    want = {"drift": L, "residual_f32": L, "kick_f32": L, "traj_finish": 1}
+    line("traj_realdata", C=C, shape=[C, op.Dp, op.Mp], L=L, eps=eps,
+         rel_err=errs, launches={n: counts[n] for n in want},
+         x_shape=list(out_k[0].shape), card=smi)
+    if bad or any(counts[n] != k for n, k in want.items()):
+        fail(f"traj_realdata: {bad} beyond {lim}, launches "
+             f"{ {n: counts[n] for n in want} } (want {want})")
     return counts
 
 
@@ -859,41 +1016,55 @@ def phase_gz(torch, dev, smi):
     return result
 
 
-def phase_slice2(torch, tlf, dev, smi):
-    """The ratiogrid main path: matrix on the card, per-step sampler."""
+def phase_slice2(torch, tlf, dev, smi, problem=None, matvec=None):
+    """The ratiogrid main path: the matrix built on the card (or
+    ``problem``, a ``(module, dobs)`` built before), the per-step sampler
+    with a ``matvec`` (bf16 when None) matrix, a warm chunk and 4 timed
+    ones. Returns the problem and the launch counts of the run, set to 0
+    just before it."""
     from gravinv3dhmc_tpu_torch import ratiogrid
 
+    matvec = matvec or torch.bfloat16
+    name = "slice2" if matvec == torch.bfloat16 else "slice2_f32"
     cfg = ratiogrid.SLICE
     sync(torch)
     tlf.reset_launch_counts()
-    module, dobs, seconds = ratiogrid.build_problem(device=dev)
-    run_chunk, carry, _ = ratiogrid.step_sampler(module, dobs, dev)
+    if problem is None:
+        module, dobs, seconds = ratiogrid.build_problem(device=dev)
+    else:
+        (module, dobs), seconds = problem, {}
+    run_chunk, carry, _ = ratiogrid.step_sampler(module, dobs, dev,
+                                                 matvec=matvec)
     res, carry = ratiogrid.run_chunks(run_chunk, carry, 0, 4, dev)
     sync(torch)
     counts = tlf.launch_counts()
-    path = ("gz",) + tlf.STEP_KERNELS + ("refresh", "accept")
-    line("slice2", problem=[int(dobs.size), module.n_active],
+    path = (("gz",) if problem is None else ()) + tlf.path_kernels(
+        tlf.STEP_KERNELS, matvec) + ("refresh", "accept")
+    line(name, problem=[int(dobs.size), module.n_active],
          nchains=cfg["nchains"], chunk=cfg["chunk"], **res, **seconds,
          launches={n: counts[n] for n in path}, card=smi)
     if not res["finite"] or not 0 < res["accept_ratio"] <= 1:
-        fail("slice2: non-finite state or accept ratio out of (0, 1]")
+        fail(f"{name}: non-finite state or accept ratio out of (0, 1]")
     if res["samples_shape"] != [cfg["nchains"], cfg["nsamples"],
                                 module.n_active] or module.n_active != 17100:
-        fail(f"slice2: samples shape {res['samples_shape']}")
+        fail(f"{name}: samples shape {res['samples_shape']}")
     missing = [n for n in path if counts[n] <= 0]
     if missing:
-        fail(f"slice2: kernels never launched: {missing}")
+        fail(f"{name}: kernels never launched: {missing}")
     if counts["draws"]:
-        fail(f"slice2: draws launched {counts['draws']} times; the per-step "
+        fail(f"{name}: draws launched {counts['draws']} times; the per-step "
              "path draws inside refresh and accept")
     return module, dobs, counts
 
 
-def phase_reference2(torch, dev):
+def phase_reference2(torch, tlf, dev):
     """A small ratiogrid (10 x 10 obs over 10 x 10 x 8 prisms) built and
     sampled through the kernels on the card and through the plain versions
     on the CPU, same seed, f32 matrix: the same Philox draws give the same
-    decisions (at least 95% of chains agree)."""
+    decisions (at least 95% of chains agree). The card run's launches
+    (its f32 GEMMs: ``step_residual_f32`` and ``kick_f32``), counted from
+    0 just before it, go on this phase's line alone: no main path runs
+    this small problem."""
     from gravinv3dhmc_tpu_torch import ratiogrid
 
     runs = {}
@@ -902,18 +1073,27 @@ def phase_reference2(torch, dev):
         run_chunk, carry, _ = ratiogrid.step_sampler(
             module, dobs, where, matvec=torch.float32, nchains=64, chunk=16,
             nsamples=16)
+        sync(torch)
+        tlf.reset_launch_counts()
         runs[where.type], _ = ratiogrid.run_chunks(run_chunk, carry, 3, 2,
                                                    where)
+        sync(torch)
+        if where.type == "cuda":
+            counts = tlf.launch_counts()
         runs[where.type + "_carry"] = _
     a, b = runs["cuda_carry"], runs["cpu_carry"]
     same = (a[5].cpu() == b[5]).numpy()
     close = torch.isclose(a[6].cpu(), b[6], rtol=5e-3,
                           atol=5e-4).flatten(1).all(1).numpy()
     agree = same & close
+    path = tlf.path_kernels(tlf.STEP_KERNELS, torch.float32)
     line("reference2", chains=int(same.size), same_accepts=int(same.sum()),
-         agree=int(agree.sum()), accept_ratio=runs["cuda"]["accept_ratio"])
+         agree=int(agree.sum()), accept_ratio=runs["cuda"]["accept_ratio"],
+         launches={n: counts[n] for n in path})
     if agree.mean() < 0.95 or not 0 < runs["cuda"]["accept_ratio"] <= 1:
         fail("reference2: card and CPU runs disagree")
+    if any(counts[n] <= 0 for n in path):
+        fail(f"reference2: kernels never launched: {path}")
 
 
 def step_kernel_cases(torch, op, C, dev):
@@ -1102,11 +1282,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from gravinv3dhmc_tpu_torch import uniformgrid
+    from gravinv3dhmc_tpu_torch import ratiogrid, uniformgrid
     from gravinv3dhmc_tpu_torch.ops import _cuda, philox
     from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
 
-    tc_kernels = ("residual_partial_tc_kernel", "kick_tc_kernel")
+    tc_kernels = ("residual_partial_tc_kernel", "kick_tc_kernel",
+                  "residual_partial_split_kernel", "kick_split_kernel")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1143,16 +1324,33 @@ def main():
     phase_iter(torch, tlf, philox, module, dobs, dev)
     with PlainPhilox(philox) as plain:
         counts = phase_slice(torch, tlf, module, dobs, dev, smi)
+        counts_f32 = phase_slice(torch, tlf, module, dobs, dev, smi,
+                                 matvec=torch.float32)
     counts3 = phase_reference(torch, tlf, dev)
-    del module, op
+    f32_ops = f32_gemm_ops(torch, tlf, module, dobs, dev)
+    kres.update(phase_f32_gemms(torch, tlf, f32_ops, smi))
+    counts_rd = phase_traj_realdata(torch, tlf, f32_ops["realdata"][0], dev,
+                                    smi)
+    del module, op, f32_ops
 
     kres["gz"] = phase_gz(torch, dev, smi)
     with plain:
         module2, dobs2, counts2 = phase_slice2(torch, tlf, dev, smi)
+        counts2_f32 = phase_slice2(torch, tlf, dev, smi,
+                                   problem=(module2, dobs2),
+                                   matvec=torch.float32)[2]
     line("plain_philox", calls_in_slices=plain.calls)
     if plain.calls:
         fail(f"the slices called the plain Philox {plain.calls} times")
-    phase_reference2(torch, dev)
+    phase_reference2(torch, tlf, dev)
+    # the f32 per-step path's GEMMs at the shape slice2_f32 gives them
+    step_f32 = tlf.make_fused_step(
+        *fused_args(module2, dobs2, high=0.4), regularization="MS",
+        beta=0.001, matvec_dtype=torch.float32, device=dev)
+    kres["step_residual_f32"] = phase_f32_gemms(
+        torch, tlf, {"ratiogrid": (step_f32, ratiogrid.SLICE["nchains"])},
+        smi)["step_residual_f32"]
+    del step_f32
     sres = phase_step_kernels(torch, tlf, module2, dobs2, dev)
     for name in ("step_residual", "step_misfit", "draws"):
         kres[name] = sres[name]
@@ -1160,11 +1358,15 @@ def main():
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the main paths' runs, each counted from 0: both uniformgrid slices,
+    # the shared-L card run, the realdata-width trajectory and both
+    # ratiogrid slices
+    runs = (counts, counts_f32, counts3, counts_rd, counts2, counts2_f32)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
-         "launches": counts[name] + counts2[name] + counts3[name],
+         "launches": sum(c[name] for c in runs),
          **{key: kres[name][key] for key in keys}}
         for name, k in tlf.KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,11 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-from pathlib import Path
 
 import torch
 
-from .kick_tune import build_variants, card, time_kernel, use_library
+from .kick_tune import (build_baseline, build_variants, card, time_kernel,
+                        use_library)
 from .ops import _cuda, philox
 from .ops import leapfrog as tlf
 
@@ -95,9 +95,7 @@ def against(baseline, smi):
     """refresh and accept from ``baseline`` against this source, in
     turns; the p-only refresh only from this source (a baseline may lack
     that form)."""
-    _cuda.SOURCES["baseline"] = ("lf", Path(baseline))
-    _cuda._SIGNATURES["baseline"] = _cuda._SIGNATURES["leapfrog"]
-    _cuda.build_all(["baseline"])
+    build_baseline(baseline)
     for shape, (C, Mp, M, share) in SHAPES.items():
         cases = {"refresh (p, pk)": ("refresh",
                                      refresh_operands(C, Mp, M, True)),

@@ -52,19 +52,21 @@
 // bounds it by memory (22 us at 3.35 TB/s against 8 us of bf16 tensor
 // work).
 //
-// Both GEMMs with a bf16 matrix run on the tensor cores: wgmma fed by TMA
-// through one warp-specialised mainloop (tc_mainloop below, whose comment
-// gives the design). The residual (residual and step_residual) reads A
-// as a K-major B (residual_partial_tc_kernel); the kick reads the same A
-// as an MN-major B through wgmma's transpose immediate, with no
-// transposed copy (kick_tc_kernel). Both operands of every product are
+// Both GEMMs run on the tensor cores: wgmma fed by TMA through one
+// warp-specialised mainloop (tc_mainloop below, whose comment gives the
+// design). The residual (residual and step_residual) reads A as a K-major
+// B (residual_partial_tc_kernel); the kick reads the same A as an
+// MN-major B through wgmma's transpose immediate, with no transposed copy
+// (kick_tc_kernel). With a bf16 matrix both operands of every product are
 // bf16 values (x and r are rounded to bf16 as .astype(matvec_dtype) is in
 // the TPU kernels), a bf16 x bf16 product is exact in f32, and the wgmma
 // sum of every 256-deep run of K is added to the result in IEEE f32, so
-// they compute the same products with the sums in another order. The
-// f32-matrix GEMMs (the future realdata path, which must stay IEEE f32)
-// are tiled SIMT GEMMs (64x64 block tile, 4x4 per thread, f32 FMA
-// accumulation). The dtype alone picks the kernel; there is no fallback
+// they compute the same products with the sums in another order. With an
+// f32 matrix (realdata's trajectory precision: an f32 product of f32
+// operands) the same mainloop computes each product from three bf16
+// pieces of each operand, six bf16 products per k step
+// (residual_partial_split_kernel, kick_split_kernel; see "The f32-matrix
+// GEMMs" below). The dtype alone picks the kernel; there is no fallback
 // between the two. A persistent L-loop that keeps chain tiles on chip,
 // and CUDA graphs over the step launches, are later work.
 //
@@ -75,8 +77,8 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_cuda.py).
 // -fmad=false keeps each elementwise product and sum rounded on its own,
-// as PyTorch's plain version does; the SIMT GEMMs use fmaf explicitly, and
-// wgmma is not touched by it. The library is not linked against the
+// as PyTorch's plain version does; wgmma is not touched by it. The
+// library is not linked against the
 // driver library: cuTensorMapEncodeTiled, a driver-API function, is
 // fetched at run time through cudaGetDriverEntryPoint(ByVersion); <cuda.h>
 // gives only its types.
@@ -90,25 +92,35 @@
 
 namespace {
 
-constexpr int BM = 64;       // chains per block tile
-constexpr int BN = 64;       // output columns per block tile
-constexpr int BK = 16;       // reduction depth per shared-memory stage
-constexpr int GEMM_THREADS = 256;
 constexpr int ROW_THREADS = 256;
 
 // the tensor-core GEMMs (tc_mainloop; TcRing below sizes their rings)
 constexpr int TC_BN = 128;      // output columns per block tile (wgmma N)
 constexpr int TC_BK = 64;       // K per stage: 64 bf16 = one 128-byte row
-constexpr int TC_PROMOTE = 4;   // stages the tensor cores sum per IEEE add
+constexpr int TC_PROMOTE = 4;   // bf16 matrix: stages per IEEE add
 constexpr int TC_X_BOX = 32;    // f32 per 128-byte row of an x (or r) box
-constexpr int TC_B_BYTES = TC_BN * TC_BK * 2;        // 16 KB of bf16 B
 // an MN-major B tile comes in boxes of 64 columns (one 128-byte row) by
-// TC_BK rows of K, two per TC_BN-wide tile
+// the stage's rows of K, two per TC_BN-wide tile
 constexpr int TC_MN_BOX = 64;
-constexpr int TC_MN_BOX_BYTES = TC_MN_BOX * TC_BK * 2;  // 8 KB
 // the bf16 kick: consumer warpgroups (64 chains each) and ring stages
 constexpr int KICK_CONSUMERS = 2;
 constexpr int KICK_STAGES = 3;
+// the f32-matrix GEMMs (six bf16 products a k step): the K depth of a
+// stage, stages the tensor cores sum per IEEE add, whether the two
+// consumer warpgroups take turns, and the consumer warpgroups and ring
+// stages of the residual and the kick (f32_gemm_tune.py sweeps them)
+constexpr int SPLIT_BK = 32;        // K per stage: 32 bf16, 64-byte rows
+constexpr int SPLIT_PROMOTE = 1;
+constexpr int SPLIT_PINGPONG = 1;   // the consumers take turns to issue
+constexpr int SPLIT_RES_CONSUMERS = 2;
+constexpr int SPLIT_RES_STAGES = 5;
+constexpr int SPLIT_KICK_CONSUMERS = 2;
+constexpr int SPLIT_KICK_STAGES = 5;
+// the matrix operand of the GEMM entries (a_mode): a bf16 matrix, or the
+// three bf16 pieces of an f32 matrix, (3, Dp, Mp) (split_f32 in
+// ops/leapfrog.py)
+constexpr int A_BF16 = 1;
+constexpr int A_F32_SPLIT = 2;
 // the accept kernel: threads a block, chains a block, 16-byte loads in
 // flight a thread (accept_tune.py sweeps them)
 constexpr int ACCEPT_THREADS = 256;
@@ -193,41 +205,6 @@ __device__ float block_sum(float v, float* sh) {
   const float out = sh[0];
   __syncthreads();
   return out;
-}
-
-// Load one BM x BK tile of a row-major f32 chain operand S (rows = chains,
-// K contiguous, leading dimension ld) transposed into sS[BK][BM + 4].
-// Rows past C read as zero.
-__device__ __forceinline__ void load_chain_tile(const float* S, int ld, int C,
-                                                int c0, int k0,
-                                                float (*sS)[BM + 4]) {
-  const int t = threadIdx.x;
-  const int row = t >> 2, kq = (t & 3) * 4;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (c0 + row < C)
-    v = *reinterpret_cast<const float4*>(S + (size_t)(c0 + row) * ld + k0 + kq);
-  sS[kq + 0][row] = v.x;
-  sS[kq + 1][row] = v.y;
-  sS[kq + 2][row] = v.z;
-  sS[kq + 3][row] = v.w;
-}
-
-// the 4x4 register tile update over one shared-memory stage
-__device__ __forceinline__ void mma_stage(float (*sS)[BM + 4],
-                                          float (*sA)[BN + 4],
-                                          float acc[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&sS[k][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&sA[k][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
 }
 
 // ---------------------------------------------------------------- kernels
@@ -322,49 +299,6 @@ __device__ __forceinline__ int2 slice_stages(int z, int n_stages,
                    (int)((long long)(z + 1) * n_stages / splits));
 }
 
-// GEMM 1 in K slices with an f32 matrix: part[s, c, d] = sum over the
-// s-th slice of m of x[c, m] A[d, m], SIMT f32 FMA (IEEE f32, no TF32).
-// blockIdx.z splits K and residual_reduce (step_reduce on the per-step
-// path) adds the slices in a fixed order (deterministic, unlike atomics).
-// The caller picks the split count from lf_residual_occupancy so that
-// the blocks fill whole waves.
-__global__ void __launch_bounds__(GEMM_THREADS)
-residual_partial_kernel(const float* __restrict__ x,
-                        const float* __restrict__ A,
-                        float* __restrict__ part, int C, int Dp, int Mp,
-                        int splits) {
-  __shared__ __align__(16) float sX[BK][BM + 4];
-  __shared__ __align__(16) float sA[BK][BN + 4];
-  const int c0 = blockIdx.y * BM, d0 = blockIdx.x * BN;
-  const int2 st = slice_stages(blockIdx.z, Mp / BK, splits);
-  const int t = threadIdx.x;
-  float acc[4][4] = {};
-  for (int k0 = st.x * BK; k0 < st.y * BK; k0 += BK) {
-    load_chain_tile(x, Mp, C, c0, k0, sX);
-    {  // A rows d0.. (K = m contiguous), stored transposed
-      const int row = t >> 2, kq = (t & 3) * 4;
-      const float4 v = *reinterpret_cast<const float4*>(
-          A + (size_t)(d0 + row) * Mp + k0 + kq);
-      sA[kq + 0][row] = v.x;
-      sA[kq + 1][row] = v.y;
-      sA[kq + 2][row] = v.z;
-      sA[kq + 3][row] = v.w;
-    }
-    __syncthreads();
-    mma_stage(sX, sA, acc);
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.z * C * Dp;
-  const int ty = t >> 4, tx = t & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= C) continue;
-    *reinterpret_cast<float4*>(out + (size_t)c * Dp + d0 + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-}
-
 // ------------------------------------------------ the tensor-core GEMMs
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -418,24 +352,38 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
-// wgmma descriptor of a K-major bf16 tile of 128-byte rows under the
-// 128-byte swizzle, as TMA writes it: start address in 16-byte units,
-// leading offset unused (1) for swizzled K-major, stride 1024 bytes between
-// groups of 8 rows, layout type 1 = 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+// named barrier `id` of the block's two consumer warpgroups (256
+// threads): wait for the other's arrival, or arrive without waiting
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void consumers_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile of ROW_BYTES-byte rows (a
+// stage of 64 or 32 of K) under the swizzle of that width, as TMA writes
+// it: start address in 16-byte units, leading offset unused (1) for
+// swizzled K-major, stride 8 rows between groups of 8 rows, layout type
+// 1 = 128-byte swizzle, 2 = 64-byte swizzle
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t saddr) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "a 128- or 64-byte row");
   return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+         ((uint64_t)((8 * ROW_BYTES) >> 4) << 32) |
+         ((uint64_t)(ROW_BYTES == 128 ? 1 : 2) << 62);
 }
 
 // wgmma descriptor of an MN-major bf16 tile under the 128-byte swizzle,
-// as TMA writes it in boxes of 64 columns (one 128-byte row) by TC_BK K
-// rows: start address in 16-byte units, leading offset the step from one
-// 64-column box to the next (TC_MN_BOX_BYTES), stride offset the step
+// as TMA writes it in boxes of 64 columns (one 128-byte row) by the
+// stage's K rows: start address in 16-byte units, leading offset the step
+// from one 64-column box to the next (box_bytes), stride offset the step
 // between groups of 8 K rows (1024 bytes), layout type 1 = 128-byte
 // swizzle (the strides of CuTe's make_gmma_desc<GMMA::Major::MN>)
-__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr) {
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr,
+                                                  uint32_t box_bytes) {
   return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
-         ((uint64_t)(TC_MN_BOX_BYTES >> 4) << 16) |
+         ((uint64_t)(box_bytes >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -489,23 +437,45 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "memory");
 }
 
-// two floats rounded to bf16 to nearest even (as torch's .to(bfloat16)),
-// the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2_rn(float2 v) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
-  return *reinterpret_cast<const uint32_t*>(&b);
+// Two floats as PIECES bf16 pairs, each rounded to nearest even (as
+// torch's .to(bfloat16)), the lower column in the low half: piece 0 is
+// bf16_rn(v), piece q bf16_rn(v - pieces 0..q-1). Each difference is
+// exact in f32 (v less its rounding to 8 bits fits in the 24), so the
+// pieces carry v's 24 bits, 8 or 9 at a time (split_f32 in
+// ops/leapfrog.py cuts A the same way).
+template <int PIECES>
+__device__ __forceinline__ void split_bf16x2(float2 v,
+                                             uint32_t (&out)[PIECES]) {
+#pragma unroll
+  for (int q = 0; q < PIECES; ++q) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
+    out[q] = *reinterpret_cast<const uint32_t*>(&b);
+    if (q + 1 < PIECES) {
+      const float2 w = __bfloat1622float2(b);
+      v = make_float2(v.x - w.x, v.y - w.y);
+    }
+  }
 }
 
 // The ring of the warp-specialised tensor-core mainloop: CONSUMERS
 // warpgroups of 64 chain rows each and one producer warp; a stage holds
-// the B tile (TC_BN columns x TC_BK of K, bf16) and the f32 operand's
-// BM x TC_BK tile (two boxes of 128-byte rows).
-template <int CONSUMERS, int STAGES>
+// PIECES B tiles (TC_BN columns x BK of K, bf16: the bf16 matrix, or the
+// three pieces of an f32 one) and the f32 operand's BM x BK tile (BK / 32
+// boxes of 128-byte rows).
+template <int CONSUMERS_, int STAGES_, int PIECES_ = 1, int BK_ = TC_BK>
 struct TcRing {
+  static constexpr int CONSUMERS = CONSUMERS_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int PIECES = PIECES_;
+  static constexpr int BK = BK_;
+  static_assert(BK == 64 || BK == 32, "a stage of 128- or 64-byte rows");
   static constexpr int BM = 64 * CONSUMERS;
   static constexpr int THREADS = 128 * CONSUMERS + 32;
-  static constexpr int X_BYTES = BM * TC_BK * 4;
-  static constexpr int STAGE_BYTES = TC_B_BYTES + X_BYTES;
+  static constexpr int B_TILE = TC_BN * BK * 2;           // one bf16 tile
+  static constexpr int MN_BOX_BYTES = TC_MN_BOX * BK * 2;  // half a tile
+  static constexpr int B_BYTES = PIECES * B_TILE;
+  static constexpr int X_BYTES = BM * BK * 4;
+  static constexpr int STAGE_BYTES = B_BYTES + X_BYTES;
   // the ring plus slack to align it to the 1024-byte swizzle period
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
 };
@@ -513,15 +483,30 @@ struct TcRing {
 // an SM
 using ResidualRing = TcRing<2, 4>;
 using KickRing = TcRing<KICK_CONSUMERS, KICK_STAGES>;
-// blocks an SM the kick's registers are bounded for: each consumer thread
+// the f32-matrix GEMMs: three 8 KB B tiles a 32-deep stage (40 KB with
+// 128 chains' x), five stages
+using SplitResidualRing =
+    TcRing<SPLIT_RES_CONSUMERS, SPLIT_RES_STAGES, 3, SPLIT_BK>;
+using SplitKickRing =
+    TcRing<SPLIT_KICK_CONSUMERS, SPLIT_KICK_STAGES, 3, SPLIT_BK>;
+// blocks an SM a ring's registers are bounded for: each consumer thread
 // holds two 64-float accumulators, so only one-warpgroup blocks fit twice
-constexpr int KICK_MIN_BLOCKS = KICK_CONSUMERS == 1 ? 2 : 1;
+template <class R>
+constexpr int min_blocks() {
+  return R::CONSUMERS == 1 ? 2 : 1;
+}
 // floats per row of the kick's epilogue tile in shared memory: the pad
 // makes the accumulators' float2 writes free of bank conflicts
 constexpr int KICK_TILE_LD = TC_BN + 8;
 static_assert(KickRing::BM * KICK_TILE_LD * 4 <=
-                  KICK_STAGES * KickRing::STAGE_BYTES,
+                  KickRing::STAGES * KickRing::STAGE_BYTES,
               "the kick's epilogue tile must fit in its ring");
+static_assert(SplitKickRing::BM * KICK_TILE_LD * 4 <=
+                  SplitKickRing::STAGES * SplitKickRing::STAGE_BYTES,
+              "the split kick's epilogue tile must fit in its ring");
+static_assert(SplitResidualRing::SMEM <= 232448 &&
+                  SplitKickRing::SMEM <= 232448,
+              "a ring must fit in a block's shared memory");
 
 // the ring: dynamic shared memory aligned to the swizzle's 1024-byte
 // period
@@ -571,45 +556,77 @@ __device__ __forceinline__ int tc_row0() {
 // is then added to an f32 accumulator in registers with IEEE adds: error
 // 5.9e-7, time +2 % (H100, 1024 x 1024 x 17,152). Adding after every
 // stage cost +36 % there for no further gain.
-template <int CONSUMERS, int STAGES, bool B_MN>
+//
+// The f32-matrix GEMMs (R::PIECES = 3) run the same loop on three B tiles
+// a stage, the bf16 pieces a0, a1, a2 of A, and split each f32 X value
+// into three bf16 pieces x0, x1, x2 in registers (split_bf16x2). Per k
+// step they issue the six products x_i a_j with i + j <= 2, smallest
+// first: x2 a0, x1 a1, x0 a2, x1 a0, x0 a1, x0 a0 (each over all the
+// stage's k steps before the next), so the small terms are summed before the
+// large ones join the tensor-core accumulator. The three dropped terms
+// are below 2^-26 of |x a|, and the pieces carry all of x's and a's 24
+// bits, so the products are those of the f32 operands to f32 rounding,
+// the six-pass bf16 scheme of the TPU's f32 matmul at HIGHEST precision.
+// Every PROMOTE stages (SPLIT_PROMOTE) the sum goes to the IEEE f32
+// accumulator; f32_gemm_tune.py measured the error at each interval
+// (PERF.md).
+//
+// Their stages are 32 deep (three 8 KB B tiles and 16 KB of x, under the
+// 64-byte swizzle for the K-major B), five in the ring, which halves the
+// registers the x pieces take and keeps more loads in flight; and the two
+// consumer warpgroups take turns to issue (named barriers 2 and 3), so
+// one converts its next fragments while the other's products run. The
+// stage depth, ring and interval were chosen by f32_gemm_tune.py's sweep
+// (PERF.md).
+template <class R, bool B_MN, int PROMOTE>
 __device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
                                             const CUtensorMap* b_map,
-                                            int first, int n, int c0,
-                                            int n0, float (&acc)[64]) {
-  using R = TcRing<CONSUMERS, STAGES>;
+                                            int piece_rows, int first, int n,
+                                            int c0, int n0,
+                                            float (&acc)[64]) {
+  constexpr int STAGES = R::STAGES, PIECES = R::PIECES;
+  static_assert(PIECES == 1 || PIECES == 3, "a bf16 matrix or three pieces");
+  constexpr int PRODUCTS = PIECES == 1 ? 1 : 6;
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t empty[STAGES];
   unsigned char* ring = tc_ring();
   const uint32_t ring_u32 = smem_u32(ring);
 
+  constexpr bool PINGPONG =
+      SPLIT_PINGPONG && R::PIECES == 3 && R::CONSUMERS == 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 128);
+      mbar_init(&empty[s], R::CONSUMERS * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == CONSUMERS * 4) {  // the producer warp
+  if (warp == R::CONSUMERS * 4) {  // the producer warp
     if (lane == 0) {
       for (int i = 0; i < n; ++i) {
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         const uint32_t dst = ring_u32 + s * R::STAGE_BYTES;
-        const int k = (first + i) * TC_BK;
+        const int k = (first + i) * R::BK;
         mbar_expect_tx(&full[s], R::STAGE_BYTES);
-        if (B_MN) {
-          tma_load_2d(dst, b_map, &full[s], n0, k);
-          tma_load_2d(dst + TC_MN_BOX_BYTES, b_map, &full[s], n0 + TC_MN_BOX,
-                      k);
-        } else {
-          tma_load_2d(dst, b_map, &full[s], k, n0);
+        // piece q of B starts at row q * piece_rows of b_map
+        for (int q = 0; q < PIECES; ++q) {
+          const uint32_t bq = dst + q * R::B_TILE;
+          const int row = q * piece_rows;
+          if (B_MN) {
+            tma_load_2d(bq, b_map, &full[s], n0, row + k);
+            tma_load_2d(bq + R::MN_BOX_BYTES, b_map, &full[s],
+                        n0 + TC_MN_BOX, row + k);
+          } else {
+            tma_load_2d(bq, b_map, &full[s], k, row + n0);
+          }
         }
-        tma_load_2d(dst + TC_B_BYTES, x_map, &full[s], k, c0);
-        tma_load_2d(dst + TC_B_BYTES + R::X_BYTES / 2, x_map, &full[s],
-                    k + TC_X_BOX, c0);
+        for (int xb = 0; xb < R::BK / TC_X_BOX; ++xb)
+          tma_load_2d(dst + R::B_BYTES + xb * R::BM * 128, x_map, &full[s],
+                      k + xb * TC_X_BOX, c0);
       }
     }
     return false;
@@ -619,45 +636,67 @@ __device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
   // is g modulo 8, which is the swizzle's XOR for that row
   const int g = lane >> 2, t = lane & 3;
   const int row0 = tc_row0();
+  // consumer 0 issues first: 1 has taken its turn before the loop
+  const int wg = warp >> 2;
+  if constexpr (PINGPONG)
+    if (wg == 1) consumers_arrive(2);
   float stage_acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = stage_acc[i] = 0.0f;
   for (int i = 0; i < n; ++i) {
     const int s = i % STAGES;
     mbar_wait(&full[s], (i / STAGES) & 1);
-    const unsigned char* xs = ring + s * R::STAGE_BYTES + TC_B_BYTES;
-    uint32_t a[4][4];
+    const unsigned char* xs = ring + s * R::STAGE_BYTES + R::B_BYTES;
+    // a[q][kk]: piece q of the k step kk's fragment
+    uint32_t a[PIECES][R::BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+    for (int kk = 0; kk < R::BK / 16; ++kk) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // columns 2t, 2t + 1 and 2t + 8, 2t + 9
         const int col = kk * 16 + h * 8 + 2 * t;
         const int c = col % TC_X_BOX;
-        const unsigned char* box = xs + (col / TC_X_BOX) * (R::X_BYTES / 2);
+        const unsigned char* box = xs + (col / TC_X_BOX) * (R::BM * 128);
         const int off = (((c >> 2) ^ g) << 4) | ((c & 3) << 2);
 #pragma unroll
-        for (int v = 0; v < 2; ++v)  // rows g, g + 8
-          a[kk][2 * h + v] = pack_bf16x2_rn(*reinterpret_cast<const float2*>(
-              box + (row0 + 8 * v) * 128 + off));
+        for (int v = 0; v < 2; ++v) {  // rows g, g + 8
+          uint32_t pieces[PIECES];
+          split_bf16x2<PIECES>(*reinterpret_cast<const float2*>(
+                                   box + (row0 + 8 * v) * 128 + off),
+                               pieces);
+#pragma unroll
+          for (int q = 0; q < PIECES; ++q) a[q][kk][2 * h + v] = pieces[q];
+        }
       }
     }
     const uint32_t b = ring_u32 + s * R::STAGE_BYTES;
-    const int fresh = i % TC_PROMOTE == 0;
+    const bool fresh = i % PROMOTE == 0;
+    if constexpr (PINGPONG) consumers_sync(2 + wg);  // this one's turn
     fence_acc(stage_acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk)
-      // a k step is 32 bytes along a K-major row, 16 rows of 128 bytes
-      // down an MN-major box
-      wgmma_m64n128k16_rs<B_MN>(
-          stage_acc, a[kk],
-          B_MN ? sw128_mn_desc(b + kk * 16 * 128) : sw128_desc(b + kk * 32),
-          kk > 0 || !fresh);
+    for (int p = 0; p < PRODUCTS; ++p) {
+      // product p is x_xi a_bj: (2,0) (1,1) (0,2) (1,0) (0,1) (0,0)
+      const int xi = PIECES == 1 ? 0 : p == 0 ? 2 : (p == 1 || p == 3) ? 1 : 0;
+      const int bj = PIECES == 1 ? 0 : p == 2 ? 2 : (p == 1 || p == 4) ? 1 : 0;
+      const uint32_t bp = b + bj * R::B_TILE;
+#pragma unroll
+      for (int kk = 0; kk < R::BK / 16; ++kk)
+        // a k step is 32 bytes along a K-major row, 16 rows of 128 bytes
+        // down an MN-major box
+        wgmma_m64n128k16_rs<B_MN>(
+            stage_acc, a[xi][kk],
+            B_MN ? sw128_mn_desc(bp + kk * 16 * 128, R::MN_BOX_BYTES)
+                 : kmajor_desc<R::BK * 2>(bp + kk * 32),
+            p > 0 || kk > 0 || !fresh);
+    }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the other's turn (it has no turn after the last stage of consumer 1)
+    if constexpr (PINGPONG)
+      if (wg == 0 || i < n - 1) consumers_arrive(3 - wg);
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(stage_acc);
     mbar_arrive(&empty[s]);
-    if (i % TC_PROMOTE == TC_PROMOTE - 1 || i == n - 1) {
+    if (i % PROMOTE == PROMOTE - 1 || i == n - 1) {
 #pragma unroll
       for (int j = 0; j < 64; ++j) acc[j] += stage_acc[j];
     }
@@ -676,16 +715,17 @@ __device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
 // L2-to-SM traffic, not the tensor cores, is the first limit; the x tile
 // of one (chain tile, slice) is read by all Dp/128 observation tiles,
 // launched next to each other (blockIdx.x) so they find it in L2.
-__global__ void __launch_bounds__(ResidualRing::THREADS, 1)
-residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
-                           __grid_constant__ const CUtensorMap a_map,
-                           float* __restrict__ part, int C, int Dp,
-                           int n_stages, int splits) {
+//
+// residual_partial_split_kernel below is the same GEMM with an f32 matrix.
+template <class R, int PROMOTE>
+__device__ __forceinline__ void residual_partial_tile(
+    const CUtensorMap* x_map, const CUtensorMap* a_map, float* part, int C,
+    int Dp, int n_stages, int splits) {
   const int2 st = slice_stages(blockIdx.z, n_stages, splits);
-  const int c0 = blockIdx.y * ResidualRing::BM, d0 = blockIdx.x * TC_BN;
+  const int c0 = blockIdx.y * R::BM, d0 = blockIdx.x * TC_BN;
   float acc[64];
-  if (!tc_mainloop<2, 4, false>(&x_map, &a_map, st.x, st.y - st.x, c0, d0,
-                                acc))
+  if (!tc_mainloop<R, false, PROMOTE>(x_map, a_map, Dp, st.x, st.y - st.x,
+                                      c0, d0, acc))
     return;
   const int row0 = tc_row0(), t = threadIdx.x & 3;
   float* out = part + (size_t)blockIdx.z * C * Dp;
@@ -699,6 +739,39 @@ residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
       *reinterpret_cast<float2*>(orow + 8 * j) =
           make_float2(acc[4 * j + 2 * v], acc[4 * j + 2 * v + 1]);
   }
+}
+
+__global__ void __launch_bounds__(ResidualRing::THREADS,
+                                  min_blocks<ResidualRing>())
+residual_partial_tc_kernel(__grid_constant__ const CUtensorMap x_map,
+                           __grid_constant__ const CUtensorMap a_map,
+                           float* __restrict__ part, int C, int Dp,
+                           int n_stages, int splits) {
+  residual_partial_tile<ResidualRing, TC_PROMOTE>(&x_map, &a_map, part, C,
+                                                  Dp, n_stages, splits);
+}
+
+// GEMM 1 in K slices with an f32 matrix, on the tensor cores at f32
+// accuracy: part[s, c, d] = sum over the s-th slice of m of x[c, m]
+// A[d, m], from A's three bf16 pieces (a_map over the (3 Dp, Mp) pieces)
+// and x's, split in registers: six bf16 products a k step (tc_mainloop).
+// Replaces the SIMT f32 kernel (64 x 64 tiles, 16-deep stages, fmaf).
+//
+// What bounds it: the tensor cores. Six bf16 products are 6 x 2 C Dp Mp
+// FLOP at 989 TFLOP/s: 20.9 us at realdata's 256 x 640 x 10,496, against
+// 51.3 us for one f32 product at the 67 TFLOP/s of the SIMT units and 11
+// us of bytes. A 32-deep stage is 40 KB for 6.3 MFLOP (157 FLOP a byte
+// from L2). At realdata's 256 chains there are only 10 output tiles, so K
+// is cut into up to one wave of slices (residual_plan in
+// ops/leapfrog.py).
+__global__ void __launch_bounds__(SplitResidualRing::THREADS,
+                                  min_blocks<SplitResidualRing>())
+residual_partial_split_kernel(__grid_constant__ const CUtensorMap x_map,
+                              __grid_constant__ const CUtensorMap a_map,
+                              float* __restrict__ part, int C, int Dp,
+                              int n_stages, int splits) {
+  residual_partial_tile<SplitResidualRing, SPLIT_PROMOTE>(
+      &x_map, &a_map, part, C, Dp, n_stages, splits);
 }
 
 // r[c, d] = (sum_s part[s, c, d] - dobs[d]) * dmask[d]
@@ -793,55 +866,6 @@ __device__ __forceinline__ float kick_value(float p, float gdata, float x,
   return p - s_data * gdata - s_mod * gm;
 }
 
-// The kick with an f32 matrix, SIMT (IEEE f32, no TF32):
-// p[c, m] = p - s_data * (sum_d r[c, d] A[d, m]) - s_mod * gm(x[c, m])
-__global__ void __launch_bounds__(GEMM_THREADS)
-kick_kernel(const float* __restrict__ r, const float* __restrict__ A,
-            const float* __restrict__ x, float* __restrict__ p,
-            const float* __restrict__ aprior,
-            const float* __restrict__ gm_scale, int C, int Dp, int Mp,
-            float s_data, float s_mod, float beta, int ms) {
-  __shared__ __align__(16) float sR[BK][BM + 4];
-  __shared__ __align__(16) float sA[BK][BN + 4];
-  const int c0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
-  const int t = threadIdx.x;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < Dp; k0 += BK) {
-    load_chain_tile(r, Dp, C, c0, k0, sR);
-    {  // A rows k0.. (N = m contiguous), stored as is
-      const int krow = t >> 4, nq = (t & 15) * 4;
-      *reinterpret_cast<float4*>(&sA[krow][nq]) =
-          *reinterpret_cast<const float4*>(A + (size_t)(k0 + krow) * Mp + m0 +
-                                           nq);
-    }
-    __syncthreads();
-    mma_stage(sR, sA, acc);
-    __syncthreads();
-  }
-  const int ty = t >> 4, tx = t & 15;
-  const int m = m0 + tx * 4;
-  const float4 av = *reinterpret_cast<const float4*>(aprior + m);
-  const float4 gv = *reinterpret_cast<const float4*>(gm_scale + m);
-  const float aps[4] = {av.x, av.y, av.z, av.w};
-  const float gss[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= C) continue;
-    const size_t off = (size_t)c * Mp + m;
-    const float4 xv = *reinterpret_cast<const float4*>(x + off);
-    const float4 pv = *reinterpret_cast<const float4*>(p + off);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-    float ps[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      ps[j] = kick_value(ps[j], acc[i][j], xs[j], aps[j], gss[j], s_data,
-                         s_mod, beta, ms);
-    *reinterpret_cast<float4*>(p + off) = make_float4(ps[0], ps[1], ps[2],
-                                                      ps[3]);
-  }
-}
-
 // The kick with a bf16 matrix, on the tensor cores:
 // p[c, m] = p - s_data * (sum_d bf16_rn(r[c, d]) A[d, m]) - s_mod gm(x[c, m]),
 // the GEMM f32-accumulated with M = chains, N = m and K = d. A (Dp x Mp,
@@ -872,22 +896,21 @@ kick_kernel(const float* __restrict__ r, const float* __restrict__ A,
 // the call took 0.69 ms at 1024 x 640 x 6016 (H100, kick_tune.py), ten
 // times what it takes with this one. Rows >= C are neither read nor
 // written.
-__global__ void __launch_bounds__(KickRing::THREADS, KICK_MIN_BLOCKS)
-kick_tc_kernel(__grid_constant__ const CUtensorMap r_map,
-               __grid_constant__ const CUtensorMap a_map,
-               const float* __restrict__ x, float* __restrict__ p,
-               const float* __restrict__ aprior,
-               const float* __restrict__ gm_scale, int C, int Mp,
-               int n_stages, float s_data, float s_mod, float beta, int ms) {
-  const int c0 = blockIdx.x * KickRing::BM, m0 = blockIdx.y * TC_BN;
-  float acc[64];
-  if (!tc_mainloop<KICK_CONSUMERS, KICK_STAGES, true>(&r_map, &a_map, 0,
-                                                      n_stages, c0, m0, acc))
-    return;
-  constexpr int CONSUMER_THREADS = KICK_CONSUMERS * 128;
+//
+// kick_split_kernel below is the same kick with an f32 matrix.
+
+// p -= s_data acc + s_mod gm(x) for the consumers' R::BM x TC_BN tile of
+// accumulators, through the ring (see kick_tc_kernel)
+template <class R>
+__device__ __forceinline__ void kick_epilogue(
+    const float (&acc)[64], const float* __restrict__ x, float* __restrict__ p,
+    const float* __restrict__ aprior, const float* __restrict__ gm_scale,
+    int C, int Mp, int c0, int m0, float s_data, float s_mod, float beta,
+    int ms) {
+  constexpr int CONSUMER_THREADS = R::CONSUMERS * 128;
   float* tile = reinterpret_cast<float*>(tc_ring());
-  // every consumer is past the mainloop (the producer warp has left):
-  // the ring is free
+  // every consumer is past the mainloop, which waited for every load
+  // into this CTA: the ring is free
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
   const int row0 = tc_row0(), col = 2 * (threadIdx.x & 3);
 #pragma unroll
@@ -903,7 +926,7 @@ kick_tc_kernel(__grid_constant__ const CUtensorMap r_map,
   const float4 av = *reinterpret_cast<const float4*>(aprior + m);
   const float4 gv = *reinterpret_cast<const float4*>(gm_scale + m);
 #pragma unroll 4
-  for (int row = warp; row < KickRing::BM; row += CONSUMER_THREADS / 32) {
+  for (int row = warp; row < R::BM; row += CONSUMER_THREADS / 32) {
     const int c = c0 + row;
     if (c >= C) break;
     const size_t off = (size_t)c * Mp + m;
@@ -917,6 +940,59 @@ kick_tc_kernel(__grid_constant__ const CUtensorMap r_map,
         kick_value(pv.z, gd.z, xv.z, av.z, gv.z, s_data, s_mod, beta, ms),
         kick_value(pv.w, gd.w, xv.w, av.w, gv.w, s_data, s_mod, beta, ms));
   }
+}
+
+template <class R, int PROMOTE>
+__device__ __forceinline__ void kick_tile(
+    const CUtensorMap* r_map, const CUtensorMap* a_map,
+    const float* __restrict__ x, float* __restrict__ p,
+    const float* __restrict__ aprior, const float* __restrict__ gm_scale,
+    int C, int Mp, int n_stages, float s_data, float s_mod, float beta,
+    int ms) {
+  const int c0 = blockIdx.x * R::BM, m0 = blockIdx.y * TC_BN;
+  float acc[64];
+  // the matrix's pieces (3 Dp rows) start every Dp = n_stages * R::BK rows
+  if (tc_mainloop<R, true, PROMOTE>(r_map, a_map, n_stages * R::BK, 0,
+                                    n_stages, c0, m0, acc))
+    kick_epilogue<R>(acc, x, p, aprior, gm_scale, C, Mp, c0, m0, s_data,
+                     s_mod, beta, ms);
+}
+
+__global__ void __launch_bounds__(KickRing::THREADS, min_blocks<KickRing>())
+kick_tc_kernel(__grid_constant__ const CUtensorMap r_map,
+               __grid_constant__ const CUtensorMap a_map,
+               const float* __restrict__ x, float* __restrict__ p,
+               const float* __restrict__ aprior,
+               const float* __restrict__ gm_scale, int C, int Mp,
+               int n_stages, float s_data, float s_mod, float beta, int ms) {
+  kick_tile<KickRing, TC_PROMOTE>(&r_map, &a_map, x, p, aprior, gm_scale, C,
+                                  Mp, n_stages, s_data, s_mod, beta, ms);
+}
+
+// The kick with an f32 matrix, on the tensor cores at f32 accuracy:
+// p[c, m] = p - s_data * (sum_d r[c, d] A[d, m]) - s_mod gm(x[c, m]), the
+// product from A's three bf16 pieces read MN-major (a_map over the
+// (3 Dp, Mp) pieces; no transposed copy, which a 32-bit wgmma operand
+// would need: wgmma transposes only 16-bit ones) and r's, split in
+// registers, six bf16 products a k step (tc_mainloop); the epilogue is the
+// bf16 kick's. Replaces the SIMT f32 kick (64 x 64 tiles, fmaf).
+//
+// What bounds it: the tensor cores, 6 x 2 C Dp Mp FLOP at 989 TFLOP/s
+// (20.9 us at realdata's 256 x 640 x 10,496; its 60 MB of bytes take 17.9
+// us). Its 128 x 128 tiles cover all of K (no split), so at realdata's
+// 256 chains there are 164 blocks for 132 SMs.
+__global__ void __launch_bounds__(SplitKickRing::THREADS,
+                                  min_blocks<SplitKickRing>())
+kick_split_kernel(__grid_constant__ const CUtensorMap r_map,
+                  __grid_constant__ const CUtensorMap a_map,
+                  const float* __restrict__ x, float* __restrict__ p,
+                  const float* __restrict__ aprior,
+                  const float* __restrict__ gm_scale, int C, int Mp,
+                  int n_stages, float s_data, float s_mod, float beta,
+                  int ms) {
+  kick_tile<SplitKickRing, SPLIT_PROMOTE>(&r_map, &a_map, x, p, aprior,
+                                          gm_scale, C, Mp, n_stages, s_data,
+                                          s_mod, beta, ms);
 }
 
 // g = (pk - p)/eps (may alias pk), p <- (pk + p)/2, ud, um, U per chain
@@ -1109,11 +1185,13 @@ typedef CUresult (*TensorMapEncodeTiled)(
     CUtensorMapFloatOOBfill);
 
 // A tensor map over a row-major (rows, inner) matrix with boxes of
-// (box_rows, box_inner) under the 128-byte swizzle; reads past the last
+// (box_rows, box_inner) under `swizzle` (128 bytes unless another is
+// given: a box's inner extent in bytes); reads past the last
 // row fill with zeros. Encoded on the host for each call (cheap host work).
-cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr,
-                          CUtensorMapDataType type, int elem_bytes,
-                          int inner, int rows, int box_inner, int box_rows) {
+cudaError_t tensor_map_2d(
+    CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+    int elem_bytes, int inner, int rows, int box_inner, int box_rows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static TensorMapEncodeTiled encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -1136,20 +1214,24 @@ cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr,
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(
       map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // the rings are above the 48 KB a block may take without asking
 cudaError_t tc_allow_smem() {
-  const cudaError_t err = cudaFuncSetAttribute(
-      residual_partial_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      ResidualRing::SMEM);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kick_tc_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              KickRing::SMEM);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err =
+      cudaFuncSetAttribute(residual_partial_tc_kernel, attr, ResidualRing::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kick_tc_kernel, attr, KickRing::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(residual_partial_split_kernel, attr,
+                               SplitResidualRing::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kick_split_kernel, attr, SplitKickRing::SMEM);
+  return err;
 }
 
 // out[0..4]: resident blocks per SM of `kernel`, the SM count, and its
@@ -1169,36 +1251,71 @@ cudaError_t occupancy(K kernel, int threads, int smem, int tile_m,
   return cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
 }
 
-// the split GEMM of the matrix's dtype: bf16 on the tensor cores (Dp a
-// multiple of 128, Mp of 64), f32 SIMT (Dp a multiple of 64, Mp of 16)
-cudaError_t launch_residual_partial(const float* x, const void* A,
-                                    int a_bf16, float* part, int splits,
-                                    int C, int Dp, int Mp,
-                                    cudaStream_t stream) {
-  if (!a_bf16) {
-    if (Dp % BN || Mp % BK || splits < 1 || splits > Mp / BK)
-      return cudaErrorInvalidValue;
-    const dim3 grid(Dp / BN, (C + BM - 1) / BM, splits);
-    residual_partial_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
-        x, static_cast<const float*>(A), part, C, Dp, Mp, splits);
-    return cudaGetLastError();
-  }
-  if (Dp % TC_BN || Mp % TC_BK || splits < 1 || splits > Mp / TC_BK)
+// The split GEMM on the tensor cores of a bf16 matrix A (a_mode A_BF16)
+// or of the three bf16 pieces of an f32 one (A_F32_SPLIT: A points at
+// the (3, Dp, Mp) pieces); Dp a multiple of 128, Mp of R::BK.
+template <class R, class K>
+cudaError_t launch_residual_tiles(K kernel, const float* x, const void* A,
+                                  int pieces, float* part, int splits, int C,
+                                  int Dp, int Mp, cudaStream_t stream) {
+  if (Dp % TC_BN || Mp % R::BK || splits < 1 || splits > Mp / R::BK)
     return cudaErrorInvalidValue;
-  using R = ResidualRing;
   CUtensorMap x_map, a_map;
   cudaError_t err = tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                                   4, Mp, C, TC_X_BOX, R::BM);
   if (err != cudaSuccess) return err;
-  err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp, Dp,
-                      TC_BK, TC_BN);
+  err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp,
+                      pieces * Dp, R::BK, TC_BN,
+                      R::BK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return err;
   err = tc_allow_smem();
   if (err != cudaSuccess) return err;
   const dim3 grid(Dp / TC_BN, (C + R::BM - 1) / R::BM, splits);
-  residual_partial_tc_kernel<<<grid, R::THREADS, R::SMEM, stream>>>(
-      x_map, a_map, part, C, Dp, Mp / TC_BK, splits);
+  kernel<<<grid, R::THREADS, R::SMEM, stream>>>(x_map, a_map, part, C, Dp,
+                                                Mp / R::BK, splits);
   return cudaGetLastError();
+}
+
+// The kick on the tensor cores, as launch_residual_tiles; Mp a multiple
+// of 128, Dp of R::BK.
+template <class R, class K>
+cudaError_t launch_kick_tiles(K kernel, const float* r, const void* A,
+                              int pieces, const float* x, float* p,
+                              const float* aprior, const float* gm_scale,
+                              int C, int Dp, int Mp, float s_data,
+                              float s_mod, float beta, int ms,
+                              cudaStream_t stream) {
+  if (Mp % TC_BN || Dp % R::BK) return cudaErrorInvalidValue;
+  CUtensorMap r_map, a_map;
+  cudaError_t err = tensor_map_2d(&r_map, r, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                  4, Dp, C, TC_X_BOX, R::BM);
+  if (err != cudaSuccess) return err;
+  err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp,
+                      pieces * Dp, TC_MN_BOX, R::BK);
+  if (err != cudaSuccess) return err;
+  err = tc_allow_smem();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + R::BM - 1) / R::BM, Mp / TC_BN);
+  kernel<<<grid, R::THREADS, R::SMEM, stream>>>(r_map, a_map, x, p, aprior,
+                                                gm_scale, C, Mp, Dp / R::BK,
+                                                s_data, s_mod, beta, ms);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_residual_partial(const float* x, const void* A,
+                                    int a_mode, float* part, int splits,
+                                    int C, int Dp, int Mp,
+                                    cudaStream_t stream) {
+  if (a_mode == A_BF16)
+    return launch_residual_tiles<ResidualRing>(residual_partial_tc_kernel, x,
+                                               A, 1, part, splits, C, Dp, Mp,
+                                               stream);
+  if (a_mode == A_F32_SPLIT)
+    return launch_residual_tiles<SplitResidualRing>(
+        residual_partial_split_kernel, x, A, 3, part, splits, C, Dp, Mp,
+        stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1225,10 +1342,10 @@ int lf_drift(float* x, float* p, float* pk, const float* im,
   return (int)cudaGetLastError();
 }
 
-int lf_residual(const float* x, const void* A, int a_bf16, const float* dobs,
+int lf_residual(const float* x, const void* A, int a_mode, const float* dobs,
                 const float* dmask, float* r, float* part, int splits, int C,
                 int Dp, int Mp, cudaStream_t stream) {
-  const cudaError_t err = launch_residual_partial(x, A, a_bf16, part, splits,
+  const cudaError_t err = launch_residual_partial(x, A, a_mode, part, splits,
                                                   C, Dp, Mp, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)C * Dp;
@@ -1237,11 +1354,11 @@ int lf_residual(const float* x, const void* A, int a_bf16, const float* dobs,
   return (int)cudaGetLastError();
 }
 
-int lf_step_residual(const float* x, const void* A, int a_bf16,
+int lf_step_residual(const float* x, const void* A, int a_mode,
                      const float* fix, const float* dobs, const float* dmask,
                      float* r, float* ud, float* part, int splits, int C,
                      int Dp, int Mp, float inv_nobs, cudaStream_t stream) {
-  const cudaError_t err = launch_residual_partial(x, A, a_bf16, part, splits,
+  const cudaError_t err = launch_residual_partial(x, A, a_mode, part, splits,
                                                   C, Dp, Mp, stream);
   if (err != cudaSuccess) return (int)err;
   step_reduce_kernel<<<C, ROW_THREADS, 0, stream>>>(part, fix, dobs, dmask, r,
@@ -1250,28 +1367,38 @@ int lf_step_residual(const float* x, const void* A, int a_bf16,
   return (int)cudaGetLastError();
 }
 
-// How the split GEMM of the matrix's dtype runs, so the caller can plan
-// a split count that fills whole waves. out[0..4]: resident blocks per
-// SM, the SM count, the block tile's chains and observations, and the K
-// depth of one stage (a slice covers whole stages).
-int lf_residual_occupancy(int a_bf16, int* out) {
-  if (!a_bf16)
-    return (int)occupancy(residual_partial_kernel, GEMM_THREADS, 0, BM, BN,
-                          BK, out);
+// How the split GEMM of the matrix mode runs, so the caller can plan a
+// split count that fills whole waves. out[0..4]: resident blocks per SM,
+// the SM count, the block tile's chains and observations, and the K depth
+// of one stage (a slice covers whole stages).
+int lf_residual_occupancy(int a_mode, int* out) {
   const cudaError_t err = tc_allow_smem();
   if (err != cudaSuccess) return (int)err;
-  return (int)occupancy(residual_partial_tc_kernel, ResidualRing::THREADS,
-                        ResidualRing::SMEM, ResidualRing::BM, TC_BN, TC_BK,
-                        out);
+  if (a_mode == A_BF16)
+    return (int)occupancy(residual_partial_tc_kernel, ResidualRing::THREADS,
+                          ResidualRing::SMEM, ResidualRing::BM, TC_BN, TC_BK,
+                          out);
+  if (a_mode == A_F32_SPLIT)
+    return (int)occupancy(residual_partial_split_kernel,
+                          SplitResidualRing::THREADS, SplitResidualRing::SMEM,
+                          SplitResidualRing::BM, TC_BN, SplitResidualRing::BK,
+                          out);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 kick's launch, as lf_residual_occupancy: its blocks cover all
-// of K, so the caller only reports the tiling.
-int lf_kick_occupancy(int* out) {
+// The kick's launch, as lf_residual_occupancy: its blocks cover all of K,
+// so the caller only reports the tiling.
+int lf_kick_occupancy(int a_mode, int* out) {
   const cudaError_t err = tc_allow_smem();
   if (err != cudaSuccess) return (int)err;
-  return (int)occupancy(kick_tc_kernel, KickRing::THREADS, KickRing::SMEM,
-                        KickRing::BM, TC_BN, TC_BK, out);
+  if (a_mode == A_BF16)
+    return (int)occupancy(kick_tc_kernel, KickRing::THREADS, KickRing::SMEM,
+                          KickRing::BM, TC_BN, TC_BK, out);
+  if (a_mode == A_F32_SPLIT)
+    return (int)occupancy(kick_split_kernel, SplitKickRing::THREADS,
+                          SplitKickRing::SMEM, SplitKickRing::BM, TC_BN,
+                          SplitKickRing::BK, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 int lf_step_misfit(const float* x, const float* aprior, const float* wmsq,
@@ -1282,36 +1409,22 @@ int lf_step_misfit(const float* x, const float* aprior, const float* wmsq,
   return (int)cudaGetLastError();
 }
 
-// the kick of the matrix's dtype: bf16 on the tensor cores (Mp a multiple
-// of 128, Dp of 64), f32 SIMT (Mp a multiple of 64, Dp of 16)
-int lf_kick(const float* r, const void* A, int a_bf16, const float* x,
+// the kick on the tensor cores of a bf16 matrix A (a_mode A_BF16) or of
+// the three bf16 pieces of an f32 one (A_F32_SPLIT: A points at the
+// (3, Dp, Mp) pieces); Mp a multiple of 128, Dp of 64
+int lf_kick(const float* r, const void* A, int a_mode, const float* x,
             float* p, const float* aprior, const float* gm_scale, int C,
             int Dp, int Mp, float s_data, float s_mod, float beta, int ms,
             cudaStream_t stream) {
-  if (!a_bf16) {
-    if (Mp % BN || Dp % BK) return (int)cudaErrorInvalidValue;
-    const dim3 grid(Mp / BN, (C + BM - 1) / BM);
-    kick_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
-        r, static_cast<const float*>(A), x, p, aprior, gm_scale, C, Dp, Mp,
-        s_data, s_mod, beta, ms);
-    return (int)cudaGetLastError();
-  }
-  if (Mp % TC_BN || Dp % TC_BK) return (int)cudaErrorInvalidValue;
-  using R = KickRing;
-  CUtensorMap r_map, a_map;
-  cudaError_t err = tensor_map_2d(&r_map, r, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                  4, Dp, C, TC_X_BOX, R::BM);
-  if (err != cudaSuccess) return (int)err;
-  err = tensor_map_2d(&a_map, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Mp, Dp,
-                      TC_MN_BOX, TC_BK);
-  if (err != cudaSuccess) return (int)err;
-  err = tc_allow_smem();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((C + R::BM - 1) / R::BM, Mp / TC_BN);
-  kick_tc_kernel<<<grid, R::THREADS, R::SMEM, stream>>>(
-      r_map, a_map, x, p, aprior, gm_scale, C, Mp, Dp / TC_BK, s_data, s_mod,
-      beta, ms);
-  return (int)cudaGetLastError();
+  if (a_mode == A_BF16)
+    return (int)launch_kick_tiles<KickRing>(kick_tc_kernel, r, A, 1, x, p,
+                                            aprior, gm_scale, C, Dp, Mp,
+                                            s_data, s_mod, beta, ms, stream);
+  if (a_mode == A_F32_SPLIT)
+    return (int)launch_kick_tiles<SplitKickRing>(
+        kick_split_kernel, r, A, 3, x, p, aprior, gm_scale, C, Dp, Mp, s_data,
+        s_mod, beta, ms, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int lf_traj_finish(const float* x, float* p, const float* pk, const float* r,

@@ -19,11 +19,13 @@ import argparse
 import json
 import re
 import subprocess
+from pathlib import Path
 
 import torch
 
 from .ops import _cuda
 from .ops import leapfrog as tlf
+from .timing import device_ms
 
 #: (consumer warpgroups, ring stages)
 CONFIGS = [(2, 2), (2, 3), (2, 4), (1, 2), (1, 3), (1, 4)]
@@ -42,6 +44,13 @@ def variant_source(text, values):
     return text
 
 
+def _add_source(name, path):
+    """Register ``path``, a ``leapfrog.cu`` with the same C entries, as
+    library ``name``."""
+    _cuda.SOURCES[name] = ("lf", Path(path))
+    _cuda._SIGNATURES[name] = _cuda._SIGNATURES["leapfrog"]
+
+
 def build_variants(variants):
     """Build one library of ``leapfrog.cu`` per variant (library name ->
     the constants it sets), one nvcc each, started together."""
@@ -51,9 +60,15 @@ def build_variants(variants):
     for name, values in variants.items():
         path = vdir / f"{name}.cu"
         path.write_text(variant_source(base, values))
-        _cuda.SOURCES[name] = ("lf", path)
-        _cuda._SIGNATURES[name] = _cuda._SIGNATURES["leapfrog"]
+        _add_source(name, path)
     _cuda.build_all(list(variants))
+
+
+def build_baseline(path):
+    """Build another ``leapfrog.cu`` (such as an earlier commit's) as
+    library "baseline"; returns it."""
+    _add_source("baseline", path)
+    return _cuda.build_all(["baseline"])["baseline"]
 
 
 def card():
@@ -85,19 +100,10 @@ def operands(C, Dp, Mp, seed=0, device="cuda"):
 
 
 def time_kernel(name, args, reps=20, warmup=3):
-    """Mean device time of the registry's ``name`` on ``args`` (CUDA
-    events over ``reps`` launches after ``warmup``)."""
+    """Mean device time of the registry's ``name`` on ``args``
+    (:func:`timing.device_ms`)."""
     kern = tlf.KERNELS[name]
-    for _ in range(warmup):
-        kern(*args)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        kern(*args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_ms(lambda: kern(*args), reps, warmup)
 
 
 def main(argv=None):
@@ -114,7 +120,7 @@ def main(argv=None):
         for config, name in names.items():
             use_library(name)
             tlf._OCCUPANCY.pop("kick", None)
-            tlf._PLANS.pop(("kick", C, Dp, Mp), None)
+            tlf._PLANS.pop(("kick", C, Dp, Mp, tlf.A_BF16), None)
             plan = tlf.kick_plan(C, Dp, Mp)
             a_k = operands(C, Dp, Mp)
             a_p = operands(C, Dp, Mp)

@@ -62,7 +62,7 @@ _SIGNATURES = {
                            _I, _F, _F, _F, _I, _P],
         "lf_accept": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _I, _I, _U, _U, _U, _P],
-        "lf_kick_occupancy": [_P],
+        "lf_kick_occupancy": [_I, _P],
         "lf_draws": [_P, _P, _I, _I, _U, _U, _U, _P],
         "lf_philox_bits": [_P, _I, _I, _U, _U, _U, _P],
     },

@@ -4,11 +4,15 @@ step, on the GPU.
 Counterpart of ``gravinv3dhmc_tpu/ops/leapfrog_pallas.py``'s
 ``make_fused_trajectory`` (``_traj_kernel``), ``make_fused_iteration``
 (``_iter_kernel``) and ``make_fused_step`` (``_step_kernel``), with the
-same arguments and return order. The work is split into nine CUDA
-kernels (``csrc/leapfrog.cu``, whose header says why and what bounds
-each): ``refresh``, ``drift``, ``residual``, ``kick``, ``traj_finish`` and
+same arguments and return order. The work is split into CUDA kernels
+(``csrc/leapfrog.cu``, whose header says why and what bounds each):
+``refresh``, ``drift``, ``residual``, ``kick``, ``traj_finish`` and
 ``accept`` for the trajectory and iteration; the step reuses ``drift`` and
-``kick`` and adds ``step_residual`` and ``step_misfit``. Every fused
+``kick`` and adds ``step_residual`` and ``step_misfit``. The three GEMMs
+have a kernel for each matrix type: with an f32 matrix the op launches
+``residual_f32``, ``kick_f32`` and ``step_residual_f32``
+(:data:`F32_GEMMS`), which compute the f32 product on the tensor cores
+from three bf16 pieces of each operand (:func:`split_f32`). Every fused
 sampler path opens an iteration with one ``refresh`` launch and closes it
 with one ``accept`` launch (:meth:`_FusedLeapfrog.open_iteration`,
 :meth:`~_FusedLeapfrog.close_iteration`); ``draws`` gives the eager
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 from fractions import Fraction
+from functools import partial
 
 import numpy as np
 import torch
@@ -65,6 +70,28 @@ def _round_up(x, m):
 def _f32(v):
     """A scalar rounded to float32, as the TPU kernels hold eps and alpha."""
     return float(np.float32(v.item() if torch.is_tensor(v) else v))
+
+
+#: the C entries' matrix operand: a bf16 matrix, or the three bf16 pieces
+#: of an f32 one (``csrc/leapfrog.cu``'s a_mode)
+A_BF16, A_F32_SPLIT = 1, 2
+
+
+def split_f32(A):
+    """An f32 matrix as its three bf16 pieces, ``(3, *A.shape)``: a0 =
+    bf16(a), a1 = bf16(a - a0), a2 = bf16(a - a0 - a1), each rounded to
+    nearest even. Each difference is exact in f32, so the pieces carry the
+    24 bits of a (a0 + a1 + a2 is a to within 2^-24 of |a|); the f32
+    GEMM kernels multiply them by the same pieces of x or r, six bf16
+    products (the split the kernels apply to x and r in registers)."""
+    if A.dtype != _F32:
+        raise TypeError(f"split_f32 takes a float32 matrix, got {A.dtype}")
+    pieces, rest = [], A
+    for _ in range(3):
+        piece = rest.to(torch.bfloat16)
+        pieces.append(piece)
+        rest = rest - piece.to(_F32)
+    return torch.stack(pieces)
 
 
 def _mv(t, A):
@@ -109,13 +136,17 @@ def drift_plain(x, p, pk, im, low, high, eps):
         pk.copy_(p)
 
 
-def residual_plain(x, A, dobs, dmask, r):
-    """r = (x A^T - dobs) * dmask with x rounded to A's type."""
+def residual_plain(x, A, dobs, dmask, r, A_split=None):
+    """r = (x A^T - dobs) * dmask with x rounded to A's type. ``A_split``
+    (an f32 matrix's :func:`split_f32` pieces, which its kernel reads) is
+    not used: the plain version multiplies by A."""
     r.copy_((_mv(x, A) @ A.to(_F32).T - dobs) * dmask)
 
 
-def kick_plain(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
-    """p -= s_data (r A) + s_mod gm(x) with r rounded to A's type."""
+def kick_plain(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms,
+               A_split=None):
+    """p -= s_data (r A) + s_mod gm(x) with r rounded to A's type
+    (``A_split`` as in :func:`residual_plain`)."""
     gdata = _mv(r, A) @ A.to(_F32)
     dm = x - aprior
     if ms:
@@ -126,10 +157,11 @@ def kick_plain(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
     p.copy_(p - s_data * gdata - s_mod * gm)
 
 
-def step_residual_plain(x, A, fix, dobs, dmask, inv_nobs, r, ud):
+def step_residual_plain(x, A, fix, dobs, dmask, inv_nobs, r, ud,
+                        A_split=None):
     """d = x A^T + fix with x rounded to A's type; r = ((d - mean d) -
     dobs) * dmask with the mean over the true n_obs (``inv_nobs``);
-    ud = sum r^2."""
+    ud = sum r^2 (``A_split`` as in :func:`residual_plain`)."""
     d = _mv(x, A) @ A.to(_F32).T + fix
     rv = ((d - d.sum(1, keepdim=True) * inv_nobs) - dobs) * dmask
     r.copy_(rv)
@@ -186,11 +218,28 @@ def _salt_words(salt, iteration):
             int(iteration) & philox.MASK32)
 
 
-def _a_flag(A):
+def _a_mode(A):
+    """The matrix mode of A's type: A_BF16, or A_F32_SPLIT for float32."""
     if A.dtype not in (_F32, torch.bfloat16):
         raise TypeError(f"kernel matrix must be float32 or bfloat16, got "
                         f"{A.dtype}")
-    return int(A.dtype == torch.bfloat16)
+    return A_BF16 if A.dtype == torch.bfloat16 else A_F32_SPLIT
+
+
+def _matrix(mode, A, A_split):
+    """The C entries' matrix pointer for a kernel of ``mode``: a bf16 A
+    itself, or an f32 A's (3, Dp, Mp) bf16 pieces. A matrix of the other
+    type raises: its type picks the kernel."""
+    if _a_mode(A) != mode:
+        raise TypeError(f"this kernel takes a "
+                        f"{'bfloat16' if mode == A_BF16 else 'float32'} "
+                        f"matrix, got {A.dtype}")
+    if mode == A_BF16:
+        return _cuda.ptr(A, torch.bfloat16, A.shape)
+    if A_split is None:
+        raise ValueError("the f32 GEMM kernels read the matrix's bf16 "
+                         "pieces: pass split_f32(A)")
+    return _cuda.ptr(A_split, torch.bfloat16, (3, *A.shape))
 
 
 def _refresh_cuda(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
@@ -260,73 +309,92 @@ def split_plan(C, Dp, Mp, tile_m, tile_n, k_stage, resident_blocks,
             "waves": tiles * splits / resident}
 
 
-def residual_plan(C, Dp, Mp, a_bf16):
-    """How the split residual GEMM (csrc/leapfrog.cu) of the matrix's
-    dtype cuts K for this shape: :func:`split_plan` with the kernel's tile
-    and the resident blocks from the runtime's occupancy query. The bf16
-    tensor-core GEMM takes 128 x 128 tiles of 64-deep stages and one block
-    per SM, so at the uniformgrid shape (8 x 5 tiles) on 132 SMs that is 3
-    slices, 120 blocks; at ratiogrid's (8 x 8) 2 slices, 128 blocks. One
-    ``residual`` or ``step_residual`` call launches two kernels, the split
-    GEMM and the fixed-order reduce of its slices; its launch count covers
-    the pair."""
-    key = (C, Dp, Mp, a_bf16)
+def f32_max_splits(tiles, resident):
+    """The split cap of the f32-matrix residual: its six products make a
+    slice stage six times the bf16 one's work, so when the output has few
+    tiles (realdata's 256 chains: 10) K is cut into as many slices as one
+    wave holds, past :data:`MAX_SPLITS`; with many tiles (uniformgrid's
+    1024 chains: 40) the bf16 cap stands."""
+    return max(MAX_SPLITS, resident // max(tiles, 1))
+
+
+def residual_plan(C, Dp, Mp, a_mode):
+    """How the split residual GEMM (csrc/leapfrog.cu) of the matrix mode
+    (``A_BF16`` or ``A_F32_SPLIT``) cuts K for this shape:
+    :func:`split_plan` with the kernel's tile and the resident blocks from
+    the runtime's occupancy query. Both tensor-core GEMMs take 128 x 128
+    tiles (of 64-deep stages, 32-deep for the f32 matrix) and one block
+    per SM, so at the uniformgrid
+    shape (8 x 5 tiles) on 132 SMs that is 3 slices, 120 blocks; at
+    ratiogrid's (8 x 8) 2 slices, 128 blocks; the f32 GEMM at realdata's
+    256 x 640 x 10,496 (2 x 5 tiles) 13 slices, 130 blocks
+    (:func:`f32_max_splits`). One ``residual`` or ``step_residual`` call
+    launches two kernels, the split GEMM and the fixed-order reduce of its
+    slices; its launch count covers the pair."""
+    key = (C, Dp, Mp, a_mode)
     if key not in _PLANS:
-        if a_bf16 not in _OCCUPANCY:
+        if a_mode not in _OCCUPANCY:
             out = (ctypes.c_int * 5)()
-            _cuda.library().call("lf_residual_occupancy", a_bf16,
+            _cuda.library().call("lf_residual_occupancy", a_mode,
                                  ctypes.addressof(out))
-            _OCCUPANCY[a_bf16] = tuple(out)
-        per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY[a_bf16]
+            _OCCUPANCY[a_mode] = tuple(out)
+        per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY[a_mode]
+        resident = per_sm * sms
+        cap = (MAX_SPLITS if a_mode == A_BF16 else f32_max_splits(
+            (Dp // tile_n) * -(-C // tile_m), resident))
         _PLANS[key] = {**split_plan(C, Dp, Mp, tile_m, tile_n, k_stage,
-                                    per_sm * sms),
+                                    resident, cap),
                        "blocks_per_sm": per_sm, "sms": sms}
     return _PLANS[key]
 
 
-def kick_plan(C, Dp, Mp):
-    """How the bf16 tensor-core kick (csrc/leapfrog.cu) covers this
-    shape: one block per tile of chains x 128 columns of the (C x Mp)
-    output, each over all Dp / 64 stages of K (:func:`split_plan` with the
-    roles of Dp and Mp swapped and one split), with the tile and the
-    resident blocks from the runtime's occupancy query."""
-    key = ("kick", C, Dp, Mp)
+def kick_plan(C, Dp, Mp, a_mode=A_BF16):
+    """How the tensor-core kick (csrc/leapfrog.cu) of the matrix mode
+    covers this shape: one block per tile of chains x 128 columns of the
+    (C x Mp) output, each over all Dp / 64 stages of K (:func:`split_plan`
+    with the roles of Dp and Mp swapped and one split), with the tile and
+    the resident blocks from the runtime's occupancy query."""
+    key = ("kick", C, Dp, Mp, a_mode)
+    occ = "kick" if a_mode == A_BF16 else ("kick", a_mode)
     if key not in _PLANS:
-        if "kick" not in _OCCUPANCY:
+        if occ not in _OCCUPANCY:
             out = (ctypes.c_int * 5)()
-            _cuda.library().call("lf_kick_occupancy", ctypes.addressof(out))
-            _OCCUPANCY["kick"] = tuple(out)
-        per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY["kick"]
+            _cuda.library().call("lf_kick_occupancy", a_mode,
+                                 ctypes.addressof(out))
+            _OCCUPANCY[occ] = tuple(out)
+        per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY[occ]
         _PLANS[key] = {**split_plan(C, Mp, Dp, tile_m, tile_n, k_stage,
                                     per_sm * sms, max_splits=1),
                        "blocks_per_sm": per_sm, "sms": sms}
     return _PLANS[key]
 
 
-def _residual_cuda(x, A, dobs, dmask, r):
+def _residual_cuda(mode, x, A, dobs, dmask, r, A_split=None):
     C, Mp = x.shape
     Dp = A.shape[0]
     P = _cuda.ptr
-    splits = residual_plan(C, Dp, Mp, _a_flag(A))["splits"]
+    a = _matrix(mode, A, A_split)
+    splits = residual_plan(C, Dp, Mp, mode)["splits"]
     part = torch.empty((splits, C, Dp), dtype=_F32, device=x.device)
     _cuda.library().call(
-        "lf_residual", P(x, _F32, (C, Mp)), P(A, A.dtype, (Dp, Mp)),
-        _a_flag(A), P(dobs, _F32, (Dp,)), P(dmask, _F32, (Dp,)),
-        P(r, _F32, (C, Dp)), P(part, _F32), splits, C, Dp, Mp,
-        _cuda.stream(x))
+        "lf_residual", P(x, _F32, (C, Mp)), a, mode, P(dobs, _F32, (Dp,)),
+        P(dmask, _F32, (Dp,)), P(r, _F32, (C, Dp)), P(part, _F32), splits,
+        C, Dp, Mp, _cuda.stream(x))
 
 
-def _step_residual_cuda(x, A, fix, dobs, dmask, inv_nobs, r, ud):
+def _step_residual_cuda(mode, x, A, fix, dobs, dmask, inv_nobs, r, ud,
+                        A_split=None):
     C, Mp = x.shape
     Dp = A.shape[0]
     P = _cuda.ptr
-    splits = residual_plan(C, Dp, Mp, _a_flag(A))["splits"]
+    a = _matrix(mode, A, A_split)
+    splits = residual_plan(C, Dp, Mp, mode)["splits"]
     part = torch.empty((splits, C, Dp), dtype=_F32, device=x.device)
     _cuda.library().call(
-        "lf_step_residual", P(x, _F32, (C, Mp)), P(A, A.dtype, (Dp, Mp)),
-        _a_flag(A), P(fix, _F32, (Dp,)), P(dobs, _F32, (Dp,)),
-        P(dmask, _F32, (Dp,)), P(r, _F32, (C, Dp)), P(ud, _F32, (C,)),
-        P(part, _F32), splits, C, Dp, Mp, inv_nobs, _cuda.stream(x))
+        "lf_step_residual", P(x, _F32, (C, Mp)), a, mode,
+        P(fix, _F32, (Dp,)), P(dobs, _F32, (Dp,)), P(dmask, _F32, (Dp,)),
+        P(r, _F32, (C, Dp)), P(ud, _F32, (C,)), P(part, _F32), splits, C,
+        Dp, Mp, inv_nobs, _cuda.stream(x))
 
 
 def _step_misfit_cuda(x, aprior, wmsq, ud, U, um, alpha, beta, ms):
@@ -339,12 +407,13 @@ def _step_misfit_cuda(x, aprior, wmsq, ud, U, um, alpha, beta, ms):
         C, Mp, alpha, beta, int(ms), _cuda.stream(x))
 
 
-def _kick_cuda(r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms):
+def _kick_cuda(mode, r, A, x, p, aprior, gm_scale, s_data, s_mod, beta, ms,
+               A_split=None):
     C, Dp = r.shape
     Mp = A.shape[1]
     P = _cuda.ptr
     _cuda.library().call(
-        "lf_kick", P(r, _F32, (C, Dp)), P(A, A.dtype, (Dp, Mp)), _a_flag(A),
+        "lf_kick", P(r, _F32, (C, Dp)), _matrix(mode, A, A_split), mode,
         P(x, _F32, (C, Mp)), P(p, _F32, (C, Mp)), P(aprior, _F32, (Mp,)),
         P(gm_scale, _F32, (Mp,)), C, Dp, Mp, s_data, s_mod, beta, int(ms),
         _cuda.stream(r))
@@ -387,26 +456,46 @@ def philox_bits_cuda(salt, iteration, n_chains, width, device):
     return out.to(torch.int64) & philox.MASK32
 
 
-#: the kernels each op launches: the iteration (the trajectory is its
-#: middle four) and the step, which reuses ``drift`` and ``kick``; a
-#: sampler that calls the step opens and closes each iteration with
-#: ``refresh`` and ``accept``, the eager shared-L sampler draws with
+#: the kernels each op launches with a bf16 matrix: the iteration (the
+#: trajectory is its middle four) and the step, which reuses ``drift`` and
+#: ``kick``; a sampler that calls the step opens and closes each iteration
+#: with ``refresh`` and ``accept``, the eager shared-L sampler draws with
 #: ``draws``
 ITERATION_KERNELS = ("refresh", "drift", "residual", "kick", "traj_finish",
                      "accept")
 STEP_KERNELS = ("drift", "step_residual", "kick", "step_misfit")
+#: each GEMM's kernel for an f32 matrix (the same plain version)
+F32_GEMMS = {"residual": "residual_f32", "kick": "kick_f32",
+             "step_residual": "step_residual_f32"}
+
+
+def path_kernels(names, matvec_dtype):
+    """``names`` (such as :data:`ITERATION_KERNELS`) as an op with a
+    ``matvec_dtype`` matrix launches them: the GEMMs of an f32 matrix are
+    :data:`F32_GEMMS`'s."""
+    if matvec_dtype == _F32:
+        return tuple(F32_GEMMS.get(n, n) for n in names)
+    return tuple(names)
+
 
 _cuda.register(*(Kernel(name, plain, launch, replaces, "leapfrog")
                  for name, plain, launch, replaces in (
     ("refresh", refresh_plain, _refresh_cuda, _ITER_TPU),
     ("drift", drift_plain, _drift_cuda, _TRAJ_TPU),
-    ("residual", residual_plain, _residual_cuda, _TRAJ_TPU),
-    ("kick", kick_plain, _kick_cuda, _TRAJ_TPU),
+    ("residual", residual_plain, partial(_residual_cuda, A_BF16),
+     _TRAJ_TPU),
+    ("kick", kick_plain, partial(_kick_cuda, A_BF16), _TRAJ_TPU),
     ("traj_finish", traj_finish_plain, _traj_finish_cuda, _TRAJ_TPU),
     ("accept", accept_plain, _accept_cuda, _ITER_TPU),
-    ("step_residual", step_residual_plain, _step_residual_cuda, _STEP_TPU),
+    ("step_residual", step_residual_plain,
+     partial(_step_residual_cuda, A_BF16), _STEP_TPU),
     ("step_misfit", step_misfit_plain, _step_misfit_cuda, _STEP_TPU),
-    ("draws", draws_plain, _draws_cuda, _PRNG_TPU))))
+    ("draws", draws_plain, _draws_cuda, _PRNG_TPU),
+    ("residual_f32", residual_plain, partial(_residual_cuda, A_F32_SPLIT),
+     _TRAJ_TPU),
+    ("kick_f32", kick_plain, partial(_kick_cuda, A_F32_SPLIT), _TRAJ_TPU),
+    ("step_residual_f32", step_residual_plain,
+     partial(_step_residual_cuda, A_F32_SPLIT), _STEP_TPU))))
 
 
 # -------------------------------------------------------- the fused ops
@@ -497,6 +586,9 @@ class _FusedLeapfrog(nn.Module):
         self.regularization = regularization
         self.beta = float(beta)
         self.device = _device.resolve(device)
+        #: the registry names of the GEMMs this op's matrix type launches
+        self.gemms = (F32_GEMMS if matvec_dtype == _F32
+                      else {name: name for name in F32_GEMMS})
         D, M = np.shape(A)
         self.D, self.M = D, M
         self.Dp, self.Mp = _round_up(D, LANE), _round_up(M, LANE)
@@ -539,7 +631,9 @@ class _FusedLeapfrog(nn.Module):
         dmask = torch.zeros(Dp, dtype=_F32, device=A.device)
         dmask[:A.shape[0]] = 1.0
         out = {"A": Ap, "dmask": dmask, "dobs": _pad_vec(prm["dobs"], Dp),
-               "im": _pad_vec(prm["im"], Mp, 1.0)}
+               "im": _pad_vec(prm["im"], Mp, 1.0),
+               # the pieces an f32 matrix's GEMM kernels read, split once
+               "A_split": split_f32(Ap) if Ap.dtype == _F32 else None}
         if "fix" in prm:
             out["fix"] = _pad_vec(prm["fix"], Dp)
         for name in ("aprior", "wmsq", "low", "high", "pscale"):
@@ -590,12 +684,13 @@ class _FusedLeapfrog(nn.Module):
         s_data, s_mod = _kick_scales(e, alpha, ms)
         r = torch.zeros((x.shape[0], self.Dp), dtype=_F32, device=x.device)
         L = int(L)
+        residual, kick = k[self.gemms["residual"]], k[self.gemms["kick"]]
         for step in range(L):
             k["drift"](x, p, pk if step == L - 1 else None, pp["im"],
                        pp["low"], pp["high"], float(e))
-            k["residual"](x, pp["A"], pp["dobs"], pp["dmask"], r)
-            k["kick"](r, pp["A"], x, p, pp["aprior"], pp["gm_scale"],
-                      s_data, s_mod, self.beta, ms)
+            residual(x, pp["A"], pp["dobs"], pp["dmask"], r, pp["A_split"])
+            kick(r, pp["A"], x, p, pp["aprior"], pp["gm_scale"], s_data,
+                 s_mod, self.beta, ms, pp["A_split"])
         k["traj_finish"](x, p, pk, r, g, U, ud, um, pp["aprior"], pp["wmsq"],
                          float(np.float32(1.0) / e), float(alpha), self.beta,
                          ms)
@@ -729,10 +824,12 @@ class FusedStep(_FusedLeapfrog):
         U, ud, um = (torch.empty(C, dtype=_F32, device=x.device)
                      for _ in range(3))
         k["drift"](xw, pw, None, pp["im"], pp["low"], pp["high"], e)
-        k["step_residual"](xw, pp["A"], pp["fix"], pp["dobs"], pp["dmask"],
-                           self.inv_nobs, r, ud)
-        k["kick"](r, pp["A"], xw, pw, pp["aprior"], pp["gm_scale"], s_data,
-                  s_mod, self.beta, ms)
+        k[self.gemms["step_residual"]](xw, pp["A"], pp["fix"], pp["dobs"],
+                                       pp["dmask"], self.inv_nobs, r, ud,
+                                       pp["A_split"])
+        k[self.gemms["kick"]](r, pp["A"], xw, pw, pp["aprior"],
+                              pp["gm_scale"], s_data, s_mod, self.beta, ms,
+                              pp["A_split"])
         k["step_misfit"](xw, pp["aprior"], pp["wmsq"], ud, U, um, a,
                          self.beta, ms)
         return xw[:, :n], pw[:, :n], U, ud, um

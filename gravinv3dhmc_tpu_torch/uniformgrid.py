@@ -9,6 +9,8 @@ different seeds, printing grad-evals/s per run, then runs one chunk under
 ``torch.profiler``: device busy time (the union of kernel intervals)
 against the host's wall time, and device time by kernel. One JSON object
 per line; ``--out FILE`` also writes the profiler's table there.
+``--matvec float32`` runs the fused iteration on an f32 matrix (the JAX
+bench's ``BENCH_MATVEC_DTYPE=float32``) instead of the default bf16.
 """
 from __future__ import annotations
 
@@ -82,12 +84,14 @@ def sampler(module, dobs, device, nchains, chunk, dt, Lrange, Sigma, beta,
     return chain
 
 
-def slice_sampler(module, dobs, device, seed=0, **overrides):
-    """:func:`sampler` at the :data:`SLICE` settings, bf16 matrix."""
+def slice_sampler(module, dobs, device, seed=0, matvec=torch.bfloat16,
+                  **overrides):
+    """:func:`sampler` at the :data:`SLICE` settings, a bf16 matrix unless
+    ``matvec`` says otherwise."""
     cfg = dict(SLICE, **overrides)
     return sampler(module, dobs, device, cfg["nchains"], cfg["chunk"],
                    cfg["dt"], cfg["Lrange"], cfg["Sigma"], cfg["beta"],
-                   torch.bfloat16, seed=seed)
+                   matvec, seed=seed)
 
 
 def _sync(device):
@@ -167,14 +171,24 @@ def profile_run(run_chunk, carry, seed, device, chunk_idx=1):
     }, prof
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The command line, with ``--matvec`` as a torch dtype."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repeats", type=int, default=3,
                     help="full slice runs, seeds 0..repeats-1")
     ap.add_argument("--profile-chunk", type=int, default=32,
                     help="iterations in the profiled chunk")
+    ap.add_argument("--matvec", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="storage type of the kernel matrix")
     ap.add_argument("--out", help="write the profiler's table here")
     args = ap.parse_args(argv)
+    args.matvec = getattr(torch, args.matvec)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("uniformgrid profile: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,15 +197,18 @@ def main(argv=None):
     module, dobs = build_problem(device=dev)
     rates = []
     for seed in range(args.repeats):
-        res = slice_sampler(module, dobs, dev, seed=seed).sample(
-            SLICE["nsamples"], SLICE["ndraws"])
+        res = slice_sampler(module, dobs, dev, seed=seed,
+                            matvec=args.matvec).sample(SLICE["nsamples"],
+                                                       SLICE["ndraws"])
         rates.append(res["grad_evals_per_s"])
-        print(json.dumps({"seed": seed, "grad_evals_per_s":
+        print(json.dumps({"seed": seed, "matvec": str(args.matvec),
+                          "grad_evals_per_s":
                           res["grad_evals_per_s"],
                           "accept_ratio": res["accept_ratio"],
                           "elapsed_s": res["elapsed_s"],
                           "grad_evals": res["grad_evals"]}), flush=True)
-    chain = slice_sampler(module, dobs, dev, chunk=args.profile_chunk)
+    chain = slice_sampler(module, dobs, dev, matvec=args.matvec,
+                          chunk=args.profile_chunk)
     summary, prof = profile_chunk(chain)
     print(json.dumps({"profile": summary}), flush=True)
     if args.out:
