@@ -14,13 +14,22 @@ Phases, one line each (the script stops at the first failure, non-zero):
              (``cuobjdump -sass``) of each tensor-core kernel
              (``residual_partial_tc_kernel``, ``kick_tc_kernel`` and the
              f32-matrix ``residual_partial_split_kernel``,
-             ``kick_split_kernel``); 0 in any fails.
+             ``kick_split_kernel``); 0 in any fails. From the same SASS
+             (``gravinv3dhmc_tpu_torch/sass.py``), the issued
+             instructions by pipe of four momentum normals and of one
+             accept uniform (``momentum4`` and ``accept_uniform``, each
+             alone in a one-thread kernel) and of one node value of the
+             gz matrix (a corner term of ``gz_kernel``): the bounds of
+             ``draws``, ``refresh``, ``gz`` and ``gz_nodes``; a unit
+             without its pipes fails.
 2. philox  — the kernel's Philox words equal ``ops/philox.py``'s bit for
              bit; its 1M normals have mean 0 and variance 1 within 5 sigma;
              ``refresh``'s p-only form gives its two-output form's p and
              H0 bit for bit; the ``draws`` kernel gives the plain version's
              uniforms bit for bit, its normals within ``KERNEL_RTOL`` and
-             ``refresh``'s normals bit for bit.
+             ``refresh``'s normals bit for bit; ``momentum4`` and
+             ``accept_uniform`` run alone give ``draws``' values bit for
+             bit (so the counted code is the code ``draws`` runs).
 3. kernels — each of the six kernels (and ``refresh``'s p-only form)
              against its plain PyTorch version on the same inputs at the
              uniformgrid slice's shapes (1024 chains, 640 x 6016 bf16
@@ -76,11 +85,22 @@ Phases, one line each (the script stops at the first failure, non-zero):
              ratiogrid's 1024 x 1024 x 17,152, where ``slice2_f32``
              launches ``step_residual_f32``.
 7. gz      — the ratiogrid matrix (900 obs x 17,100 ratio prisms): the
-             ``gz`` kernel against its plain version and both against the
-             f64 host builder, within 1e-3 of max|A| elementwise and 5e-3
-             relative Frobenius; kernel, plain and f64 host build timed.
+             dispatcher (``ops.prism_gz.gz_plan``) picks the node kernel
+             ``gz_nodes`` (19,220 distinct nodes); its matrix equals the
+             corner kernel ``gz``'s bit for bit; each against its plain
+             version and all against the f64 host builder, within 1e-3
+             of max|A| elementwise and 5e-3 relative Frobenius; both
+             kernels timed in turns beside the one bound they share (the
+             node evaluations at the instruction counts of their SASS),
+             plain versions and the f64 host build timed. Then the cells
+             jittered (no shared faces) through
+             ``prism_kernel_matrix(backend="pallas")``: the corner kernel
+             is dispatched and launched once (its launches counted around
+             that build), checked against its plain version and f64.
 8. slice 2 — ``ratiogrid.build_problem`` on the card (its matrix from the
-             ``gz`` kernel), then 1024 chains through the per-step fused
+             ``gz_nodes`` kernel; the build's time split into the
+             kernel's device time, the copy to the host and the
+             weighting), then 1024 chains through the per-step fused
              op (``make_chunk_sampler(fused_step=...)``) for 4 chunks of
              64 iterations after a warm chunk: grad-evals/s, accept ratio,
              median ESS, both matrix build times and the launch count of
@@ -105,8 +125,11 @@ Phases, one line each (the script stops at the first failure, non-zero):
 
 Slice 1's launch counts are read around phase 6 (bf16 and f32), the
 shared-L card run's in phase 6's reference, the realdata-width f32
-trajectory's in phase 6b, slice 2's (bf16 and f32) in phase 8: these
-runs' counts make the ``launches`` of the kernels line. Around the
+trajectory's in phase 6b, the unstructured gz build's in phase 7, slice
+2's (bf16 and f32) in phase 8: these runs' counts make the ``launches``
+of the kernels line. ``draws`` and ``refresh`` are bounded by the issued
+instructions of their Philox and Box-Muller, counted in phase 1; ``draws``'s
+library time is ``torch.randn`` and ``torch.rand`` of its shapes. Around the
 slices,
 the plain Philox draws (``ops.philox.momentum_normals``,
 ``accept_uniforms``) must not be called. The last three lines are the
@@ -116,7 +139,6 @@ one JSON object with every kernel's numbers, and the result line
 printing any result.
 """
 import json
-import os
 import subprocess
 import sys
 import time
@@ -148,17 +170,16 @@ F32_ERR_RATIO = 2.0
 RAGGED_CHAINS = 200
 #: the card's published peaks (NVIDIA H100 SXM data sheet, dense, at its
 #: 700 W limit): device memory bytes/s, and operations/s by type: bf16
-#: tensor-core FLOP and the f32 rate outside the tensor cores, at which
-#: the 32-bit integer work of Philox is counted too (so the bound stays a
-#: lower bound)
+#: tensor-core FLOP and the f32 FLOP rate outside the tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
-#: f32 and integer operations per element, counted from csrc/*.cu: a
-#: Philox normal (10 rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2 key adds a
-#: 4-word counter, plus half a Box-Muller), and one prism-gz entry (8
-#: corners of ~24 operations: 3 squares, 2 sums, sqrt, 2 logs with their
-#: guards, atan2 with its products and division, the term and the sign)
-NORMAL_OPS, GZ_OPS = 32, 193
+#: the issued instructions of one unit of work of the SIMT kernels whose
+#: work is not f32 FLOP (Philox, logf, sincosf, atanf, IEEE division and
+#: square root), by pipe class: ``sass.unit_counts`` of the libraries
+#: this run built (``normal4``: four momentum normals, ``uniform``: one
+#: accept uniform, ``node``: one node value of the gz matrix), set by the
+#: build phase; their least time is ``sass.instruction_seconds``
+UNITS = {}
 
 
 def line(phase, **kv):
@@ -202,32 +223,18 @@ def time_ms(torch, fn, reps=20, warmup=3, rounds=5):
                             for _ in range(rounds)]))
 
 
-def sass_counts(lib, opcode):
-    """Lines holding ``opcode`` in the SASS (``cuobjdump -sass``) of each
-    function of the library: {mangled name: count}."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    out = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib.path)],
-        capture_output=True, text=True, timeout=120, check=True)
-    counts, fn = {}, None
-    for ln in out.stdout.splitlines():
-        if "Function :" in ln:
-            fn = ln.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and opcode in ln:
-            counts[fn] += 1
-    return counts
-
-
 def work(name, a, accepted=None, simt=False):
     """(bytes, {type: operations}) that kernel ``name`` must move and do
     on its arguments ``a``: each input read once and each output written
     once (scratch such as split partials, and an f32 matrix's bf16
     pieces, not counted: the matrix is read as f32), and where the work
-    depends on the data (accept's restore of rejected chains) what this
-    run's data needs. ``simt``: a GEMM's product as one f32 product
-    outside the tensor cores."""
+    depends on the data (accept's restore of rejected chains, the gz
+    matrix's distinct nodes) what this run's data needs. ``simt``: a
+    GEMM's product as one f32 product outside the tensor cores. Type
+    "sass" holds issued instructions by class (``sass.scaled`` of
+    :data:`UNITS`)."""
+    from gravinv3dhmc_tpu_torch import sass
+
     def nb(t):
         return t.numel() * t.element_size() if t is not None else 0
 
@@ -245,13 +252,20 @@ def work(name, a, accepted=None, simt=False):
     if name == "refresh":
         g, U, pscale, im, _, _, _, n01, p, pk, H0 = a
         C, Mp = g.shape
-        return (nb(g) + nb(U) + nb(pscale) + nb(im) + nb(n01) + nb(p)
-                + nb(pk) + nb(H0),
-                {"f32": (6 + (0 if n01 is not None else NORMAL_OPS)) * C * Mp})
+        nbytes = (nb(g) + nb(U) + nb(pscale) + nb(im) + nb(n01) + nb(p)
+                  + nb(pk) + nb(H0))
+        if n01 is not None:
+            return nbytes, {"f32": 6 * C * Mp}
+        # the normals drawn in registers; p0 = s n, K += (w p0) p0, p
+        # = p0 - e/2 g: 6 FP32 instructions an element
+        return nbytes, {"sass": sass.scaled((UNITS["normal4"], C * Mp // 4),
+                                            fma=6 * C * Mp)}
     if name == "draws":
+        # 4 normals a counter, one uniform a chain
         n01, u = a[0], a[1]
-        return nb(n01) + nb(u), {"f32": NORMAL_OPS * n01.numel()
-                                 + 103 * u.numel()}
+        return nb(n01) + nb(u), {"sass": sass.scaled(
+            (UNITS["normal4"], n01.numel() // 4), (UNITS["uniform"],
+                                                   u.numel()))}
     if name == "drift":
         x, p, pk, im, low, high = a[:6]
         return (2 * (nb(x) + nb(p)) + nb(pk) + nb(im) + nb(low) + nb(high),
@@ -286,26 +300,53 @@ def work(name, a, accepted=None, simt=False):
         x = a[0]
         return (nb(x) + nb(a[1]) + nb(a[2]) + nb(a[3]) + nb(a[4]) + nb(a[5]),
                 {"f32": 6 * x.numel()})
-    if name == "gz":
-        obs, cells = a[0], a[1]
-        D, M = obs.shape[0], cells.numel() // 6
-        return nb(obs) + nb(cells) + 4 * D * M, {"f32": GZ_OPS * D * M}
+    if name in ("gz", "gz_nodes"):
+        # one bound for both: F once per distinct node and observation,
+        # then 8 FP32 adds and the scale an entry (the corner kernel, which
+        # evaluates F 8 times an entry, is held to the same work); bytes:
+        # the observations, the cells (bounds or node tables), the matrix
+        obs = a[0]
+        if name == "gz":
+            from gravinv3dhmc_tpu_torch.ops.prism_gz import node_tables
+
+            cells = a[1]
+            n_nodes = node_tables(cells.cpu().numpy()).n_nodes
+            M, inputs = cells.shape[0], nb(cells)
+        else:
+            ux, uy, uz, cells, offsets = a[1:6]
+            n_nodes = ux.numel() * uy.numel() * uz.numel()
+            M = cells.shape[0]
+            inputs = sum(nb(t) for t in (ux, uy, uz, cells, offsets))
+        D = obs.shape[0]
+        return (nb(obs) + inputs + 4 * D * M,
+                {"sass": sass.scaled((UNITS["node"], D * n_nodes),
+                                     fma=9 * D * M)})
     raise KeyError(name)
 
 
 def bound(name, a, accepted=None, simt=False):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``name`` on ``a`` at its published peaks, the larger of bytes over the
-    memory rate and operations over their peak rates."""
+    memory rate and operations over their peak rates (issued instructions
+    over their issue and pipe rates, ``sass.instruction_seconds``)."""
+    from gravinv3dhmc_tpu_torch import sass
+
     nbytes, ops = work(name, a, accepted, simt)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items()) * 1e3
+    t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items() if k != "sass")
+    t_ops = (t_ops + sass.instruction_seconds(ops.get("sass", {}))) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def library_call(torch, name, a):
-    """One PyTorch call computing the product of a bf16 GEMM kernel on the
-    same operands (the operand cast to bf16 beforehand), or None."""
+    """One PyTorch call computing the function of a kernel on the same
+    operands, or None: a bf16 GEMM's product (the operand cast to bf16
+    beforehand); for ``draws``, ``torch.randn`` and ``torch.rand`` of its
+    shapes (the same distribution, not the same values)."""
+    if name == "draws":
+        n01, u = a[0], a[1]
+        return lambda: (torch.randn(n01.shape, device=n01.device),
+                        torch.rand(u.shape, device=u.device))
     if name not in ("residual", "step_residual", "kick") or \
             a[1].dtype != torch.bfloat16:
         return None
@@ -363,10 +404,18 @@ def phase_philox(torch, tlf, philox, dev):
     p_only_same = (torch.equal(p_only, p) and torch.equal(pk, p)
                    and torch.equal(H0_only, H0))
     draws_err = rel_err(n_k, n_p)[1]
+    # the code whose SASS bounds draws and refresh, run alone: its values
+    # are draws' (counters j0 .. j1 - 1 of chain c)
+    j0, j1, c = 517, 520, 201
+    n4, u1 = tlf.draw_units_cuda(salt, 9, j0, j1, c, dev)
+    once_equal = (torch.equal(n4, n_k[c, 4 * j0:4 * j1])
+                  and torch.equal(u1, u_k[c:c + 1]))
     line("philox", bits_equal=True, normals=N, max_abs_err=err, mean=mean,
          var=var, draws_uniforms_bit_equal=uniforms_equal,
          draws_normals_rel_err=draws_err, draws_equal_refresh=as_refresh,
-         refresh_p_only_same=p_only_same)
+         refresh_p_only_same=p_only_same, counted_code_equal=once_equal)
+    if not once_equal:
+        fail("philox: momentum4 / accept_uniform alone differ from draws")
     if not ok or not p_only_same:
         fail(f"philox normals (refresh's p-only form the same: "
              f"{p_only_same})")
@@ -973,16 +1022,30 @@ def rel_fro(out, ref):
 GZ_MAX, GZ_FRO = 1e-3, 5e-3
 
 
-def phase_gz(torch, dev, smi):
-    """The ratiogrid matrix through the gz kernel, its plain version and
-    the f64 host builder."""
-    from gravinv3dhmc_tpu_torch import constants, mesher, ratiogrid, utils
-    from gravinv3dhmc_tpu_torch.ops import _cuda, prism
+def jittered(cells, seed=0):
+    """``cells`` with every bound moved down by a seeded 0-0.5 m: no two
+    cells share a face value any more (an unstructured set, sent to the
+    corner kernel), and none reaches above the observations at z = 0."""
+    return cells + np.random.RandomState(seed).uniform(0.0, 0.5, cells.shape)
 
-    d = 200.0
-    bounds = (0, 30 * d, 0, 30 * d, 0, 30 * d)
-    mesh = mesher.PrismMesh(bounds, (d, d, d), ratiogrid.RATIO)
-    xo, yo, zo = utils.regular(bounds[:4], mesh.shape[:0:-1], z=0.0)
+
+def phase_gz(torch, tlf, dev, smi):
+    """The ratiogrid matrix (900 obs x 17,100 ratio prisms) through both gz
+    kernels: the dispatcher picks ``gz_nodes`` for the mesh's cells; its
+    matrix equals the corner ``gz`` kernel's bit for bit; each kernel
+    against its plain version and all four against the f64 host builder
+    within ``GZ_MAX`` of max|A| and ``GZ_FRO`` Frobenius; both timed in
+    turns (gz, gz_nodes, gz_nodes, gz) beside the one bound they share.
+    Then the same cells jittered (no shared faces) through
+    ``prism_kernel_matrix(backend="pallas")``: the corner kernel is
+    dispatched and launched once, checked against its plain version and
+    against f64 on every tenth observation. Returns the kernels line's
+    numbers of both kernels and the launch counts of the jittered build,
+    set to 0 just before it."""
+    from gravinv3dhmc_tpu_torch import constants, ratiogrid
+    from gravinv3dhmc_tpu_torch.ops import prism, prism_gz
+
+    mesh, (xo, yo, zo) = ratiogrid.mesh_and_obs()
     cells = mesh.cell_bounds(only_active=True)
     t0 = time.perf_counter()
     A64 = prism.prism_kernel_matrix("gz", xo, yo, zo, mesh)
@@ -990,30 +1053,80 @@ def phase_gz(torch, dev, smi):
     A64 = torch.as_tensor(A64, device=dev)
     obs = torch.as_tensor(np.stack([xo, yo, zo], 1), dtype=torch.float32,
                           device=dev)
-    cells_t = torch.as_tensor(cells, dtype=torch.float32, device=dev)
     scale = float(np.float32(constants.G * constants.SI2MGAL))
-    kern = _cuda.KERNELS["gz"]
-    out_k = kern(obs, cells_t, scale)
-    out_p = kern.plain(obs, cells_t, scale)
+    cells32 = cells.astype(np.float32)
+    plan, tables = prism_gz.gz_plan(cells32)
+    args = {"gz": (obs, torch.as_tensor(cells32, device=dev), scale),
+            "gz_nodes": (obs, *prism_gz.node_args(tables, dev), scale)}
+    outs = {n: tlf.KERNELS[n](*a) for n, a in args.items()}
+    plains = {n: tlf.KERNELS[n].plain(*a) for n, a in args.items()}
     sync(torch)
-    errs = {"kernel_vs_plain": rel_fro(out_k, out_p),
-            "kernel_vs_f64": rel_fro(out_k, A64),
-            "plain_vs_f64": rel_fro(out_p, A64)}
-    ms = time_ms(torch, lambda: kern(obs, cells_t, scale), reps=10)
-    plain_ms = time_ms(torch, lambda: kern.plain(obs, cells_t, scale),
-                       reps=3, warmup=1, rounds=1)
-    finite = bool(torch.isfinite(out_k).all())
-    bound_ms, bound_by = bound("gz", (obs, cells_t, scale))
-    result = {"max_abs_err": (out_k.double() - out_p.double()).abs()
-              .max().item(), "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    line("gz", shape=list(out_k.shape), errors=errs, host_f64_s=host_s,
-         finite=finite, card=smi, **result)
+    bit_equal = torch.equal(outs["gz_nodes"], outs["gz"])
+    errs = {}
+    for n in args:
+        errs[f"{n}_vs_plain"] = rel_fro(outs[n], plains[n])
+        errs[f"{n}_vs_f64"] = rel_fro(outs[n], A64)
+        errs[f"{n}_plain_vs_f64"] = rel_fro(plains[n], A64)
+    times = {n: [] for n in args}
+    for n in ("gz", "gz_nodes", "gz_nodes", "gz"):
+        times[n].append(time_ms(torch, lambda: tlf.KERNELS[n](*args[n]),
+                                reps=10, rounds=3))
+    result = {}
+    for n, a in args.items():
+        bound_ms, bound_by = bound(n, a)
+        ms = float(np.median(times[n]))
+        result[n] = {
+            "max_abs_err": (outs[n].double() - plains[n].double()).abs()
+            .max().item(), "ms": ms,
+            "plain_ms": time_ms(torch, lambda: tlf.KERNELS[n].plain(*a),
+                                reps=3, warmup=1, rounds=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
+    line("gz", shape=list(outs["gz"].shape), plan=plan,
+         nodes=[len(tables.ux), len(tables.uy), len(tables.uz)],
+         n_nodes=tables.n_nodes, span=tables.span,
+         smem_bytes=prism_gz.node_smem_bytes(tables),
+         nodes_bit_equal_corner=bit_equal, errors=errs, host_f64_s=host_s,
+         finite=finite, turns_ms=times, card=smi,
+         **{n: {**r, "share_of_bound": r["bound_ms"] / r["ms"]}
+            for n, r in result.items()})
     bad = [k for k, (e_max, e_fro) in errs.items()
            if e_max > GZ_MAX or e_fro > GZ_FRO]
-    if bad or not finite or tuple(out_k.shape) != (900, 17100):
-        fail(f"gz: {bad} beyond ({GZ_MAX}, {GZ_FRO}) or non-finite")
-    return result
+    if (bad or not finite or plan != "gz_nodes" or not bit_equal
+            or tuple(outs["gz"].shape) != (900, 17100)):
+        fail(f"gz: plan {plan}, bit_equal={bit_equal}, {bad} beyond "
+             f"({GZ_MAX}, {GZ_FRO}) or non-finite")
+
+    # an unstructured cell set: the dispatcher's other side
+    jit = jittered(cells)
+    jplan = prism_gz.gz_plan(jit)[0]
+    sync(torch)
+    tlf.reset_launch_counts()
+    Aj = prism.prism_kernel_matrix("gz", xo, yo, zo, jit, backend="pallas",
+                                   device=dev)
+    sync(torch)
+    counts = tlf.launch_counts()
+    Aj = torch.as_tensor(Aj, device=dev)
+    Aj_plain = tlf.KERNELS["gz"].plain(
+        obs, torch.as_tensor(jit, dtype=torch.float32, device=dev), scale)
+    rows = slice(None, None, 10)
+    Aj64 = torch.as_tensor(prism.prism_kernel_matrix(
+        "gz", xo[rows], yo[rows], zo[rows], jit), device=dev)
+    errs_j = {"kernel_vs_plain": rel_fro(Aj, Aj_plain),
+              "kernel_vs_f64": rel_fro(Aj[rows], Aj64),
+              "plain_vs_f64": rel_fro(Aj_plain[rows], Aj64)}
+    launches = {n: counts[n] for n in args}
+    line("gz_unstructured", shape=list(Aj.shape), plan=jplan,
+         n_nodes=prism_gz.node_tables(jit).n_nodes, launches=launches,
+         errors=errs_j, f64_rows=int(Aj64.shape[0]),
+         finite=bool(torch.isfinite(Aj).all()))
+    bad = [k for k, (e_max, e_fro) in errs_j.items()
+           if e_max > GZ_MAX or e_fro > GZ_FRO]
+    if (bad or jplan != "gz" or launches != {"gz": 1, "gz_nodes": 0}
+            or not torch.isfinite(Aj).all()):
+        fail(f"gz_unstructured: plan {jplan}, launches {launches}, {bad} "
+             f"beyond ({GZ_MAX}, {GZ_FRO})")
+    return result, counts
 
 
 def phase_slice2(torch, tlf, dev, smi, problem=None, matvec=None):
@@ -1038,7 +1151,7 @@ def phase_slice2(torch, tlf, dev, smi, problem=None, matvec=None):
     res, carry = ratiogrid.run_chunks(run_chunk, carry, 0, 4, dev)
     sync(torch)
     counts = tlf.launch_counts()
-    path = (("gz",) if problem is None else ()) + tlf.path_kernels(
+    path = (("gz_nodes",) if problem is None else ()) + tlf.path_kernels(
         tlf.STEP_KERNELS, matvec) + ("refresh", "accept")
     line(name, problem=[int(dobs.size), module.n_active],
          nchains=cfg["nchains"], chunk=cfg["chunk"], **res, **seconds,
@@ -1282,7 +1395,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from gravinv3dhmc_tpu_torch import ratiogrid, uniformgrid
+    from gravinv3dhmc_tpu_torch import ratiogrid, sass, uniformgrid
     from gravinv3dhmc_tpu_torch.ops import _cuda, philox
     from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
 
@@ -1299,16 +1412,24 @@ def main():
     ptxas = {name: [ln.strip() for ln in lib.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, lib in libs.items()}
-    counts = sass_counts(libs["leapfrog"], "HGMMA")
-    hgmma = {k: sum(n for fn, n in counts.items() if k in fn)
+    _, fns = sass.functions(libs["leapfrog"])
+    hgmma = {k: sum(op == "HGMMA" for _, _, op, _, _ in sass.find(fns, k)[0])
              for k in tc_kernels}
+    UNITS.update(sass.unit_counts(libs["leapfrog"], libs["prism_gz"]))
     line("build", seconds=time.perf_counter() - t0,
          nvcc_seconds={n: lib.build_seconds for n, lib in libs.items()},
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         ptxas=ptxas, leapfrog_hgmma=sum(counts.values()), hgmma=hgmma)
+         ptxas=ptxas, hgmma=hgmma, sass_units=UNITS)
     if not all(hgmma.values()):
         fail(f"build: a tensor-core kernel without HGMMA in its SASS: "
              f"{hgmma}")
+    # each unit's pipes: Philox's integer work, Box-Muller's and the
+    # corner term's logs, square roots and divisions on MUFU (the uniform's
+    # Philox may run on the uniform datapath: its chain is the block's)
+    need = {"normal4": ("fma", "imad", "alu", "mufu_conv"),
+            "node": ("fma", "alu", "mufu_conv")}
+    if not all(UNITS[u].get(k, 0) > 0 for u, ks in need.items() for k in ks):
+        fail(f"build: a unit of work without its instructions: {UNITS}")
 
     phase_philox(torch, tlf, philox, dev)
 
@@ -1333,7 +1454,8 @@ def main():
                                     smi)
     del module, op, f32_ops
 
-    kres["gz"] = phase_gz(torch, dev, smi)
+    gres, counts_gz = phase_gz(torch, tlf, dev, smi)
+    kres.update(gres)
     with plain:
         module2, dobs2, counts2 = phase_slice2(torch, tlf, dev, smi)
         counts2_f32 = phase_slice2(torch, tlf, dev, smi,
@@ -1359,9 +1481,10 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
-    # the shared-L card run, the realdata-width trajectory and both
-    # ratiogrid slices
-    runs = (counts, counts_f32, counts3, counts_rd, counts2, counts2_f32)
+    # the shared-L card run, the realdata-width trajectory, the unstructured
+    # gz build and both ratiogrid slices
+    runs = (counts, counts_f32, counts3, counts_rd, counts_gz, counts2,
+            counts2_f32)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

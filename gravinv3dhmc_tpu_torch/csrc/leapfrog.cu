@@ -126,6 +126,10 @@ constexpr int A_F32_SPLIT = 2;
 constexpr int ACCEPT_THREADS = 256;
 constexpr int ACCEPT_CHAINS = 1;
 constexpr int ACCEPT_UNROLL = 4;
+// the draws kernel: threads a block, float4 groups a thread (gz_tune.py
+// sweeps them)
+constexpr int DRAWS_THREADS = 256;
+constexpr int DRAWS_UNROLL = 4;
 
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
 constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
@@ -161,13 +165,15 @@ __device__ __forceinline__ float u24(uint32_t w) {
   return static_cast<float>(w >> 8) * (1.0f / 16777216.0f);
 }
 
-// Box-Muller over one word pair: (R cos, R sin)
+// Box-Muller over one word pair: (R cos, R sin), both from one sincosf
+// (one argument reduction; the values of cosf and sinf)
 __device__ __forceinline__ float2 box_muller(uint32_t w1, uint32_t w2) {
   const float u1 = u24(w1) + (0.5f / 16777216.0f);
   const float u2 = u24(w2);
   const float rad = sqrtf(-2.0f * logf(u1));
-  const float th = TWO_PI * u2;
-  return make_float2(rad * cosf(th), rad * sinf(th));
+  float s, c;
+  sincosf(TWO_PI * u2, &s, &c);
+  return make_float2(rad * c, rad * s);
 }
 
 // momentum normals 4j .. 4j + 3 of chain c: Box-Muller over the word
@@ -1141,21 +1147,33 @@ accept_kernel(float* __restrict__ x, float* __restrict__ g,
 // One iteration's draws for the sampler that takes them as inputs (the
 // eager shared-L path; the fused paths draw inside refresh and accept):
 // n01 (C, width) the momentum normals and u (C,) the accept uniforms, the
-// same values refresh and accept draw. Bound by writing n01 (70 MB at
-// ratiogrid's 1024 x 17,152) and the ~25 integer operations a normal of
-// Philox.
-__global__ void draws_kernel(float* __restrict__ n01, float* __restrict__ u,
-                             int C, int width, uint32_t k0, uint32_t k1,
-                             uint32_t iteration) {
-  const int groups = width / 4;
-  const size_t total = (size_t)C * groups;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i / groups), j = (int)(i % groups);
-    *reinterpret_cast<float4*>(n01 + (size_t)c * width + 4 * j) =
-        momentum4(j, c, iteration, k0, k1);
-    if (j == 0) u[c] = accept_uniform(c, iteration, k0, k1);
+// same values refresh and accept draw. What bounds it: the issued
+// instructions of Philox and Box-Muller (integer multiplies, adds and
+// xors at half the FP32 lanes' rate, logf, sincosf and sqrtf partly on
+// the 16-lane MUFU pipe; gravinv3dhmc_tpu_torch/sass.py counts them) or
+// writing n01 (70 MB at ratiogrid's 1024 x 17,152), whichever is larger.
+// A 2-D grid, chain by column tile, so a thread finds its chain and
+// element group without a division; DRAWS_UNROLL independent float4
+// groups a thread in flight, stored with streaming stores (the draws are
+// read once, by the sampler).
+__global__ void __launch_bounds__(DRAWS_THREADS)
+draws_kernel(float* __restrict__ n01, float* __restrict__ u, int groups,
+             uint32_t k0, uint32_t k1, uint32_t iteration) {
+  const int c = blockIdx.y;
+  const int j0 = blockIdx.x * (DRAWS_THREADS * DRAWS_UNROLL) + threadIdx.x;
+  float4* row = reinterpret_cast<float4*>(n01) + (size_t)c * groups;
+  float4 v[DRAWS_UNROLL];
+#pragma unroll
+  for (int q = 0; q < DRAWS_UNROLL; ++q) {
+    const int j = j0 + q * DRAWS_THREADS;
+    if (j < groups) v[q] = momentum4(j, c, iteration, k0, k1);
   }
+#pragma unroll
+  for (int q = 0; q < DRAWS_UNROLL; ++q) {
+    const int j = j0 + q * DRAWS_THREADS;
+    if (j < groups) __stcs(row + j, v[q]);
+  }
+  if (j0 == 0) u[c] = accept_uniform(c, iteration, k0, k1);
 }
 
 // raw Philox words of the momentum stream (for checking the plain version)
@@ -1171,6 +1189,30 @@ __global__ void philox_bits_kernel(uint32_t* __restrict__ out, int C,
                                   STREAM_MOMENTUM, k0, k1);
     *reinterpret_cast<uint4*>(out + (size_t)c * width + 4 * j) = w;
   }
+}
+
+// momentum4 of counters jn[0] .. jn[1] - 1 of chain c into out[j], one
+// counter a pass of a loop kept rolled: gravinv3dhmc_tpu_torch/sass.py
+// counts the instructions of one pass in this library's SASS to bound
+// draws and refresh. The Philox key schedule, the same for every
+// counter, stays out of the pass; c, the key and the iteration are the
+// block's, as in draws and refresh.
+__global__ void momentum4_loop_kernel(float4* __restrict__ out,
+                                      const int* __restrict__ jn, int c,
+                                      uint32_t k0, uint32_t k1,
+                                      uint32_t iteration) {
+  const int end = jn[1];
+#pragma unroll 1
+  for (int j = jn[0]; j < end; ++j)
+    out[j] = momentum4(j, c, iteration, k0, k1);
+}
+
+// chain c's accept uniform, alone (sass.py counts it as it runs in draws:
+// one a chain, c the block's)
+__global__ void accept_uniform_once_kernel(float* __restrict__ out, int c,
+                                           uint32_t k0, uint32_t k1,
+                                           uint32_t iteration) {
+  *out = accept_uniform(c, iteration, k0, k1);
 }
 
 int grid_for(size_t n, int threads) {
@@ -1454,10 +1496,12 @@ int lf_accept(float* x, float* g, float* U, float* ud, float* um,
 
 int lf_draws(float* n01, float* u, int C, int width, uint32_t k0,
              uint32_t k1, uint32_t iteration, cudaStream_t stream) {
-  if (width % 4) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)C * (width / 4);
-  draws_kernel<<<grid_for(n, 256), 256, 0, stream>>>(n01, u, C, width, k0, k1,
-                                                      iteration);
+  if (width % 4 || C > 65535) return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  const int groups = width / 4, tile = DRAWS_THREADS * DRAWS_UNROLL;
+  const dim3 grid(groups ? (groups + tile - 1) / tile : 1, C);
+  draws_kernel<<<grid, DRAWS_THREADS, 0, stream>>>(n01, u, groups, k0, k1,
+                                                   iteration);
   return (int)cudaGetLastError();
 }
 
@@ -1466,6 +1510,17 @@ int lf_philox_bits(uint32_t* out, int C, int width, uint32_t k0, uint32_t k1,
   const size_t n = (size_t)C * (width / 4);
   philox_bits_kernel<<<grid_for(n, 256), 256, 0, stream>>>(out, C, width, k0,
                                                             k1, iteration);
+  return (int)cudaGetLastError();
+}
+
+// n (4 jn[1],): momentum normals 4 jn[0] .. 4 jn[1] - 1 of chain c in
+// their places; u (1,): chain c's accept uniform; each from a one-thread
+// kernel that runs only that (the code sass.py counts)
+int lf_draw_units(float* n, float* u, const int* jn, int c, uint32_t k0,
+                  uint32_t k1, uint32_t iteration, cudaStream_t stream) {
+  momentum4_loop_kernel<<<1, 1, 0, stream>>>(reinterpret_cast<float4*>(n),
+                                             jn, c, k0, k1, iteration);
+  accept_uniform_once_kernel<<<1, 1, 0, stream>>>(u, c, k0, k1, iteration);
   return (int)cudaGetLastError();
 }
 

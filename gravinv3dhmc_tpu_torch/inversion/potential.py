@@ -80,7 +80,11 @@ class GravMagModule:
     ``gz`` kernel on a GPU, see :func:`~..ops.prism.prism_kernel_matrix`);
     the weighting then runs in numpy on the f32 matrix, as in the JAX
     package, so ``wdiag`` and ``Aw`` are f32 too. ``kernel_build_s`` is
-    the builder's wall time, the copy to the host included.
+    the builder's wall time, the copy to the host included;
+    ``build_seconds`` splits the build: the device builder's
+    ``gz_kernel_s`` (on a GPU) and ``to_host_s`` (see
+    :func:`~..ops.prism.prism_kernel_matrix`), and ``weighting_s``, the
+    wall time of :func:`sensitivity_weighting`.
     """
 
     def __init__(self, dobs, mrange, mspacing, obsurface, fixed=False,
@@ -118,13 +122,17 @@ class GravMagModule:
         self.mshape = mesh.shape
         start = time.time()
         mesh.addprop("density", np.zeros(mesh.size))
+        self.build_seconds = {}
         kernel = prism.prism_kernel_matrix(
             "gz", self.lonobs, self.latobs, self.heightobs, mesh,
-            backend=kernel_backend, device=self.device)
+            backend=kernel_backend, device=self.device,
+            timings=self.build_seconds)
         self.kernel_build_s = time.time() - start
         if verbose:
             print("End of calculate kernel:%.6f s" % (time.time() - start))
+        t0 = time.perf_counter()
         Aw, wdiag, wdiag_inv = sensitivity_weighting(kernel, weightfactor)
+        self.build_seconds["weighting_s"] = time.perf_counter() - t0
         self.A = kernel
         self.Aw = Aw
         self.wdiag = wdiag

@@ -44,31 +44,35 @@ def variant_source(text, values):
     return text
 
 
-def _add_source(name, path):
-    """Register ``path``, a ``leapfrog.cu`` with the same C entries, as
-    library ``name``."""
-    _cuda.SOURCES[name] = ("lf", Path(path))
-    _cuda._SIGNATURES[name] = _cuda._SIGNATURES["leapfrog"]
+def _add_source(name, path, kind="leapfrog", entries=None):
+    """Register ``path``, a source with the C entries of library ``kind``
+    (only ``entries`` of them, when given), as library ``name``."""
+    _cuda.SOURCES[name] = (_cuda.SOURCES[kind][0], Path(path))
+    sig = _cuda._SIGNATURES[kind]
+    _cuda._SIGNATURES[name] = ({e: sig[e] for e in entries} if entries
+                               else sig)
 
 
-def build_variants(variants):
-    """Build one library of ``leapfrog.cu`` per variant (library name ->
-    the constants it sets), one nvcc each, started together."""
-    base = _cuda.SOURCES["leapfrog"][1].read_text()
+def build_variants(variants, kind="leapfrog"):
+    """Build one library of library ``kind``'s source (``leapfrog.cu`` by
+    default) per variant (library name -> the constants it sets), one
+    nvcc each, started together."""
+    base = _cuda.SOURCES[kind][1].read_text()
     vdir = _cuda.BUILD_DIR / "variants"
     vdir.mkdir(parents=True, exist_ok=True)
     for name, values in variants.items():
         path = vdir / f"{name}.cu"
         path.write_text(variant_source(base, values))
-        _add_source(name, path)
+        _add_source(name, path, kind)
     _cuda.build_all(list(variants))
 
 
-def build_baseline(path):
-    """Build another ``leapfrog.cu`` (such as an earlier commit's) as
-    library "baseline"; returns it."""
-    _add_source("baseline", path)
-    return _cuda.build_all(["baseline"])["baseline"]
+def build_baseline(path, kind="leapfrog", entries=None, name="baseline"):
+    """Build another source of library ``kind`` (such as an earlier
+    commit's ``leapfrog.cu``; only ``entries`` of its C entries are bound
+    when given) as library ``name``; returns it."""
+    _add_source(name, path, kind, entries)
+    return _cuda.build_all([name])[name]
 
 
 def card():
@@ -79,10 +83,10 @@ def card():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def use_library(name):
-    """Point the registry's wrappers, which launch from the "leapfrog"
-    library, at variant ``name``."""
-    _cuda._LIBRARIES["leapfrog"] = _cuda._LIBRARIES[name]
+def use_library(name, kind="leapfrog"):
+    """Point the registry's wrappers that launch from library ``kind`` at
+    variant ``name``."""
+    _cuda._LIBRARIES[kind] = _cuda._LIBRARIES[name]
 
 
 def operands(C, Dp, Mp, seed=0, device="cuda"):

@@ -65,9 +65,12 @@ _SIGNATURES = {
         "lf_kick_occupancy": [_I, _P],
         "lf_draws": [_P, _P, _I, _I, _U, _U, _U, _P],
         "lf_philox_bits": [_P, _I, _I, _U, _U, _U, _P],
+        "lf_draw_units": [_P, _P, _P, _I, _U, _U, _U, _P],
     },
     "prism_gz": {
         "gz_matrix": [_P, _P, _P, _I, _I, _F, _P],
+        "gz_nodes_matrix": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _P],
     },
 }
 

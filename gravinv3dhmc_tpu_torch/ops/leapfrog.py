@@ -456,6 +456,21 @@ def philox_bits_cuda(salt, iteration, n_chains, width, device):
     return out.to(torch.int64) & philox.MASK32
 
 
+def draw_units_cuda(salt, iteration, j0, j1, c, device):
+    """Momentum normals 4 j0 .. 4 j1 - 1 of chain ``c`` and its accept
+    uniform, from one-thread kernels running only ``momentum4`` (one
+    counter a pass of a loop) and ``accept_uniform``: the code
+    :mod:`..sass` counts to bound ``draws`` and ``refresh``. (4 (j1 -
+    j0),) and (1,) f32 tensors."""
+    n, u = (torch.empty(k, device=device) for k in (4 * j1, 1))
+    jn = torch.tensor([j0, j1], dtype=torch.int32, device=device)
+    _cuda.library().call(
+        "lf_draw_units", _cuda.ptr(n, _F32), _cuda.ptr(u, _F32),
+        _cuda.ptr(jn, torch.int32), c, *_salt_words(salt, iteration),
+        _cuda.stream(n))
+    return n[4 * j0:], u
+
+
 #: the kernels each op launches with a bf16 matrix: the iteration (the
 #: trajectory is its middle four) and the step, which reuses ``drift`` and
 #: ``kick``; a sampler that calls the step opens and closes each iteration

@@ -14,6 +14,8 @@ CUDA device (its plain PyTorch version on the CPU). The JAX package's
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from .. import constants
@@ -90,7 +92,7 @@ def _as_cells(mesh_or_cells, prop="density"):
 
 
 def prism_kernel_matrix(field, xo, yo, zo, mesh_or_cells, backend="numpy",
-                        obs_chunk=None, device=None):
+                        obs_chunk=None, device=None, timings=None):
     """Dense (D, M) gz sensitivity matrix in mGal per g/cm^3.
 
     ``backend="numpy"``: f64 on the host. ``backend="pallas"`` (the JAX
@@ -114,8 +116,13 @@ def prism_kernel_matrix(field, xo, yo, zo, mesh_or_cells, backend="numpy",
         raise ValueError("Input arrays xp, yp, and zp must have same length!")
     if backend == "pallas":
         obs = np.stack([xo, yo, zo], axis=1)
-        return gz_kernel_matrix(obs, cells, _SCALES[field],
-                                resolve(device)).cpu().numpy()
+        out = gz_kernel_matrix(obs, cells, _SCALES[field], resolve(device),
+                               timings)
+        t0 = time.perf_counter()
+        out = out.cpu().numpy()
+        if timings is not None:
+            timings["to_host_s"] = time.perf_counter() - t0
+        return out
     D, M = xo.size, cells.shape[0]
     if obs_chunk is None:
         obs_chunk = max(1, min(D, int(2e6 // max(M, 1)) or 1))

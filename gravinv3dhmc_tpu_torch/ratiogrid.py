@@ -1,9 +1,10 @@
 """The ratiogrid slice: the reference's dyke-complex example on a
 geometric-ratio mesh (``examples/workloads.py`` ``ratiogrid`` and
 ``forward_with_noise``), its matrix built in f32 on the device by the
-``gz`` kernel, sampled through the per-step fused op with the JAX bench's
-per-step settings (``gravinv3dhmc_tpu/bench.py``, its ``per-step``
-stage), and a profile of it.
+``gz_nodes`` kernel (``ops.prism_gz``), sampled through the per-step
+fused op with the JAX bench's per-step settings
+(``gravinv3dhmc_tpu/bench.py``, its ``per-step`` stage), and a profile of
+it.
 
 ``python -m gravinv3dhmc_tpu_torch.ratiogrid`` (on a machine with a GPU)
 builds the 900 x 17,100 problem, samples it with 1024 chains a few times
@@ -52,20 +53,32 @@ def density_model(shape):
     return rho
 
 
+def mesh_and_obs(n=30, spacing=200.0):
+    """``(mesh, (xo, yo, zo))``: a cube of n * spacing metres cut into n x
+    n columns of ratio-1.05 prisms and n x n observation points at z = 0
+    over it; the default is ratiogrid's 19 x 30 x 30 mesh and 900
+    points."""
+    d = float(spacing)
+    bounds = (0, n * d, 0, n * d, 0, n * d)
+    mesh = mesher.PrismMesh(bounds, (d, d, d), RATIO)
+    _, ny, nx = mesh.shape
+    return mesh, utils.regular(bounds[:4], (nx, ny), z=0.0)
+
+
 def build_problem(device=None, kernel_backend="pallas", n=30, spacing=200.0):
-    """``(module, dobs, seconds)``: n x n observations at z = 0 over a cube
-    of n * spacing metres cut into n x n columns of ratio-1.05 prisms; the
+    """``(module, dobs, seconds)``: :func:`mesh_and_obs`'s problem; the
     default is ratiogrid's 900 x 17,100 problem. Data come from the f64
     host builder with 2 % noise (seed 1); the module's own matrix from
     ``kernel_backend`` on ``device`` (``cuda:0`` when None). ``seconds``
     holds the wall times of the f64 host forward (which builds the whole
-    f64 matrix) and of the module's matrix build."""
+    f64 matrix) and of the module's matrix build (``kernel_build_s``),
+    and that build's parts (``GravMagModule.build_seconds``): on a GPU
+    the gz kernel's device time ``gz_kernel_s``, then the copy to the
+    host ``to_host_s`` and the weighting ``weighting_s``."""
     d = float(spacing)
-    bounds = (0, n * d, 0, n * d, 0, n * d)
-    mesh = mesher.PrismMesh(bounds, (d, d, d), RATIO)
+    mesh, (xo, yo, zo) = mesh_and_obs(n, spacing)
+    bounds = mesh.bounds
     mesh.addprop("density", density_model(mesh.shape).ravel())
-    nz, ny, nx = mesh.shape
-    xo, yo, zo = utils.regular(bounds[:4], (nx, ny), z=0.0)
     t0 = time.perf_counter()
     dpre, _ = prism.gz(xo, yo, zo, mesh)
     host_s = time.perf_counter() - t0
@@ -74,7 +87,8 @@ def build_problem(device=None, kernel_backend="pallas", n=30, spacing=200.0):
                            mratio=RATIO, kernel_backend=kernel_backend,
                            verbose=False, device=device)
     return module, dobs, {"host_f64_s": host_s,
-                          "kernel_build_s": module.kernel_build_s}
+                          "kernel_build_s": module.kernel_build_s,
+                          **module.build_seconds}
 
 
 def step_sampler(module, dobs, device, draws=None, matvec=torch.bfloat16,

@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.ops.prism_gz\n"
             "import gravinv3dhmc_tpu_torch.f32_gemm_tune\n"
             "import gravinv3dhmc_tpu_torch.accept_tune\n"
+            "import gravinv3dhmc_tpu_torch.gz_tune\n"
+            "import gravinv3dhmc_tpu_torch.sass\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
             "or m == 'gravinv3dhmc_tpu']\n"
@@ -56,7 +58,8 @@ def test_cpu_tensors_take_the_plain_versions():
     # kernel and its CUDA source
     assert set(tlf.KERNELS) == {"refresh", "drift", "residual", "kick",
                                 "traj_finish", "accept", "step_residual",
-                                "step_misfit", "gz", "draws", "residual_f32",
+                                "step_misfit", "gz", "gz_nodes", "draws",
+                                "residual_f32",
                                 "kick_f32", "step_residual_f32"}
     for k in tlf.KERNELS.values():
         assert callable(k.plain)
