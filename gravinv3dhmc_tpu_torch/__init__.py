@@ -8,12 +8,17 @@ path are CUDA C++ kernels written for Hopper (``csrc/``), built with nvcc
 at first use. The JAX package stays the reference the tests hold this one
 against.
 
-Two slices are ported. uniformgrid (``uniformgrid.py``): prism mesh, f64
-prism gz matrix, sensitivity weighting, the MS/Damping potential under
-the 'mandatory' clamp, and fixed-dt shared-L HMC through the fused
+Three slices are ported. uniformgrid (``uniformgrid.py``): prism mesh,
+f64 prism gz matrix, sensitivity weighting, the MS/Damping potential
+under the 'mandatory' clamp, and fixed-dt shared-L HMC through the fused
 iteration kernels. ratiogrid (``ratiogrid.py``): the geometric-ratio
 mesh, the f32 gz matrix built on the GPU by its own kernel, and the
-chunk sampler's per-step branch through the fused step kernels.
+chunk sampler's per-step branch through the fused step kernels. realdata
+(``realdata.py``): segmented, topography-carved tesseroids with frozen
+cells, the f64 tesseroid matrix from a native host engine, and the
+windowed warmup (dual-averaged dt, a diagonal metric) through the fused
+trajectory kernels on an f32 matrix. ``bench.py`` runs the JAX bench's
+two stages, uniformgrid and realdata, and prints its one JSON line.
 """
 
 __version__ = "0.1.0"

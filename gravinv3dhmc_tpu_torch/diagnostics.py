@@ -3,7 +3,8 @@
 ``effective_sample_size`` is a numpy copy of the JAX package's
 (``gravinv3dhmc_tpu/diagnostics.py``); ``ess_torch`` is its ``ess_jax``
 written on ``torch.fft``, so the ESS of a device-resident sample buffer
-is computed where the buffer lives and only the result moves.
+is computed where the buffer lives and only the result moves. ``median``
+is the median as ``np.median`` and ``jnp.median`` take it.
 """
 from __future__ import annotations
 
@@ -44,6 +45,16 @@ def effective_sample_size(chains):
         tau = 1.0 + 2.0 * s
         ess[j] = c * n / max(tau, 1.0)
     return ess
+
+
+def median(t):
+    """The median of all of ``t``'s values, on its device and in its type,
+    as ``jnp.median`` computes it: the mean of the two middle values when
+    the count is even, ``(lo + hi) * 0.5`` (``torch.median`` would return
+    the lower one)."""
+    s = t.reshape(-1).sort().values
+    n = s.numel()
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
 def ess_torch(chains):

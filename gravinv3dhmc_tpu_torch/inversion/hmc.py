@@ -1,13 +1,15 @@
-"""Fixed-dt Hamiltonian Monte Carlo over a chain batch, in PyTorch.
+"""Hamiltonian Monte Carlo over a chain batch, in PyTorch.
 
-Counterpart of ``gravinv3dhmc_tpu/inversion/hmc.py`` for the uniformgrid
-and ratiogrid slices: :func:`make_chunk_sampler` with the shared-L,
-fused-step, fused-trajectory and fused-iteration paths and the
-'accepted', 'chain' and 'none' storage modes, and :class:`HamiltonianMC`
-whose ``sample()`` runs the fixed-dt loop. The reference semantics
-carried over are listed in the JAX module's docstring (Sigma-scaled
-identity kinetic, 'mandatory' clamp-and-negate, carried (U, g) between
-iterations, Metropolis on the full Hamiltonian).
+Counterpart of ``gravinv3dhmc_tpu/inversion/hmc.py`` for the uniformgrid,
+ratiogrid and realdata slices: :func:`make_chunk_sampler` with the
+shared-L, fused-step, fused-trajectory and fused-iteration paths, the
+'accepted', 'chain' and 'none' storage modes and the Welford moments of
+the warmup metric, and :class:`HamiltonianMC` whose ``sample()`` runs the
+fixed-dt loop or the JAX package's windowed warmup (dual-averaged dt, a
+diagonal metric from Welford moments, then a frozen kernel). The
+reference semantics carried over are listed in the JAX module's
+docstring (Sigma-scaled identity kinetic, 'mandatory' clamp-and-negate,
+carried (U, g) between iterations, Metropolis on the full Hamiltonian).
 
 Randomness. One trajectory length L per iteration, shared by all chains,
 is drawn on the host from a CPU ``torch.Generator`` seeded by (seed,
@@ -26,8 +28,8 @@ draws through it, and on the fused paths they enter as ``refresh``'s and
 Entry points run on ``cuda:0`` unless a device is given (see
 ``_device.py``); ``device="cpu"`` runs the plain versions.
 
-Not ported yet: the per-chain masked-L scan, Welford moments and
-step-size/mass adaptation, checkpoints, SPMD meshes and sample files.
+Not ported yet: the per-chain masked-L scan, checkpoints, SPMD meshes,
+sample files and the ``callback`` of ``sample()``.
 Where the JAX package has a switch for one of them, setting it raises
 ``NotImplementedError``.
 """
@@ -40,9 +42,12 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve
+from ..diagnostics import median
 from ..ops import philox
 from ..ops.leapfrog import (KERNELS, LANE, make_fused_iteration,
                             make_fused_trajectory)
+from .nuts import (dual_averaging_init, dual_averaging_update, shrink,
+                   welford_init, welford_update, welford_variance)
 
 
 def _unported(what, item):
@@ -69,8 +74,13 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     inv_mass=None, store_base=0) -> (carry, stats)``.
 
     ``carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)`` as in the
-    JAX package; the sample buffers are updated in place. ``stats`` is the
-    (chunk_size, C, 5) block [accept, U, u_data, u_model, L]. ``draws``
+    JAX package; the sample buffers are updated in place. A carry that
+    goes on with per-chain running moments ``(w_mean (C, M), w_m2 (C, M),
+    w_count ())`` of the post-accept position gets them updated every
+    iteration on every path (:func:`.nuts.welford_update`, the warmup
+    metric's estimator; :meth:`HamiltonianMC.sample` drops them at the
+    freeze); lane pads never enter them. ``stats``
+    is the (chunk_size, C, 5) block [accept, U, u_data, u_model, L]. ``draws``
     is an optional draw source (see the module docstring). At most one of
     ``fused_step``, ``fused_trajectory`` and ``fused_iteration`` is given;
     each runs with one L shared by all chains, keeps x and g lane-padded
@@ -107,9 +117,9 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         return m_rows, k_rows
 
     def finish(x, U, g, u_data, u_model, accept, L, rel, nacc, buf_m,
-               buf_k):
-        """Sample storage, accept counting and the stats row (x may carry
-        lane pads past the model's width)."""
+               buf_k, wstate):
+        """Sample storage, accept counting, the stats row and the Welford
+        moments (x may carry lane pads past the model's width)."""
         xm = x[:, :buf_m.shape[-1]]
         if store_mode == "accepted":
             # reference parity: each chain writes its own accepted-count
@@ -133,11 +143,18 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         nacc = nacc + accept.to(nacc.dtype)
         stats = torch.stack([accept.to(dtype), U, u_data, u_model,
                              torch.full_like(U, float(L))], dim=-1)
-        return (x, U, g, u_data, u_model, nacc, buf_m, buf_k), stats
+        carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)
+        if wstate is not None:
+            # per-chain running moments of the post-accept position
+            w = welford_update(dict(zip(("mean", "m2", "count"), wstate)),
+                               xm)
+            carry = carry + (w["mean"], w["m2"], w["count"])
+        return carry, stats
 
     def one_iteration(carry, L, n01, u, salt, git, dt, inv_mass, params,
                       rel):
-        x, U, g, u_data, u_model, nacc, buf_m, buf_k = carry
+        x, U, g, u_data, u_model, nacc, buf_m, buf_k = carry[:8]
+        wstate = carry[8:] or None
         seed = (salt, git)
         if fused_iteration is not None or fused_trajectory is not None:
             # refresh, the trajectory kernels and accept; the trajectory
@@ -148,7 +165,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                 inv_mass=inv_mass, n01=n01, u=u,
                 Sigma=None if fused_iteration is not None else sigma)
             return finish(x, U, g, u_data, u_model, accf > 0.5, L, rel,
-                          nacc, buf_m, buf_k)
+                          nacc, buf_m, buf_k, wstate)
         if fused_step is not None:
             # refresh, then L calls of the per-step op on the padded state.
             # The op applies a full kick every step and never returns g:
@@ -175,7 +192,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                 pp, (xs, g_new, U_new, ud_new, um_new), 0.5 * (p_eff + ps),
                 H0, (x, g, U, u_data, u_model), seed, u)
             return finish(xs, U_new, g_new, ud_new, um_new, accf > 0.5, L,
-                          rel, nacc, buf_m, buf_k)
+                          rel, nacc, buf_m, buf_k, wstate)
         C, M = x.shape
         if n01 is None or u is None:
             # the Philox normals at the lane-padded width (the words
@@ -219,7 +236,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                       torch.where(acc_col, g_new, g),
                       torch.where(accept, ud_new, u_data),
                       torch.where(accept, um_new, u_model),
-                      accept, L, rel, nacc, buf_m, buf_k)
+                      accept, L, rel, nacc, buf_m, buf_k, wstate)
 
     def run_chunk(carry, seed, chunk_idx, params=None, dt=dt_default,
                   inv_mass=None, store_base=0):
@@ -260,6 +277,47 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     return run_chunk
 
 
+#: ``store_base`` during warmup: ``rel`` stays below ``ndraws``, so
+#: chain-mode storage skips every iteration (as the JAX package's)
+STORE_OFF = -(2 ** 30)
+
+
+def warmup_schedule(adapt_chunks, adapt_step_size, adapt_mass):
+    """``(W, w1, metric_switches)`` of the JAX package's windowed warmup
+    (``gravinv3dhmc_tpu/inversion/hmc.py``, ``sample``): W warmup chunks;
+    dual averaging of dt under the initial kinetic for chunks [1, w1];
+    then, with ``adapt_mass``, doubling slow Welford windows, each ending
+    at a metric switch (the diagonal metric re-estimated from that window
+    alone, dual averaging re-seeded), and a final window of at least 3
+    chunks re-tuning dt under the last metric; the kernel freezes at W.
+    Without ``adapt_mass`` there is one dual-averaging window of W chunks;
+    with no adaptation, W = 0."""
+    adapting = adapt_step_size or adapt_mass
+    W = int(adapt_chunks) if adapting else 0
+    metric_switches = []
+    if adapt_mass:
+        W = max(W, 8)
+        w1 = max(1, W // 10)
+        # the final window must give dual averaging enough updates to
+        # settle after its last re-init
+        w_f = max(3, W // 5)
+        slow_total = W - w1 - w_f
+        base = max(1, slow_total // 7)  # 1+2+4 doubling fills ~7x
+        lens, acc, cur = [], 0, base
+        while acc + cur < slow_total and len(lens) < 6:
+            lens.append(cur)
+            acc += cur
+            cur *= 2
+        lens.append(slow_total - acc)
+        edge = w1
+        for ln in lens:
+            edge += ln
+            metric_switches.append(edge)
+    else:
+        w1 = W
+    return W, w1, metric_switches
+
+
 class HamiltonianMC:
     """Chain ensemble sampler with the reference's run semantics.
 
@@ -269,6 +327,13 @@ class HamiltonianMC:
     ``use_fused`` runs the fused leapfrog kernels (the whole iteration if
     ``prefer_iteration_kernel``, else the trajectory), which on a CUDA
     device are the CUDA kernels of ``csrc/leapfrog.cu``.
+    ``adapt_step_size`` / ``adapt_mass`` turn on the JAX package's
+    windowed warmup over the first ``adapt_chunks`` chunks
+    (:func:`warmup_schedule`), aiming at accept rate ``adapt_target``.
+    ``fused_per_step_ok`` and ``transfer_samples`` are accepted for the
+    JAX class's interface: this sampler never falls back to the per-step
+    op (the slices choose their op), and its sample buffers and ESS stay
+    on the device whatever ``transfer_samples`` says.
     """
 
     def __init__(self, model):
@@ -291,6 +356,8 @@ class HamiltonianMC:
         #: sample files are not ported; True raises
         self.write_files = False
         self.adapt_step_size = False
+        self.adapt_target = 0.8
+        self.adapt_chunks = 10
         self.adapt_mass = False
         self.shared_L = False
         self.use_fused = False
@@ -298,12 +365,14 @@ class HamiltonianMC:
         #: (None = bfloat16, the JAX default)
         self.fused_matvec_dtype = None
         self.prefer_iteration_kernel = True
+        self.fused_per_step_ok = True
         self._fused_mode = "off"
         self.store_mode = "accepted"
         self.store_thin = 1
         self.temperature = 1.0
         self.jacobian = False
         self.spmd_mesh = None
+        self.transfer_samples = True
         self.low = None
         self.high = None
         self.initial_model = None
@@ -338,14 +407,13 @@ class HamiltonianMC:
     def prepare(self, nsamples, ndraws, draws=None):
         """``(run_chunk, carry)``: the chunk runner that :meth:`sample`
         drives and the carry it starts from (the initial model with its
-        potential and gradient, zeroed counts and sample buffers). Timing
-        or profiling single chunks starts here too."""
-        if self.adapt_step_size or self.adapt_mass:
-            raise _unported("step-size and mass adaptation", "item 3")
+        potential and gradient, zeroed counts and sample buffers, and
+        zeroed Welford moments under ``adapt_mass``). Timing or profiling
+        single chunks starts here too."""
         if self.spmd_mesh is not None:
             raise _unported("SPMD meshes", "item 13")
         if self.write_files:
-            raise _unported("sample files (write_files=True)", "item 3")
+            raise _unported("sample files (write_files=True)", "item 10")
         C = self.nchains
         M = self.initial_model.shape[0]
         dtype = self.dtype
@@ -368,8 +436,8 @@ class HamiltonianMC:
             dtype=dtype,
             shared_L=self.shared_L or self.use_fused,
             fused_trajectory=fused_traj, fused_iteration=fused_iter,
-            store_mode=self.store_mode, store_thin=self.store_thin,
-            draws=draws, device=device)
+            store_mode=self.store_mode,
+            store_thin=self.store_thin, draws=draws, device=device)
 
         x0 = np.broadcast_to(np.asarray(self.initial_model, np.float64),
                              (C, M)).copy()
@@ -379,21 +447,37 @@ class HamiltonianMC:
                  torch.zeros(C, dtype=torch.int32, device=device),
                  torch.zeros((C, nsamples, M), dtype=dtype, device=device),
                  torch.zeros((C, nsamples, 7), dtype=dtype, device=device))
+        if self.adapt_mass:
+            carry = carry + _zero_moments(C, M, dtype, device)
         return run_chunk, carry
 
     def sample(self, nsamples, ndraws, max_chunks=None, checkpoint_path=None,
                draws=None):
         """Run until every chain has stored ``nsamples`` samples after
         ``ndraws`` warm-up ones (counted in accepted states, or in
-        iterations under ``store_mode='chain'``).
+        iterations under ``store_mode='chain'``), after the warmup
+        adaptation when it is on.
 
-        Returns a dict like the JAX package's; ``samples`` and ``misfits``
-        are the sample buffers as tensors on ``device``, and the ESS is
-        computed there (:func:`~gravinv3dhmc_tpu_torch.diagnostics.ess_torch`).
+        The warmup follows the JAX package's ``sample`` step for step
+        (:func:`warmup_schedule`): each chunk's mean accept rate updates
+        the dual-averaged dt (:mod:`.nuts`); under ``adapt_mass`` the
+        Welford moments restart at w1 and at every metric switch, where
+        the inverse mass becomes the chains' pooled variance of that window
+        with Stan's shrinkage, and the first switch re-seeds dt at
+        ``dt * Sigma / median(std)``; at W dt freezes at the averaged
+        iterate and the accept counters and storage restart, so every
+        stored sample comes from the frozen kernel; after the freeze, a
+        chunk accepting less than a quarter of the target while some chain
+        has stored nothing halves dt and restarts them again.
+
+        Returns a dict like the JAX package's; ``samples``, ``misfits`` and
+        ``inv_mass`` are tensors on ``device``, and the ESS is computed
+        there (:func:`~gravinv3dhmc_tpu_torch.diagnostics.ess_torch`, its
+        median as ``np.median`` takes it). ``step_size`` is the frozen dt.
         ``draws`` is an optional draw source (see the module docstring).
         """
         if checkpoint_path is not None:
-            raise _unported("checkpoints", "item 14")
+            raise _unported("checkpoints", "item 10")
         run_chunk, carry = self.prepare(nsamples, ndraws, draws=draws)
         C = self.nchains
         M = self.initial_model.shape[0]
@@ -404,32 +488,45 @@ class HamiltonianMC:
         data_size = self.dobs.shape[0]
         alpha = self.RegulFactor
         seed = self.seed + self.myrank
+        adapting = self.adapt_step_size or self.adapt_mass
+        W, w1, metric_switches = warmup_schedule(
+            self.adapt_chunks, self.adapt_step_size, self.adapt_mass)
         if max_chunks is None:
-            max_chunks = max(200, 100 * total // self.chunk_size + 10)
+            max_chunks = max(200, 100 * total // self.chunk_size + 10) + W
 
         t0 = time.time()
         n_chunks = attempted = grad_evals = store_iters = 0
         acc_min = acc_sum = 0
+        dt_cur = float(self.dt)
+        inv_mass = None
+        da = None
+        frozen = not adapting
+        if adapting:
+            da = dual_averaging_init(dt_cur, target=self.adapt_target)
 
         def storage_done():
             return (store_iters >= chain_span) if chain_mode \
                 else (acc_min >= total)
 
-        while not storage_done():
+        while not (storage_done() and frozen):
             if n_chunks >= max_chunks:
                 print(f"WARNING: stopping after {n_chunks} chunks with "
                       f"min accepted count {acc_min}")
                 break
-            carry, stats = run_chunk(carry, seed, n_chunks,
-                                     store_base=store_iters)
+            counted = frozen  # this chunk runs with storage active
+            carry, stats = run_chunk(
+                carry, seed, n_chunks, dt=dt_cur, inv_mass=inv_mass,
+                store_base=store_iters if frozen else STORE_OFF)
+            # one host read a chunk: a stacked reduction
             reduced = torch.stack([
                 torch.isfinite(stats).all().to(torch.float64),
                 stats[..., 4].sum(dtype=torch.float64),
+                stats[..., 0].sum(dtype=torch.float64),
                 carry[5].min().to(torch.float64),
                 carry[5].sum(dtype=torch.float64),
                 stats[-1, 0, 2].to(torch.float64),
                 stats[-1, 0, 3].to(torch.float64)]).tolist()
-            finite, ge, amin, asum, ud_l, um_l = reduced
+            finite, ge, acc_chunk, amin, asum, ud_l, um_l = reduced
             if not finite:
                 bad = torch.nonzero(
                     ~torch.isfinite(stats[..., 1]).all(dim=0)).flatten()
@@ -437,11 +534,15 @@ class HamiltonianMC:
                     f"non-finite potential in chains {bad.tolist()} at "
                     f"chunk {n_chunks} (dt={self.dt}, Sigma={self.Sigma}); "
                     "reduce the step size or check the kernel matrix.")
+            # the chunk's mean accept as the JAX package's f32 mean
+            acc_rate = float(np.float32(acc_chunk)
+                             / np.float32(stats.shape[0] * stats.shape[1]))
             acc_min, acc_sum = int(amin), int(asum)
             n_chunks += 1
             attempted += self.chunk_size * C
             grad_evals += int(ge)
-            store_iters += self.chunk_size
+            if counted:
+                store_iters += self.chunk_size
             if self.verbose:
                 frac = (min(store_iters / chain_span, 1.0) if chain_mode
                         else min(acc_min / total, 1.0))
@@ -452,6 +553,67 @@ class HamiltonianMC:
                               ud_l / data_size, alpha, um_l / M,
                               acc_sum / attempted),
                       flush=True)
+            if not frozen:
+                da = dual_averaging_update(da, acc_rate)
+                dt_cur = float(np.exp(da["log_eps"]))
+                if self.adapt_mass and n_chunks == w1:
+                    # open the first Welford window: discard the initial
+                    # transient's moments
+                    carry = carry[:8] + _zero_moments(C, M, self.dtype,
+                                                      device)
+                if self.adapt_mass and n_chunks in metric_switches:
+                    # inverse mass = pooled per-chain variance of THIS
+                    # window with Stan's shrinkage toward unity
+                    cnt = carry[10]
+                    pooled = dict(m2=carry[9].sum(0) / C, count=cnt)
+                    var = shrink(welford_variance(pooled, regularize=False),
+                                 cnt * C)
+                    new_inv_mass = torch.clamp(var, min=1e-12)
+                    med_std = float(median(torch.sqrt(new_inv_mass)))
+                    if inv_mass is None:
+                        # first switch: the kinetic changes from the
+                        # Sigma-scaled identity to the diagonal metric;
+                        # re-seed dt at a matched position-step scale
+                        # (dx ~ dt*Sigma before, dt*std after)
+                        dt_cur = float(np.clip(
+                            dt_cur * float(self.Sigma)
+                            / max(med_std, 1e-30), 1e-10, 1e6))
+                    inv_mass = new_inv_mass
+                    da = dual_averaging_init(dt_cur,
+                                             target=self.adapt_target)
+                    # fresh Welford window for the next (longer) estimate
+                    carry = carry[:8] + _zero_moments(C, M, self.dtype,
+                                                      device)
+                    if self.verbose:
+                        print(f"adapted diagonal mass at chunk {n_chunks} "
+                              f"(median std {med_std:.4g}); re-tuning dt "
+                              f"from {dt_cur:.5g}", flush=True)
+                if n_chunks == W:
+                    dt_cur = float(np.exp(da["log_eps_avg"]))
+                    frozen = True
+                    # every stored sample comes from the frozen kernel:
+                    # restart the accept and throughput counters; nothing
+                    # reads the Welford moments any more
+                    carry = _restart_counts(carry)[:8]
+                    acc_min, acc_sum, attempted = 0, 0, 0
+                    store_iters = 0
+                    if self.verbose:
+                        print(f"warmup done at chunk {n_chunks}: frozen "
+                              f"dt={dt_cur:.5g}; sample storage reset",
+                              flush=True)
+            elif (adapting and acc_min == 0
+                    and acc_rate < 0.25 * self.adapt_target):
+                # emergency brake: the frozen dt rejects (almost)
+                # everything and some chain has stored nothing yet --
+                # halve dt and restart the counters so storage stays
+                # consistent with one kernel
+                dt_cur *= 0.5
+                carry = _restart_counts(carry)
+                attempted, acc_sum = 0, 0
+                store_iters = 0
+                if self.verbose:
+                    print(f"post-freeze accept {acc_rate:.2%} -- halving "
+                          f"dt to {dt_cur:.5g}", flush=True)
         elapsed = time.time() - t0
 
         accepted = carry[5].cpu().numpy().astype(np.int64)
@@ -471,7 +633,7 @@ class HamiltonianMC:
                                                   replace=False)
             ess = ess_torch(carry[6][:, :n_common,
                                      torch.as_tensor(sub, device=device)])
-            ess_median = float(torch.median(ess))
+            ess_median = float(median(ess))
             ess_per_s = ess_median / max(elapsed, 1e-9)
         return {
             "samples": carry[6],
@@ -484,10 +646,20 @@ class HamiltonianMC:
             "elapsed_s": elapsed,
             "grad_evals": grad_evals,
             "grad_evals_per_s": grad_evals / max(elapsed, 1e-9),
-            "step_size": float(self.dt),
-            "adapted_mass": False,
-            "inv_mass": None,
+            "step_size": dt_cur,
+            "adapted_mass": inv_mass is not None,
+            "inv_mass": inv_mass,
             "ess_median": ess_median,
             "ess_per_s_median": ess_per_s,
             "fused_mode": self._fused_mode,
         }
+
+
+def _zero_moments(C, M, dtype, device):
+    """A fresh Welford window: ``(w_mean, w_m2, w_count)`` at zero."""
+    return tuple(welford_init((C, M), dtype, device).values())
+
+
+def _restart_counts(carry):
+    """``carry`` with its per-chain accept counts set to 0."""
+    return carry[:5] + (torch.zeros_like(carry[5]),) + carry[6:]

@@ -1,10 +1,12 @@
-"""Misfit/gradient provider for cartesian gravity, in PyTorch.
+"""Misfit/gradient provider for gravity, in PyTorch.
 
 Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py`` for the
-uniformgrid and ratiogrid slices: ``sensitivity_weighting``,
-:class:`GravMagModule` for ``coordinate="cartesian", field="gravity"``
-on uniform or ratio prism meshes (with the frozen-cell ``grav_fix``
-correction, and the f64 host or f32 device matrix builder) and
+uniformgrid, ratiogrid and realdata slices: ``sensitivity_weighting``,
+:class:`GravMagModule` for ``field="gravity"`` on cartesian prism meshes
+(uniform, ratio or per-segment depth spacing; the f64 host or f32 device
+matrix builder) and spherical tesseroid meshes (uniform or per-segment;
+the f64 host tesseroid builder, :mod:`..ops.tesseroid`), with topography
+carving and the frozen-cell ``grav_fix`` correction, and
 ``make_potential`` for the 'mandatory' constraint with the MS or Damping
 regularizer at temperature 1.
 
@@ -28,7 +30,7 @@ from torch import nn
 
 from .. import mesher
 from .._device import resolve
-from ..ops import prism
+from ..ops import prism, tesseroid
 
 
 def sensitivity_weighting(A, weightfactor=0.5):
@@ -69,20 +71,31 @@ def _unported(what, item):
 
 
 class GravMagModule:
-    """Builds the prism gz kernel and its weighting; provides the potential.
+    """Builds the gravity kernel and its weighting; provides the potential.
 
-    The constructor keeps the JAX package's signature. Only cartesian
-    gravity on a :class:`~gravinv3dhmc_tpu_torch.mesher.PrismMesh` is
-    ported; the other arguments must keep their defaults. ``device`` (by
-    default ``cuda:0``, see :mod:`~gravinv3dhmc_tpu_torch._device`) is
-    where :meth:`make_potential` puts its tensors and, with
+    The constructor keeps the JAX package's signature. Gravity is ported
+    on both coordinates: cartesian prisms (:class:`~..mesher.PrismMesh`,
+    or :class:`~..mesher.PrismMeshSegment` with ``mseg``) and spherical
+    tesseroids (:class:`~..mesher.TesseroidMesh`, or
+    :class:`~..mesher.TesseroidMeshSegment` with ``mseg`` and
+    ``mdivisionsection``). Any extra keyword argument is the topography
+    triple ``mtopo = (x, y, height)``, as in the JAX package: the mesh is
+    carved under it, ``mask`` lists the carved cells and ``topocarve`` is
+    set. ``fixed`` with ``grav_fix`` adds the frozen cells' data. The
+    other arguments must keep their defaults.
+
+    ``device`` (by default ``cuda:0``, see
+    :mod:`~gravinv3dhmc_tpu_torch._device`) is where
+    :meth:`make_potential` puts its tensors and, for prisms with
     ``kernel_backend="pallas"``, where the f32 matrix is built (the CUDA
-    ``gz`` kernel on a GPU, see :func:`~..ops.prism.prism_kernel_matrix`);
-    the weighting then runs in numpy on the f32 matrix, as in the JAX
-    package, so ``wdiag`` and ``Aw`` are f32 too. ``kernel_build_s`` is
-    the builder's wall time, the copy to the host included;
-    ``build_seconds`` splits the build: the device builder's
-    ``gz_kernel_s`` (on a GPU) and ``to_host_s`` (see
+    gz kernels, see :func:`~..ops.prism.prism_kernel_matrix`); the
+    weighting then runs in numpy on the f32 matrix, as in the JAX package,
+    so ``wdiag`` and ``Aw`` are f32 too. A tesseroid matrix is built in
+    f64 on the host by the native engine (numpy with a warning when it
+    cannot be built), as in the JAX package; ``tess_backend`` says which
+    ran. ``kernel_build_s`` is the builder's wall time, the copy to the
+    host included; ``build_seconds`` splits the build: the device
+    builder's ``gz_kernel_s`` (on a GPU) and ``to_host_s`` (see
     :func:`~..ops.prism.prism_kernel_matrix`), and ``weighting_s``, the
     wall time of :func:`sensitivity_weighting`.
     """
@@ -94,13 +107,19 @@ class GravMagModule:
                  wavelet=False, kernel_backend="numpy", dtype=torch.float32,
                  kernel_cache=None, kernel_device=False, verbose=True,
                  device=None, **kwargs):
-        if coordinate != "cartesian" or field != "gravity":
-            raise _unported(f"{coordinate} {field}", "items 7 and 11")
-        if mseg or wavelet or wavelet_mode or kernel_device or kwargs:
-            raise _unported("segment meshes, wavelets, device kernels and "
-                            "topography carving", "items 7, 8 and 11")
+        if coordinate not in ("cartesian", "spherical"):
+            raise ValueError(
+                "Please choose coordinate from(cartesian, spherical) and "
+                "field from(gravity, magnetic)!")
+        if field != "gravity":
+            raise _unported(f"{coordinate} {field}", "item 9")
+        if wavelet or wavelet_mode:
+            raise _unported("wavelet compression", "item 8")
+        if kernel_device:
+            raise _unported("the device tesseroid builder (kernel_device)",
+                            "item 12")
         if kernel_cache:
-            raise _unported("the kernel disk cache", "item 14")
+            raise _unported("the kernel disk cache", "item 10")
         self.dobs = np.asarray(dobs, dtype=np.float64)
         self.fixed = fixed
         self.grav_fix = (np.asarray(grav_fix, dtype=np.float64) if fixed
@@ -108,6 +127,8 @@ class GravMagModule:
         self.mrange = mrange
         self.mspacing = mspacing
         self.mratio = mratio
+        self.mseg = mseg
+        self.mdivisionsection = mdivisionsection
         self.weightfactor = weightfactor
         self.coordinate = coordinate
         self.field = field
@@ -116,17 +137,40 @@ class GravMagModule:
         self.lonobs = np.asarray(obsurface[0], dtype=np.float64)
         self.latobs = np.asarray(obsurface[1], dtype=np.float64)
         self.heightobs = np.asarray(obsurface[2], dtype=np.float64)
+        self.topocarve = False
+        self.mask = []
+        mtopo = None
+        for _key, value in kwargs.items():
+            self.topocarve = True
+            mtopo = value
 
-        mesh = mesher.PrismMesh(mrange, mspacing, mratio)
+        if coordinate == "spherical":
+            mesh = (mesher.TesseroidMeshSegment(mrange, mspacing,
+                                                mdivisionsection) if mseg
+                    else mesher.TesseroidMesh(mrange, mspacing, mratio))
+        else:
+            mesh = (mesher.PrismMeshSegment(mrange, mspacing,
+                                            mdivisionsection) if mseg
+                    else mesher.PrismMesh(mrange, mspacing, mratio))
+        if mtopo is not None:
+            self.mask = mesh.carvetopo(mtopo[0], mtopo[1], mtopo[2])
         self.mesh = mesh
         self.mshape = mesh.shape
         start = time.time()
         mesh.addprop("density", np.zeros(mesh.size))
         self.build_seconds = {}
-        kernel = prism.prism_kernel_matrix(
-            "gz", self.lonobs, self.latobs, self.heightobs, mesh,
-            backend=kernel_backend, device=self.device,
-            timings=self.build_seconds)
+        self.tess_backend = None
+        if coordinate == "spherical":
+            info = {}
+            kernel = tesseroid.tesseroid_kernel_matrix(
+                "gz", self.lonobs, self.latobs, self.heightobs, mesh,
+                info=info)
+            self.tess_backend = info["tess_backend"]
+        else:
+            kernel = prism.prism_kernel_matrix(
+                "gz", self.lonobs, self.latobs, self.heightobs, mesh,
+                backend=kernel_backend, device=self.device,
+                timings=self.build_seconds)
         self.kernel_build_s = time.time() - start
         if verbose:
             print("End of calculate kernel:%.6f s" % (time.time() - start))

@@ -1,10 +1,12 @@
 """Struct-of-arrays 3-D structured meshes (numpy, host only).
 
-A copy of ``gravinv3dhmc_tpu/mesher/mesh.py`` reduced to what the
-uniformgrid slice needs: :class:`StructuredMesh3D` and :class:`PrismMesh`.
-The JAX package cannot be imported here (its ``__init__`` imports jax),
-so the numpy code is carried over and ``tests/test_torch_host.py`` holds
-it against the original. Segment and tesseroid meshes are not copied yet.
+A copy of ``gravinv3dhmc_tpu/mesher/mesh.py``: :class:`StructuredMesh3D`,
+:class:`PrismMesh`, :class:`TesseroidMesh` and the per-segment depth
+spacing of :class:`PrismMeshSegment` and :class:`TesseroidMeshSegment`
+(the realdata slice's mesh). The JAX package cannot be imported here (its
+``__init__`` imports jax), so the numpy code is carried over and
+``tests/test_torch_host.py`` holds it against the original.
+:class:`~gravinv3dhmc_tpu.mesher.mesh.PrismRelief` is not copied yet.
 
 Cell ordering matches the reference exactly: x fastest, then y, z slowest
 (reference: mesher/mesh.py:131-138, 240-244).
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.interpolate
 
-from .geometry import Prism
+from .geometry import Prism, Tesseroid
 
 
 def _uniform_axis(a1, a2, d):
@@ -50,6 +52,27 @@ def _ratio_layers(z1, z2, dz, ratio):
     ztop = zbot - dz * ratio ** k
     zbot[-1] = z2
     return nz, ztop, zbot
+
+
+def _segment_layers(divisionsection, dzlist):
+    """Per-segment depth layers (reference: mesher/mesh.py:601-645).
+
+    Each segment i spans divisionsection[i]..divisionsection[i+1] with its
+    own spacing dzlist[i]; cell tops are div[i] + j*dz_i and bottoms are one
+    spacing below (bottoms may overshoot the next breakpoint when the segment
+    does not divide evenly — preserved from the reference's __getitem__,
+    mesher/mesh.py:667-683).
+    """
+    ztop, zbot = [], []
+    for i, dz in enumerate(dzlist):
+        nzi = int(np.ceil((divisionsection[i + 1] - divisionsection[i]) / dz))
+        j = np.arange(nzi, dtype=np.float64)
+        top = divisionsection[i] + dz * j
+        ztop.append(top)
+        zbot.append(top + dz)
+    ztop = np.concatenate(ztop)
+    zbot = np.concatenate(zbot)
+    return len(ztop), ztop, zbot
 
 
 class StructuredMesh3D:
@@ -264,3 +287,57 @@ class PrismMesh(StructuredMesh3D):
         else:
             bounds_big = (x1, x1 + nx * dx, y1, y1 + ny * dy, z1, z2)
         super().__init__(bounds_big, xe, ye, ztop, zbot, props=props)
+
+
+class TesseroidMesh(PrismMesh):
+    """Spherical mesh of tesseroids.
+
+    ``bounds = (w, e, s, n, top, bottom)`` with w/e/s/n in degrees and
+    top/bottom heights in metres (positive up, so ``dr`` in
+    ``spacing = (dr, dlat, dlon)`` is negative);
+    reference: mesher/mesh.py:518-559.
+    """
+
+    celltype = Tesseroid
+    zdown = False
+
+    def __init__(self, bounds, spacing, ratio=1, props=None):
+        super().__init__(bounds, spacing, ratio, props=props)
+        self.dump = None
+
+
+class PrismMeshSegment(StructuredMesh3D):
+    """Cartesian mesh with per-segment depth spacing.
+
+    ``spacing = ([dz1, dz2, ...], dy, dx)`` and ``divisionsection`` gives the
+    segment breakpoints, e.g. ``[0, 300, 900, 2100]``
+    (reference: mesher/mesh.py:561-912).
+    """
+
+    celltype = Prism
+    zdown = True
+    carve_at = "top"
+    carve_interp = "nearest"
+
+    def __init__(self, bounds, spacing, divisionsection, props=None):
+        dzlist, dy, dx = spacing
+        x1, x2, y1, y2, z1, z2 = bounds
+        self.dims = (dx, dy, dzlist)
+        self.segment = len(dzlist)
+        self.divisionsection = list(divisionsection)
+        nx, xe = _uniform_axis(x1, x2, dx)
+        ny, ye = _uniform_axis(y1, y2, dy)
+        nz, ztop, zbot = _segment_layers(divisionsection, dzlist)
+        bounds_big = (x1, x1 + nx * dx, y1, y1 + ny * dy, z1, zbot[-1])
+        super().__init__(bounds_big, xe, ye, ztop, zbot, props=props)
+
+
+class TesseroidMeshSegment(PrismMeshSegment):
+    """Spherical segmented mesh (reference: mesher/mesh.py:914-955)."""
+
+    celltype = Tesseroid
+    zdown = False
+
+    def __init__(self, bounds, spacing, divisionsection, props=None):
+        super().__init__(bounds, spacing, divisionsection, props=props)
+        self.dump = None

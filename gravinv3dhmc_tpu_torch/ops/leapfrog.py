@@ -634,6 +634,7 @@ class _FusedLeapfrog(nn.Module):
         }
         self._padded = self._pad_params(self.params)
         self._pscales = {}
+        self._metric = None
         if self.device.type == "cuda":
             # build (or load) the kernels now: set-up, not sampling time
             _cuda.library()
@@ -665,9 +666,17 @@ class _FusedLeapfrog(nn.Module):
         pp = (self._padded if params is None or params is self.params
               else self._pad_params(params))
         if inv_mass is not None:
+            # one padded (im, pscale) pair per metric: a sampler passes the
+            # same tensor every iteration of a chunk
+            cached = self._metric
+            if cached is not None and cached[0] is inv_mass \
+                    and cached[1] is pp:
+                return cached[2]
             im = torch.as_tensor(inv_mass, dtype=_F32, device=self.device)
-            pp = dict(pp, im=_pad_vec(im, self.Mp, 1.0),
-                      pscale=_pad_vec(1.0 / torch.sqrt(im), self.Mp))
+            out = dict(pp, im=_pad_vec(im, self.Mp, 1.0),
+                       pscale=_pad_vec(1.0 / torch.sqrt(im), self.Mp))
+            self._metric = (inv_mass, pp, out)
+            return out
         elif Sigma is not None:
             s = _f32(Sigma)
             if s not in self._pscales:

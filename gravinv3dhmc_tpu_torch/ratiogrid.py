@@ -135,7 +135,7 @@ def run_chunks(run_chunk, carry, seed, n_chunks, device):
     device sync: grad-evals/s, accept ratio, the median ESS of the last
     chunk's stored samples (128-cell subsample) and whether the state and
     stats stayed finite."""
-    from .diagnostics import ess_torch
+    from .diagnostics import ess_torch, median
 
     device = torch.device(device)
     carry, _ = run_chunk(carry, seed, 0)
@@ -162,7 +162,7 @@ def run_chunks(run_chunk, carry, seed, n_chunks, device):
             "grad_evals": grad_evals, "elapsed_s": elapsed,
             "grad_evals_per_s": grad_evals / max(elapsed, 1e-9),
             "accept_ratio": float(accepts) / max(attempted, 1),
-            "ess_median": float(torch.median(ess)), "finite": finite,
+            "ess_median": float(median(ess)), "finite": finite,
             "samples_shape": list(carry[6].shape)}, carry
 
 

@@ -207,8 +207,9 @@ def test_philox_draws_are_shared_by_all_paths(torch_module, small_module):
 
 
 @pytest.mark.parametrize("attr,value", [
-    ("adapt_step_size", True), ("adapt_mass", True), ("write_files", True),
-    ("spmd_mesh", object()), ("constraint", "logarithmic")])
+    ("temperature", 2.0), ("regularization", "Smoothness"),
+    ("write_files", True), ("spmd_mesh", object()),
+    ("constraint", "logarithmic")])
 def test_unported_options_raise(torch_module, small_module, attr, value):
     _, dobs, _ = small_module
     tc = _configure(thmc.HamiltonianMC(torch_module), torch_module, dobs)

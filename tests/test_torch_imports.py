@@ -29,6 +29,11 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.accept_tune\n"
             "import gravinv3dhmc_tpu_torch.gz_tune\n"
             "import gravinv3dhmc_tpu_torch.sass\n"
+            "import gravinv3dhmc_tpu_torch.realdata\n"
+            "import gravinv3dhmc_tpu_torch.bench\n"
+            "import gravinv3dhmc_tpu_torch.inversion.nuts\n"
+            "import gravinv3dhmc_tpu_torch.ops.tesseroid\n"
+            "import gravinv3dhmc_tpu_torch.runtime.tessglq\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
             "or m == 'gravinv3dhmc_tpu']\n"
