@@ -145,13 +145,28 @@ Phases, one line each (the script stops at the first failure, non-zero):
              inverse mass; and the ``f32_gemm`` checks of phase 6b at 256
              and at a ragged 200 chains, which give the kernels line's
              ``residual_f32`` and ``kick_f32`` numbers.
+12. samplers — ``gravinv3dhmc_tpu_torch.samplers.run()``'s ``chees``,
+             ``nuts`` and ``hmc`` on the 600 x 6000 uniformgrid problem at
+             the tool's defaults (8 chains, 200 draws after 200 warmup;
+             the honest fixed-L HMC with 64 chains), one line each with
+             its seconds, the card and its launches: the samples, the
+             chain state and the adaptation state must be CUDA tensors,
+             the ``hmc`` run (the eager path: the fused kernels do not
+             take its logistic target) must launch ``draws``, and the
+             statistics must land within :data:`SAMPLER_BOUNDS` of the
+             JAX package's on this configuration
+             (``tools/samplers_tpu.json``); the plain Philox must not be
+             called. Then ``draws`` at those runs' shapes (8 and 64 chains
+             x 6016) against its plain version, timed
+             (``samplers_kernel`` lines; its uniforms bit for bit).
 
 Slice 1's launch counts are read around phase 6 (bf16 and f32), the
 shared-L card run's in phase 6's reference, the realdata-width f32
 trajectory's in phase 6b and both on the tesseroid matrix in phase 11,
 the unstructured gz build's in phase 7, slice 2's (bf16 and f32) in
-phase 8, the bench's (both stages) in phase 11: these runs' counts make
-the ``launches`` of the kernels line. ``draws``
+phase 8, the bench's (both stages) in phase 11, the samplers' (``draws``:
+ChEES's and the honest HMC's) in phase 12: these runs' counts make the
+``launches`` of the kernels line. ``draws``
 and ``refresh`` are bounded by the issued
 instructions of their Philox and Box-Muller, counted in phase 1; ``draws``'s
 library time is ``torch.randn`` and ``torch.rand`` of its shapes. Around the
@@ -1516,6 +1531,88 @@ def phase_bench(torch, tlf, dev, smi):
     return res, counts
 
 
+#: the samplers phase's bounds around the JAX package's statistics on
+#: this configuration (``tools/samplers_tpu.json``, TPU: ChEES accept
+#: 0.77, step 3.07e-4, R-hat 1.020; NUTS accept 0.84, mean depth 5.0, no
+#: divergence, R-hat 1.009). The step and depth bounds are wide: the TPU
+#: may have run its f32 products at its reduced default precision, the
+#: card runs them in IEEE f32
+SAMPLER_BOUNDS = {
+    "chees": dict(mean_accept=(0.6, 0.9), step_size=(3.07e-5, 3.07e-3),
+                  rhat_max=(0.0, 1.1), max_steps_saturated=(0.0, 1.0)),
+    "nuts": dict(mean_accept=(0.7, 0.95), mean_depth=(3.0, 7.0),
+                 rhat_max=(0.0, 1.1)),
+}
+#: NUTS may diverge in at most this share of its draws
+NUTS_DIVERGENCE_SHARE = 0.01
+
+
+def phase_samplers(torch, tlf, dev, smi):
+    """``samplers.run()``'s three samplers on the card, each with its
+    launches counted from 0 just before it; returns the counts of the
+    whole phase and the problem's cell count."""
+    from gravinv3dhmc_tpu_torch import samplers, uniformgrid
+
+    problem = uniformgrid.build_problem(device=dev)
+    total = {name: 0 for name in tlf.KERNELS}
+    for name in ("chees", "nuts", "hmc"):
+        sync(torch)
+        tlf.reset_launch_counts()
+        t0 = time.perf_counter()
+        line, tensors = samplers.run((name,), dev, problem)[name]
+        sync(torch)
+        counts = tlf.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        print(json.dumps({"phase": "samplers", "seconds":
+                          time.perf_counter() - t0, "card": smi, **line,
+                          "launches": {k: v for k, v in counts.items()
+                                       if v}}), flush=True)
+        checks = {f"{k} on the card": v.is_cuda for k, v in tensors.items()}
+        checks["finite"] = all(bool(np.isfinite(line[k])) for k in (
+            "ess_min", "ess_median", "rhat_max", "mean_accept", "step_size"))
+        for key, (lo, hi) in SAMPLER_BOUNDS.get(name, {}).items():
+            checks[f"{key} in [{lo}, {hi}]"] = lo <= line[key] <= hi
+        if name == "nuts":
+            checks["divergences"] = (line["divergences"]
+                                     <= NUTS_DIVERGENCE_SHARE
+                                     * line["nchains"] * line["nsamples"])
+        if name == "hmc":
+            checks["draws launched"] = counts["draws"] > 0
+            checks["eager path"] = line["fused_mode"] == "off"
+            checks["adapted"] = bool(line["adapted_mass"])
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"samplers {name}: {bad}")
+    return total, problem[0].n_active
+
+
+def phase_samplers_kernel(torch, tlf, dev, M):
+    """``draws`` at the shapes the samplers give it (ChEES's chains and
+    the honest HMC's, ``M`` cells at the lane-padded width) against its
+    plain version, its uniforms bit for bit; outside the samplers' runs,
+    since the plain version draws with the plain Philox."""
+    from gravinv3dhmc_tpu_torch import samplers
+
+    width = -(-M // tlf.LANE) * tlf.LANE
+    res = {}
+    for C in (samplers.SAMPLERS["nchains"], samplers.HMC["nchains"]):
+        def make(C=C):
+            return (torch.empty((C, width), device=dev),
+                    torch.empty(C, device=dev), (11, 12), 7)
+        res[C] = run_kernel_cases(torch, tlf, {"draws": (
+            make, lambda a: {"n01": a[0], "u": a[1]})}, [C, width],
+            "samplers_kernel")["draws"]
+        n_k, u_k, n_p, u_p = (*make()[:2], *make()[:2])
+        tlf.KERNELS["draws"](n_k, u_k, (11, 12), 7)
+        tlf.KERNELS["draws"].plain(n_p, u_p, (11, 12), 7)
+        sync(torch)
+        if not torch.equal(u_k, u_p):
+            fail(f"samplers_kernel: draws' uniforms at {C} chains differ "
+                 "from the plain version's")
+    return res
+
+
 def main():
     import torch
 
@@ -1614,15 +1711,21 @@ def main():
         torch, tlf, *realdata.build_problem(device=dev), dev, smi)
     for name in ("residual_f32", "kick_f32"):
         kres[name] = rd[name]
+    with plain:
+        counts_samplers, M = phase_samplers(torch, tlf, dev, smi)
+    if plain.calls:
+        fail(f"the samplers called the plain Philox {plain.calls} times")
+    phase_samplers_kernel(torch, tlf, dev, M)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
     # the shared-L card run, the realdata-width trajectories (synthetic,
     # then the stage's matrix without and with a metric), the unstructured
-    # gz build, both ratiogrid slices and the bench's two stages
+    # gz build, both ratiogrid slices, the bench's two stages and the
+    # samplers
     runs = (counts, counts_f32, counts3, counts_rd, *counts_rd_real,
-            counts_gz, counts2, counts2_f32, counts_bench)
+            counts_gz, counts2, counts2_f32, counts_bench, counts_samplers)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

@@ -1,10 +1,16 @@
-"""Posterior diagnostics: autocorrelation ESS on the host and on the device.
+"""Posterior diagnostics: R-hat, ESS, posterior moments and recovery
+metrics, on the host and on the device.
 
 ``effective_sample_size`` is a numpy copy of the JAX package's
 (``gravinv3dhmc_tpu/diagnostics.py``); ``ess_torch`` is its ``ess_jax``
 written on ``torch.fft``, so the ESS of a device-resident sample buffer
 is computed where the buffer lives and only the result moves. ``median``
 is the median as ``np.median`` and ``jnp.median`` take it.
+``split_rhat``, ``posterior_stats``, ``rmsd``, ``rmsm`` and ``summarize``
+are the JAX package's functions of the same names; they take numpy arrays
+or tensors on any device and compute in float64 where the tensor lives.
+``ess_frozen_floor`` and ``ess_degenerate`` flag an ESS that measures the
+ensemble's size rather than mixing (``examples/workloads.py``).
 """
 from __future__ import annotations
 
@@ -79,3 +85,83 @@ def ess_torch(chains):
     tau = torch.clamp(1.0 + 2.0 * (pairs * keep).sum(dim=0), min=1.0)
     return torch.where(var_plus == 0, torch.full_like(tau, float(c * n)),
                        c * n / tau)
+
+
+def _f64(a):
+    """``a`` as a float64 tensor, on its device if it is a tensor."""
+    return torch.as_tensor(a).to(torch.float64)
+
+
+def posterior_stats(chains):
+    """Mean and std (ddof 0) over all chains and draws; chains is (C, N, M).
+    Returns float64 tensors on the chains' device."""
+    c = _f64(chains)
+    flat = c.reshape(-1, c.shape[-1])
+    return flat.mean(0), flat.std(0, correction=0)
+
+
+def rmsd(dobs, dpre):
+    """Root-mean-square data misfit."""
+    return float(torch.sqrt(((_f64(dobs) - _f64(dpre)) ** 2).mean()))
+
+
+def rmsm(model, truth):
+    """Root-mean-square model recovery error."""
+    return float(torch.sqrt(((_f64(model) - _f64(truth)) ** 2).mean()))
+
+
+def split_rhat(chains):
+    """Split potential-scale-reduction R-hat per parameter (float64 tensor).
+
+    ``chains`` is (C, N, M); each chain is split in half, giving 2C
+    sequences; a parameter with no within-sequence variance gets 1."""
+    c = _f64(chains)
+    half = c.shape[1] // 2
+    seqs = torch.cat([c[:, :half], c[:, half:2 * half]])
+    n2 = seqs.shape[1]
+    w = seqs.var(1, correction=1).mean(0)                  # within
+    b = n2 * seqs.mean(1).var(0, correction=1)             # between
+    var_plus = (n2 - 1) / n2 * w + b / n2
+    rhat = torch.sqrt(var_plus / w)
+    return torch.where(w == 0, torch.ones_like(rhat), rhat)
+
+
+def summarize(chains, dobs=None, dpre=None, truth=None, post_mean=None):
+    """One-stop posterior summary dict, the JAX package's keys: R-hat and
+    ESS over all parameters (``ess_torch`` in float64), RMSD and RMSM when
+    their inputs are given."""
+    c = _f64(chains)
+    mean, _ = posterior_stats(c)
+    ess = ess_torch(c)
+    out = {
+        "n_chains": c.shape[0],
+        "n_samples": c.shape[1],
+        "rhat_max": float(split_rhat(c).nan_to_num(nan=-np.inf).max()),
+        "ess_min": float(ess.nan_to_num(nan=np.inf).min()),
+        "ess_mean": float(ess.nanmean()),
+    }
+    if dobs is not None and dpre is not None:
+        out["RMSD"] = rmsd(dobs, dpre)
+    if truth is not None:
+        out["RMSM"] = rmsm(post_mean if post_mean is not None else mean,
+                           truth)
+    return out
+
+
+def ess_frozen_floor(C, n):
+    """The ESS the estimator gives C chains of n draws that never move
+    (each chain constant, the chains apart): ``rho_t = 1 - t (n-1)/n^2``
+    for every such ensemble, so every pair stays positive and the total
+    ESS is ``C n / tau``, about C. An ESS median near it measures the
+    ensemble's size, not mixing (``examples/workloads.py``, which takes it
+    from ``ess_jax`` of a frozen f32 ensemble)."""
+    if n < 4:
+        return float(C * n)
+    t = np.arange(1, 2 * ((n - 1) // 2) + 1, dtype=np.float64)
+    tau = 1.0 + 2.0 * np.sum(1.0 - t * (n - 1) / (n * n))
+    return float(C * n / max(tau, 1.0))
+
+
+def ess_degenerate(ess_median, C, n):
+    """True when ``ess_median`` lies below 1.25 times the frozen floor."""
+    return bool(ess_median < 1.25 * ess_frozen_floor(C, n))

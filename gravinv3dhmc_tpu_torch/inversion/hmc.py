@@ -25,11 +25,20 @@ n01, u)`` replaces all three; the parity tests feed the JAX sampler's own
 draws through it, and on the fused paths they enter as ``refresh``'s and
 ``accept``'s inputs.
 
+Configurations the fused ops do not take (the 'logarithmic' or
+'reflective' constraint, a Jacobian, a temperature other than 1) run, as
+in the JAX package, on the eager path: by default one trajectory length
+per chain (the JAX package's masked-L scan: steps past a chain's L pass
+its state through; the loop stops at the longest L, past which every
+step passes through), drawn on the host with the shared lengths' seeding,
+and shared L when ``shared_L`` asks for it. Under 'logarithmic' x is the
+logistic variable and the stored rows are ``logistic_to_mw(x)``.
+
 Entry points run on ``cuda:0`` unless a device is given (see
 ``_device.py``); ``device="cpu"`` runs the plain versions.
 
-Not ported yet: the per-chain masked-L scan, checkpoints, SPMD meshes,
-sample files and the ``callback`` of ``sample()``.
+Not ported yet: checkpoints, SPMD meshes, sample files and the
+``callback`` of ``sample()``.
 Where the JAX package has a switch for one of them, setting it raises
 ``NotImplementedError``.
 """
@@ -48,6 +57,7 @@ from ..ops.leapfrog import (KERNELS, LANE, make_fused_iteration,
                             make_fused_trajectory)
 from .nuts import (dual_averaging_init, dual_averaging_update, shrink,
                    welford_init, welford_update, welford_variance)
+from .potential import CONSTRAINTS, logistic_to_mw, mw_to_logistic
 
 
 def _unported(what, item):
@@ -55,12 +65,13 @@ def _unported(what, item):
         f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, {item})")
 
 
-def _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax):
+def _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax, C=None):
     """The chunk's trajectory lengths from a CPU generator keyed by
-    (seed, chunk)."""
+    (seed, chunk): one an iteration, or ``C`` (one a chain) with ``C``."""
     k0, k1 = philox.salt_from_seed((int(seed) << 32) + int(chunk_idx))
     gen = torch.Generator().manual_seed(((k1 << 32) | k0) & ((1 << 63) - 1))
-    return torch.randint(Lmin, Lmax + 1, (chunk_size,), generator=gen).tolist()
+    shape = (chunk_size,) if C is None else (chunk_size, C)
+    return torch.randint(Lmin, Lmax + 1, shape, generator=gen).tolist()
 
 
 def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
@@ -69,7 +80,8 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                        shared_L=False, fused_step=None,
                        fused_trajectory=None, fused_iteration=None,
                        store_mode="accepted",
-                       store_thin=1, draws=None, device=None):
+                       store_thin=1, draws=None, device=None,
+                       log_factor=1000.0):
     """Build ``run_chunk(carry, seed, chunk_idx, params=None, dt=...,
     inv_mass=None, store_base=0) -> (carry, stats)``.
 
@@ -85,16 +97,24 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     ``fused_step``, ``fused_trajectory`` and ``fused_iteration`` is given;
     each runs with one L shared by all chains, keeps x and g lane-padded
     for the whole chunk, and opens and closes each iteration with one
-    ``refresh`` and one ``accept`` launch. ``device`` is ``cuda:0`` when
-    None.
+    ``refresh`` and one ``accept`` launch and takes the 'mandatory'
+    constraint only. Without one the eager path runs, with one L shared
+    by all chains under ``shared_L`` and otherwise one a chain (a draw
+    source then gives L as a (C,) array); it takes the 'mandatory' clamp,
+    the 'reflective' folds (four, then a clip) and the 'logarithmic'
+    transform (no bound in x; ``log_factor`` k). ``device`` is ``cuda:0``
+    when None.
     """
     if store_mode not in ("accepted", "chain", "none"):
         raise ValueError(f"unknown store_mode {store_mode!r}")
-    if constraint != "mandatory":
-        raise _unported(f"the {constraint!r} constraint", "item 8")
+    if constraint not in CONSTRAINTS:
+        raise ValueError("Please choose right boundary constraint"
+                         "(mandatory, logarithmic)!")
     fused = (fused_step, fused_trajectory, fused_iteration)
-    if not shared_L and all(f is None for f in fused):
-        raise _unported("the per-chain masked-L scan", "item 8")
+    if constraint != "mandatory" and any(f is not None for f in fused):
+        raise ValueError("the fused kernels support the 'mandatory' "
+                         "boundary constraint only")
+    per_chain = not shared_L and all(f is None for f in fused)
     device = resolve(device)
     dt_default = float(dt)
     sigma = float(np.float32(Sigma))
@@ -106,8 +126,27 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     total = nsamples + ndraws
     pot_raw = potential_fn.fn
 
+    def bound(x, p):
+        """The constraint's treatment of a drifted (x, p)."""
+        if constraint == "mandatory":
+            hit = (x > high_t) | (x < low_t)
+            return (torch.minimum(torch.maximum(x, low_t), high_t),
+                    torch.where(hit, -p, p))
+        if constraint == "reflective":
+            # billiard reflection, a bounded number of folds
+            for _ in range(4):
+                over = x > high_t
+                under = x < low_t
+                x = torch.where(over, 2 * high_t - x, x)
+                x = torch.where(under, 2 * low_t - x, x)
+                p = torch.where(over | under, -p, p)
+            return torch.minimum(torch.maximum(x, low_t), high_t), p
+        return x, p
+
     def make_rows(x, U, u_data, u_model):
         model_size = x.shape[-1]
+        if constraint == "logarithmic":
+            x = logistic_to_mw(x, low_t, high_t, log_factor)
         m_rows = x * wdiag_inv  # unweighted model, reference units
         u_norm_d = u_data / data_size
         u_norm_m = u_model / model_size
@@ -141,8 +180,10 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                 buf_m[:, slot] = m_rows
                 buf_k[:, slot] = k_rows
         nacc = nacc + accept.to(nacc.dtype)
-        stats = torch.stack([accept.to(dtype), U, u_data, u_model,
-                             torch.full_like(U, float(L))], dim=-1)
+        L_col = (L.to(U.device, dtype) if torch.is_tensor(L)
+                 else torch.full_like(U, float(L)))
+        stats = torch.stack([accept.to(dtype), U, u_data, u_model, L_col],
+                            dim=-1)
         carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)
         if wstate is not None:
             # per-chain running moments of the post-accept position
@@ -215,15 +256,33 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         H0 = K0 + U
         xs, ps, U_new, g_new = x, p0 - (0.5 * dt) * g, U, g
         ud_new, um_new = u_data, u_model
-        for _ in range(L):
-            xs = xs + dt * (ps if inv_mass is None else inv_mass * ps)
-            hit = (xs > high_t) | (xs < low_t)
-            xs = torch.minimum(torch.maximum(xs, low_t), high_t)
-            ps = torch.where(hit, -ps, ps)
-            U_new, g_new, (_, ud_new, um_new) = pot_raw(xs, alpha_c, params)
-            ps = ps - dt * g_new
-        # full kicks everywhere; restore the trailing half kick
-        p_new = ps + (0.5 * dt) * g_new
+        if torch.is_tensor(L):
+            # one L a chain: a step past a chain's L passes its state
+            # through; the trailing half kick is on each chain's last step
+            L_dev = L.to(x.device)
+            for i in range(int(L.max())):
+                act = i < L_dev
+                xn, pn = bound(xs + dt * (ps if inv_mass is None
+                                          else inv_mass * ps), ps)
+                Un, gn, (_, udn, umn) = pot_raw(xn, alpha_c, params)
+                kick = torch.where(L_dev - 1 == i, 0.5 * dt, dt)
+                pn = pn - kick[:, None] * gn
+                xs = torch.where(act[:, None], xn, xs)
+                ps = torch.where(act[:, None], pn, ps)
+                g_new = torch.where(act[:, None], gn, g_new)
+                U_new = torch.where(act, Un, U_new)
+                ud_new = torch.where(act, udn, ud_new)
+                um_new = torch.where(act, umn, um_new)
+            p_new = ps
+        else:
+            for _ in range(L):
+                xs, ps = bound(xs + dt * (ps if inv_mass is None
+                                          else inv_mass * ps), ps)
+                U_new, g_new, (_, ud_new, um_new) = pot_raw(xs, alpha_c,
+                                                            params)
+                ps = ps - dt * g_new
+            # full kicks everywhere; restore the trailing half kick
+            p_new = ps + (0.5 * dt) * g_new
         if inv_mass is None:
             K_new = 0.5 * (p_new * p_new).sum(-1)
         else:
@@ -246,7 +305,8 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
             inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=device)
         salt = philox.salt_from_seed(seed)
         Ls = (None if draws is not None else
-              _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax))
+              _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax,
+                             carry[0].shape[0] if per_chain else None))
         M = carry[0].shape[1]
         op = fused_iteration or fused_trajectory or fused_step
         if op is not None:
@@ -266,8 +326,10 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                 n01 = torch.as_tensor(np.array(n01), dtype=dtype,
                                       device=device)
                 u = torch.as_tensor(np.array(u), dtype=dtype, device=device)
+            L = (torch.as_tensor(np.asarray(L), dtype=torch.int64)
+                 if per_chain else int(L))
             carry, st = one_iteration(
-                carry, int(L), n01, u, salt, chunk_idx * chunk_size + i, dt,
+                carry, L, n01, u, salt, chunk_idx * chunk_size + i, dt,
                 inv_mass, params, store_base + i)
             stats.append(st)
         if op is not None:
@@ -326,7 +388,11 @@ class HamiltonianMC:
     :meth:`prepare` raises (``"cpu"`` runs the plain versions).
     ``use_fused`` runs the fused leapfrog kernels (the whole iteration if
     ``prefer_iteration_kernel``, else the trajectory), which on a CUDA
-    device are the CUDA kernels of ``csrc/leapfrog.cu``.
+    device are the CUDA kernels of ``csrc/leapfrog.cu``, for the
+    configurations they take; the others (``constraint`` 'logarithmic' or
+    'reflective', ``jacobian``, a ``temperature`` other than 1) run on the
+    eager path with one L a chain unless ``shared_L``, as in the JAX
+    package.
     ``adapt_step_size`` / ``adapt_mass`` turn on the JAX package's
     windowed warmup over the first ``adapt_chunks`` chunks
     (:func:`warmup_schedule`), aiming at accept rate ``adapt_target``.
@@ -381,12 +447,17 @@ class HamiltonianMC:
 
     def _build_fused(self, device):
         """The fused op this configuration runs on ``device``:
-        ``(trajectory, iteration)`` with one of them set."""
+        ``(trajectory, iteration)`` with one of them set, or neither for a
+        configuration the fused kernels do not take (the JAX package's
+        rule: a constraint other than 'mandatory', a Jacobian, a
+        temperature other than 1, a regularizer other than MS or
+        Damping), which then runs on the eager path (``_fused_mode``
+        "off")."""
         if (self.constraint != "mandatory"
                 or self.regularization not in ("MS", "Damping")
                 or self.jacobian or float(self.temperature) != 1.0):
-            raise ValueError("the fused kernels support the 'mandatory' "
-                             "constraint, MS/Damping and temperature 1")
+            self._fused_mode = "off"
+            return None, None
         mv = self.fused_matvec_dtype or torch.bfloat16
         gfix = (np.asarray(self.model.grav_fix)
                 if getattr(self.model, "fixed", False) else None)
@@ -426,6 +497,7 @@ class HamiltonianMC:
             device=device)
         fused_traj, fused_iter = (self._build_fused(device) if self.use_fused
                                   else (None, None))
+        fused = fused_traj is not None or fused_iter is not None
         run_chunk = make_chunk_sampler(
             potential_fn, dt=self.dt, Lmin=self.Lrange[0],
             Lmax=self.Lrange[1], Sigma=self.Sigma, low=self.low,
@@ -433,14 +505,21 @@ class HamiltonianMC:
             alpha=self.RegulFactor, chunk_size=self.chunk_size,
             nsamples=nsamples, ndraws=ndraws,
             wdiag_inv=self.model.wdiag_inv, data_size=self.dobs.shape[0],
-            dtype=dtype,
-            shared_L=self.shared_L or self.use_fused,
+            dtype=dtype, shared_L=self.shared_L or fused,
             fused_trajectory=fused_traj, fused_iteration=fused_iter,
             store_mode=self.store_mode,
-            store_thin=self.store_thin, draws=draws, device=device)
+            store_thin=self.store_thin, draws=draws, device=device,
+            log_factor=self.log_factor)
 
         x0 = np.broadcast_to(np.asarray(self.initial_model, np.float64),
                              (C, M)).copy()
+        if self.constraint == "logarithmic":
+            # a start on a bound (a clipped warm start) is pulled 1e-6 of
+            # the span inside, so the transform stays finite
+            span = self.high - self.low
+            x0 = mw_to_logistic(np.clip(x0, self.low + 1e-6 * span,
+                                        self.high - 1e-6 * span),
+                                self.low, self.high, self.log_factor)
         x = torch.as_tensor(x0, dtype=dtype, device=device)
         U, g, (_, u_data, u_model) = potential_fn(x, self.RegulFactor)
         carry = (x, U, g, u_data, u_model,
@@ -470,8 +549,9 @@ class HamiltonianMC:
         chunk accepting less than a quarter of the target while some chain
         has stored nothing halves dt and restarts them again.
 
-        Returns a dict like the JAX package's; ``samples``, ``misfits`` and
-        ``inv_mass`` are tensors on ``device``, and the ESS is computed
+        Returns a dict like the JAX package's; ``samples``, ``misfits``,
+        ``inv_mass`` and the chains' final state ``x`` are tensors on
+        ``device``, and the ESS is computed
         there (:func:`~gravinv3dhmc_tpu_torch.diagnostics.ess_torch`, its
         median as ``np.median`` takes it). ``step_size`` is the frozen dt.
         ``draws`` is an optional draw source (see the module docstring).
@@ -638,6 +718,7 @@ class HamiltonianMC:
         return {
             "samples": carry[6],
             "misfits": carry[7],
+            "x": carry[0],
             "n_stored": n_stored,
             "folders": [],
             "accepted": accepted.tolist(),

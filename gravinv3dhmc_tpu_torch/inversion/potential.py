@@ -1,14 +1,17 @@
 """Misfit/gradient provider for gravity, in PyTorch.
 
 Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py`` for the
-uniformgrid, ratiogrid and realdata slices: ``sensitivity_weighting``,
-:class:`GravMagModule` for ``field="gravity"`` on cartesian prism meshes
-(uniform, ratio or per-segment depth spacing; the f64 host or f32 device
-matrix builder) and spherical tesseroid meshes (uniform or per-segment;
-the f64 host tesseroid builder, :mod:`..ops.tesseroid`), with topography
-carving and the frozen-cell ``grav_fix`` correction, and
-``make_potential`` for the 'mandatory' constraint with the MS or Damping
-regularizer at temperature 1.
+uniformgrid, ratiogrid and realdata slices and the adaptive samplers:
+``sensitivity_weighting``, :class:`GravMagModule` for ``field="gravity"``
+on cartesian prism meshes (uniform, ratio or per-segment depth spacing;
+the f64 host or f32 device matrix builder) and spherical tesseroid meshes
+(uniform or per-segment; the f64 host tesseroid builder,
+:mod:`..ops.tesseroid`), with topography carving and the frozen-cell
+``grav_fix`` correction, and ``make_potential`` with the MS or Damping
+regularizer under the 'mandatory', 'reflective' (both the identity
+transform) or 'logarithmic' constraint (the logistic box transform,
+:func:`logistic_to_mw`), at a likelihood temperature and, under
+'logarithmic', with the transform's log-Jacobian.
 
 The JAX package differentiates a scalar potential with
 ``jax.value_and_grad``; here the gradient is written out. With
@@ -16,6 +19,13 @@ The JAX package differentiates a scalar potential with
 ``sum r^2`` has gradient ``2 A^T (r - mean r)`` (the transpose of the
 mean-removal projector), and the regularizer gradients are
 ``2 dm`` (Damping) and ``wm_sq * 2 beta dm / (dm^2 + beta)^2`` (MS).
+Under 'logarithmic', ``mw = low + (high - low) s`` with ``s = sigmoid(kx)``,
+so the mw-gradient is chained through ``dmw/dx = (high - low) k s s'``
+with ``s' = sigmoid(-kx)`` (not ``1 - s``, which is 0 once ``s`` rounds to
+1 at large kx), and the Jacobian term ``softplus(kx) + softplus(-kx) -
+log((high - low) k)`` adds ``k (s - s')``. Products with the matrix are
+IEEE float32 ``torch.matmul`` on the card (TF32 stays off: PyTorch's
+default for matmul, ``torch.backends.cuda.matmul.allow_tf32`` False).
 
 Every other option raises ``NotImplementedError`` naming the ROADMAP.md
 item that brings it.
@@ -31,6 +41,25 @@ from torch import nn
 from .. import mesher
 from .._device import resolve
 from ..ops import prism, tesseroid
+
+CONSTRAINTS = ("mandatory", "logarithmic", "reflective")
+
+
+def logistic_to_mw(x, low, high, log_factor, xp=torch):
+    """x -> mw under the 'logarithmic' boundary constraint:
+    ``low + (high - low) sigmoid(k x)``. ``xp=np`` takes numpy arrays and
+    the JAX package's stable numpy form."""
+    if xp is torch:
+        return low + (high - low) * torch.sigmoid(log_factor * x)
+    t = log_factor * np.asarray(x)
+    e = np.exp(-np.abs(t))
+    s = np.where(t >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+    return low + (high - low) * s
+
+
+def mw_to_logistic(mw, low, high, log_factor, xp=np):
+    """mw -> x, the inverse transform: ``log((mw - low) / (high - mw)) / k``."""
+    return (1.0 / log_factor) * xp.log((mw - low) / (high - mw))
 
 
 def sensitivity_weighting(A, weightfactor=0.5):
@@ -192,7 +221,10 @@ class GravMagModule:
 
         ``aprior_mw``, ``low`` and ``high`` are in the weighted (mw)
         domain. ``matvec_dtype`` (e.g. ``torch.bfloat16``) stores the kernel
-        matrix in that type; products are accumulated in ``dtype``.
+        matrix in that type; products are accumulated in ``dtype``. Under
+        ``constraint="logarithmic"`` x is the logistic variable
+        (``log_factor`` k) and ``jacobian`` adds the transform's
+        log-Jacobian; ``temperature`` divides the data and model terms.
         """
         if regularization in ("Smoothness", "TV"):
             raise _unported(f"the {regularization} regularizer", "item 8")
@@ -200,11 +232,12 @@ class GravMagModule:
             raise ValueError(
                 "Please choose regularization from 'MS','Damping', "
                 "'Smoothness', 'TV'.")
-        if constraint != "mandatory":
-            raise _unported(f"the {constraint!r} constraint", "item 8")
-        if jacobian or float(temperature) != 1.0 or use_wavelet:
-            raise _unported("temperature, Jacobian and wavelet potentials",
-                            "item 8")
+        if constraint not in CONSTRAINTS:
+            raise ValueError(
+                "Please choose right boundary constraint(mandatory, "
+                "logarithmic)!")
+        if use_wavelet:
+            raise _unported("wavelet potentials", "item 8")
         dtype = dtype or self.dtype
         device = self.device if device is None else torch.device(device)
 
@@ -224,23 +257,43 @@ class GravMagModule:
         }
         beta = float(beta)
         ms = regularization == "MS"
+        logistic = constraint == "logarithmic"
+        jac = logistic and jacobian
+        lf = float(log_factor)
+        # the likelihood temperature: target exp(-U/T) (the JAX package's
+        # ``temperature``); the Jacobian term is not divided by it
+        inv_t = 1.0 / float(temperature)
+        if logistic:
+            width = params["high"] - params["low"]
+            params["width"] = width
+            # cells of zero width have a constant mw and no log-width
+            params["log_const"] = torch.where(
+                width > 0, torch.log(torch.where(width > 0, width, 1.0) * lf),
+                torch.zeros_like(width))
 
         def fn(x, alpha, P):
             x = torch.as_tensor(x, dtype=dtype, device=device)
+            if logistic:
+                kx = lf * x
+                s = torch.sigmoid(kx)
+                sn = torch.sigmoid(-kx)
+                mw = P["low"] + P["width"] * s
+            else:
+                mw = x
             A = P["Aw"]
             if A.dtype != dtype:
                 # reduced-precision storage: round the model to A's type,
                 # then multiply and accumulate in ``dtype``
                 A = A.to(dtype)
-                mv = x.to(P["Aw"].dtype).to(dtype)
+                mv = mw.to(P["Aw"].dtype).to(dtype)
             else:
-                mv = x
+                mv = mw
             dpre = mv @ A.T
             dinv = dpre + P["grav_fix"] if P["grav_fix"] is not None else dpre
             r = (dinv - dinv.mean(-1, keepdim=True)) - P["dobs_centered"]
             u_data = (r * r).sum(-1)
             gdata = (2.0 * (r - r.mean(-1, keepdim=True))) @ A
-            dm = x - P["aprior_mw"]
+            dm = mw - P["aprior_mw"]
             dm2 = dm * dm
             if ms:
                 den = dm2 + beta
@@ -250,6 +303,19 @@ class GravMagModule:
                 u_model = dm2.sum(-1)
                 gm = 2.0 * dm
             U = u_data + alpha * u_model
-            return U, gdata + alpha * gm, (dpre, u_data, u_model)
+            g = gdata + alpha * gm
+            if inv_t != 1.0:
+                U = U * inv_t
+                g = g * inv_t
+            if logistic:
+                # the chain rule through mw(x), then the Jacobian term
+                g = g * P["width"] * (s * sn)
+                if jac:
+                    U = U + (torch.logaddexp(kx, torch.zeros_like(kx))
+                             + torch.logaddexp(-kx, torch.zeros_like(kx))
+                             - P["log_const"]).sum(-1)
+                    g = g + (s - sn)
+                g = g * lf
+            return U, g, (dpre, u_data, u_model)
 
         return Potential(fn, params)

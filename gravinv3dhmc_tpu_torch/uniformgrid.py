@@ -45,7 +45,8 @@ def build_problem(nx=20, ny=30, nz=10, spacing=100.0, device=None):
     """``(module, dobs)``: nx * ny observations at z = 0 over nx * ny * nz
     prisms of ``spacing`` metres, data from the f64 prism builder with 2 %
     noise (seed 1), the module on ``device`` (``cuda:0`` when None). The
-    default is the bench's 600 x 6000 problem."""
+    default is the bench's 600 x 6000 problem. The noise's standard
+    deviation is ``module.noise_sigma``."""
     d = spacing
     bounds = (0, nx * d, 0, ny * d, 0, nz * d)
     mesh = mesher.PrismMesh(bounds, (d, d, d))
@@ -55,6 +56,7 @@ def build_problem(nx=20, ny=30, nz=10, spacing=100.0, device=None):
     dobs = utils.contaminate(gz_pre, 0.02 * gz_pre.max(), seed=1)
     module = GravMagModule(dobs, bounds, (d, d, d), (xo, yo, zo),
                            verbose=False, device=device)
+    module.noise_sigma = 0.02 * float(gz_pre.max())
     return module, dobs
 
 

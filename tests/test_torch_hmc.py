@@ -28,8 +28,9 @@ torch.set_num_threads(2)
 LMIN, LMAX = 3, 8
 
 
-def jax_draws(seed, chunk_size, C, M, myrank=0):
-    """Draw source replaying the JAX sampler's keys for run seed ``seed``."""
+def jax_draws(seed, chunk_size, C, M, myrank=0, per_chain=False):
+    """Draw source replaying the JAX sampler's keys for run seed ``seed``;
+    ``per_chain``: one L a chain, a (C,) array (the masked-L scan's)."""
     base_key = random.fold_in(random.PRNGKey(seed), myrank)
     cache = {}
 
@@ -40,7 +41,9 @@ def jax_draws(seed, chunk_size, C, M, myrank=0):
             rows = []
             for k in keys:
                 kL, kp, ku = random.split(k, 3)
-                rows.append((int(random.randint(kL, (), LMIN, LMAX + 1)),
+                L = random.randint(kL, (C,) if per_chain else (), LMIN,
+                                   LMAX + 1)
+                rows.append((np.array(L) if per_chain else int(L),
                              np.asarray(random.normal(kp, (C, M),
                                                       jnp.float32)),
                              np.asarray(random.uniform(ku, (C,),
@@ -207,9 +210,8 @@ def test_philox_draws_are_shared_by_all_paths(torch_module, small_module):
 
 
 @pytest.mark.parametrize("attr,value", [
-    ("temperature", 2.0), ("regularization", "Smoothness"),
-    ("write_files", True), ("spmd_mesh", object()),
-    ("constraint", "logarithmic")])
+    ("regularization", "TV"), ("regularization", "Smoothness"),
+    ("write_files", True), ("spmd_mesh", object())])
 def test_unported_options_raise(torch_module, small_module, attr, value):
     _, dobs, _ = small_module
     tc = _configure(thmc.HamiltonianMC(torch_module), torch_module, dobs)

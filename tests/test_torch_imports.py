@@ -32,6 +32,8 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.realdata\n"
             "import gravinv3dhmc_tpu_torch.bench\n"
             "import gravinv3dhmc_tpu_torch.inversion.nuts\n"
+            "import gravinv3dhmc_tpu_torch.inversion.chees\n"
+            "import gravinv3dhmc_tpu_torch.samplers\n"
             "import gravinv3dhmc_tpu_torch.ops.tesseroid\n"
             "import gravinv3dhmc_tpu_torch.runtime.tessglq\n"
             "bad = [m for m in sys.modules if m == 'jax' "

@@ -79,8 +79,8 @@ def test_bf16_storage_accumulates_in_f32(small_module):
 
 
 @pytest.mark.parametrize("kwargs", [dict(regularization="TV"),
-                                    dict(constraint="logarithmic"),
-                                    dict(temperature=2.0)])
+                                    dict(regularization="Smoothness"),
+                                    dict(use_wavelet=True)])
 def test_unported_potentials_raise(small_module, kwargs):
     _, tm = _modules(small_module, False)
     w = tm.wdiag
