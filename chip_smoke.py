@@ -159,13 +159,38 @@ Phases, one line each (the script stops at the first failure, non-zero):
              called. Then ``draws`` at those runs' shapes (8 and 64 chains
              x 6016) against its plain version, timed
              (``samplers_kernel`` lines; its uniforms bit for bit).
+13. cg     — ``gravinv3dhmc_tpu_torch.cg.run()``'s three stages on the
+             card, one line each with its seconds, the card and its
+             launches: ``cg`` (``examples/run.py cg``: float64 CG on the
+             1,200 x 12,000 two-dyke problem), ``bootstrap`` (20 float64
+             replicates on the 600 x 6000 problem in one batch) and
+             ``map`` (the float32 bounded MAP on the 576 x 10,676
+             tesseroid problem and its temperature T = 2 sigma_hat^2).
+             Every returned tensor must be on the card, the histories
+             finite, the models inside their box, ``cg``'s data misfit
+             below 5 % of its start and its correlation with the truth
+             above 0.5 (as ``tests/test_reginv.py`` holds the JAX solver);
+             then each stage against the JAX package's golden numbers
+             (``gravinv3dhmc_tpu_torch/golden/reginv_jax.json``, from
+             ``tests/reginv_golden.py``), to the tolerances of
+             :data:`GOLDEN` (see there for why ``bootstrap`` and ``map``
+             are held as they are).
+14. samplers_realdata — the calibrated realdata ChEES
+             (``samplers.run(("realdata",))``) at full width (64 chains x
+             10,676 cells) at the ``map`` stage's T, cut to 16 warmup and
+             16 draws (``reduced``): its tensors on the card, one
+             ``draws`` launch an iteration, no plain Philox; then ``draws``
+             at 64 x 10,752 against its plain version, its uniforms bit
+             for bit (``samplers_kernel``).
 
 Slice 1's launch counts are read around phase 6 (bf16 and f32), the
 shared-L card run's in phase 6's reference, the realdata-width f32
 trajectory's in phase 6b and both on the tesseroid matrix in phase 11,
 the unstructured gz build's in phase 7, slice 2's (bf16 and f32) in
 phase 8, the bench's (both stages) in phase 11, the samplers' (``draws``:
-ChEES's and the honest HMC's) in phase 12: these runs' counts make the
+ChEES's and the honest HMC's) in phase 12, the deterministic stages' in
+phase 13 (their products are ``torch.matmul``, so none) and the realdata
+ChEES's in phase 14: these runs' counts make the
 ``launches`` of the kernels line. ``draws``
 and ``refresh`` are bounded by the issued
 instructions of their Philox and Box-Muller, counted in phase 1; ``draws``'s
@@ -1587,16 +1612,14 @@ def phase_samplers(torch, tlf, dev, smi):
     return total, problem[0].n_active
 
 
-def phase_samplers_kernel(torch, tlf, dev, M):
-    """``draws`` at the shapes the samplers give it (ChEES's chains and
-    the honest HMC's, ``M`` cells at the lane-padded width) against its
-    plain version, its uniforms bit for bit; outside the samplers' runs,
-    since the plain version draws with the plain Philox."""
-    from gravinv3dhmc_tpu_torch import samplers
-
+def phase_samplers_kernel(torch, tlf, dev, M, chains):
+    """``draws`` at the shapes a sampler gives it (``chains`` chains, ``M``
+    cells at the lane-padded width) against its plain version, its
+    uniforms bit for bit; outside the samplers' runs, since the plain
+    version draws with the plain Philox."""
     width = -(-M // tlf.LANE) * tlf.LANE
     res = {}
-    for C in (samplers.SAMPLERS["nchains"], samplers.HMC["nchains"]):
+    for C in chains:
         def make(C=C):
             return (torch.empty((C, width), device=dev),
                     torch.empty(C, device=dev), (11, 12), 7)
@@ -1613,13 +1636,232 @@ def phase_samplers_kernel(torch, tlf, dev, M):
     return res
 
 
+#: how the deterministic stages are held against the JAX package's golden
+#: numbers (``tests/reginv_golden.py``, the JAX package on the CPU):
+#: ``cg`` — float64: the same iteration count and alpha-decay iterations,
+#:   every history entry and summary within ``rtol``;
+#: ``bootstrap`` — float64, but minimum support with beta^2 = 1e-4 makes
+#:   projected Fletcher-Reeves amplify rounding ten times in about ten
+#:   iterations: the JAX package itself, given the same replicates one or
+#:   five at a time (other product shapes), parts from its one-batch run
+#:   by more than 1e-6 at iteration 74 of replicate 13 and moves its
+#:   summaries by up to 2.1e-4 (``self_parting``, ``self_spread``). So:
+#:   the same iteration counts; every replicate's data misfits within
+#:   ``rtol`` over the first ``prefix`` iterations and the alpha-decay
+#:   iterations among them identical; each summary within ``spread``
+#:   times the JAX package's own spread;
+#: ``map`` — float32 Damping at a fixed alpha, whose analytic step (twice
+#:   the exact line search, the reference's) keeps every iterate on the
+#:   start's level set of the objective while the box is not active: the
+#:   JAX package's own iterates stay within 1.95e-5 of it in float32
+#:   (5.0e-14 in float64, ``objective_spread*``), and its float32 and
+#:   float64 runs pick best iterates (by rounding) whose T differ by 19 %
+#:   (653.6, 774.9). So: the same iteration count, the first data misfit
+#:   (sum of dobs^2) within ``rtol``, the first ``prefix`` data misfits
+#:   within ``prefix_rtol`` of the JAX package's (the solver moves as it
+#:   does; the card's float32 run parts from it by more than 1e-5 at
+#:   iteration 54), the data misfit moving by more than ``moved`` of its
+#:   start over the run, every iterate's objective within ``level_set``
+#:   (5x the JAX package's float32 spread) of the start's, and T positive
+#:   and at most 2 data_hist[0] (the level set's bound on the mean-removed
+#:   misfit); T's gap to the JAX package's is reported in the line, not
+#:   held.
+GOLDEN = {"cg": dict(rtol=1e-6),
+          "bootstrap": dict(rtol=1e-6, prefix=50, spread=4.0),
+          "map": dict(rtol=1e-6, prefix=40, prefix_rtol=1e-5, moved=1e-3,
+                      level_set=1e-4)}
+
+
+def rel_gap(a, b):
+    """max |a - b| / |b| over the entries (0 where they are equal, NaN
+    where both are NaN); inf if the shapes or the NaN entries differ."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+        return float("inf")
+    ok = ~np.isnan(b)
+    err = np.abs(a[ok] - b[ok])
+    gap = np.where(err == 0, 0.0, err / np.where(err == 0, 1.0,
+                                                  np.abs(b[ok])))
+    return float(gap.max()) if gap.size else 0.0
+
+
+def golden_checks(name, line, hist, golden):
+    """The stage against the JAX package's golden numbers (see
+    :data:`GOLDEN`): ``(checks, gaps)``."""
+    from gravinv3dhmc_tpu_torch.cg import decay_iters
+
+    g, tol = golden[name], GOLDEN[name]
+    gaps, checks = {}, {}
+    if name == "cg":
+        checks["n_iters"] = line["iterations"] == g["n_iters"]
+        checks["decay iterations"] = (decay_iters(hist["regul_hist"])
+                                      == g["decay_iters"])
+        for k in ("data_hist", "model_hist", "regul_hist"):
+            gaps[k] = rel_gap(hist[k], g[k])
+        for k in ("final_data_misfit", "RMSD", "RMSM", "corr", "model_max"):
+            gaps[k] = rel_gap(line[k], g[k])
+        checks.update({f"{k} within {tol['rtol']}": v <= tol["rtol"]
+                       for k, v in gaps.items()})
+    elif name == "bootstrap":
+        n = tol["prefix"]
+        checks["n_iters"] = line["n_iters"] == g["n_iters"]
+        d_h = hist["data_hist"]
+        gaps["data_hist_prefix"] = rel_gap(d_h[:, :n],
+                                           np.asarray(g["data_hist"])[:, :n])
+        checks[f"first {n} data misfits within {tol['rtol']}"] = \
+            gaps["data_hist_prefix"] <= tol["rtol"]
+        checks[f"decay iterations below {n}"] = all(
+            [k for k in decay_iters(r) if k < n]
+            == [k for k in gr if k < n]
+            for r, gr in zip(hist["regul_hist"], g["decay_iters"]))
+        gaps["first_parting"] = min(
+            (int(np.argmax(r > tol["rtol"])) for r in
+             np.abs(d_h / np.asarray(g["data_hist"]) - 1)
+             if (r > tol["rtol"]).any()), default=-1) \
+            if d_h.shape == np.shape(g["data_hist"]) else None
+        for k in ("mean_model_max", "std_model_max", "RMSM"):
+            gaps[k] = rel_gap(line[k], g[k])
+            bound = tol["spread"] * g["self_spread"][k]
+            checks[f"{k} within {bound:.3g}"] = gaps[k] <= bound
+    else:
+        D, M = line["problem"]
+        checks["n_iters"] = line["n_iters"] == g["n_iters"]
+        gaps["data_hist_first"] = rel_gap(line["data_hist_first"],
+                                          g["data_hist_first"])
+        checks[f"data_hist_first within {tol['rtol']}"] = \
+            gaps["data_hist_first"] <= tol["rtol"]
+        n = tol["prefix"]
+        gaps["data_hist_prefix"] = rel_gap(
+            hist["data_hist"][:n], np.asarray(g["data_hist"])[:n])
+        checks[f"first {n} data misfits within {tol['prefix_rtol']}"] = \
+            gaps["data_hist_prefix"] <= tol["prefix_rtol"]
+        checks[f"data misfit moved by more than {tol['moved']} of its "
+               "start"] = bool(np.ptp(hist["data_hist"])
+                               > tol["moved"] * hist["data_hist"][0])
+        obj = (D * hist["data_hist"]
+               + line["RegulFactor"] * M * hist["model_hist"])
+        gaps["objective_spread"] = float(np.max(np.abs(obj / obj[0] - 1)))
+        checks[f"level set within {tol['level_set']}"] = \
+            gaps["objective_spread"] <= tol["level_set"]
+        checks["T in (0, 2 data_hist[0]]"] = \
+            0 < line["temperature"] <= 2 * line["data_hist_first"]
+        for k in ("temperature", "data_hist_min", "data_hist_last"):
+            gaps[k] = rel_gap(line[k], g[k])
+        if hist["data_hist"].shape == np.shape(g["data_hist"]):
+            # the first iterate whose data misfit parts from the JAX
+            # package's by more than 1e-5 (f32)
+            parted = (np.abs(hist["data_hist"] / np.asarray(g["data_hist"])
+                             - 1) > 1e-5)
+            gaps["data_hist_parting"] = (int(np.argmax(parted))
+                                         if parted.any() else None)
+    return checks, gaps
+
+
+def phase_cg(torch, tlf, dev, smi, rd_problem):
+    """``cg.run()``'s three stages on the card, each with its launches
+    counted from 0 just before it, held as :data:`GOLDEN` says; returns
+    the stages' lines."""
+    import os
+
+    from gravinv3dhmc_tpu_torch import cg
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "gravinv3dhmc_tpu_torch", "golden",
+                        "reginv_jax.json")
+    with open(path) as f:
+        golden = json.load(f)
+    lines = {}
+    for name in cg.STAGES:
+        sync(torch)
+        tlf.reset_launch_counts()
+        t0 = time.perf_counter()
+        line_, tensors, hist = cg.run((name,), dev,
+                                      map_problem=rd_problem)[name]
+        sync(torch)
+        seconds = time.perf_counter() - t0
+        counts = tlf.launch_counts()
+        checks, gaps = golden_checks(name, line_, hist, golden)
+        checks.update({f"{k} on the card": v.is_cuda
+                       for k, v in tensors.items()})
+        d_h = np.asarray(hist["data_hist"])
+        if name == "bootstrap":
+            checks["finite histories"] = all(
+                np.isfinite(row[:n - 1]).all()
+                for row, n in zip(d_h, line_["n_iters"]))
+            models = hist["models"]
+            checks["models in the box"] = bool(
+                (models >= -1e-12).all() and (models <= 1 + 1e-12).all())
+        else:
+            checks["finite histories"] = bool(np.isfinite(d_h).all())
+        if name == "cg":
+            checks["models in the box"] = (line_["model_min"] >= -1e-12
+                                           and line_["model_max"]
+                                           <= 1 + 1e-12)
+            checks["misfit below 5 % of its start"] = d_h[-1] < 0.05 * d_h[0]
+            checks["corr > 0.5"] = line_["corr"] > 0.5
+        if name == "map":
+            m = tensors["m"]
+            checks["models in the box"] = bool(
+                (m >= -0.5 - 1e-6).all() and (m <= 0.5 + 1e-6).all())
+        print(json.dumps({"phase": "cg", "stage": name, "seconds": seconds,
+                          "card": smi, **line_, "golden_gaps": gaps,
+                          "launches": {k: v for k, v in counts.items()
+                                       if v}}), flush=True)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"cg {name}: {bad}")
+        lines[name] = line_
+    return lines
+
+
+#: the realdata ChEES's cut: warmup and draws (the tool runs 256 and 256)
+REALDATA_CUT = dict(nwarmup=16, nsamples=16)
+
+
+def phase_samplers_realdata(torch, tlf, dev, smi, rd_problem, T):
+    """The calibrated realdata ChEES at full width and cut depth, at the
+    ``map`` stage's T; returns its launch counts, set to 0 just before
+    it."""
+    from gravinv3dhmc_tpu_torch import samplers
+
+    sync(torch)
+    tlf.reset_launch_counts()
+    t0 = time.perf_counter()
+    line_, tensors = samplers.run(
+        ("realdata",), dev, rd_problem=rd_problem,
+        rd=dict(REALDATA_CUT, temperature=T))["realdata"]
+    sync(torch)
+    counts = tlf.launch_counts()
+    reduced = {k: [samplers.REALDATA[k], v] for k, v in REALDATA_CUT.items()}
+    print(json.dumps({"phase": "samplers_realdata", "seconds":
+                      time.perf_counter() - t0, "card": smi, **line_,
+                      "reduced": reduced,
+                      "launches": {k: v for k, v in counts.items() if v}}),
+          flush=True)
+    iters = REALDATA_CUT["nwarmup"] + REALDATA_CUT["nsamples"]
+    checks = {f"{k} on the card": v.is_cuda for k, v in tensors.items()}
+    checks["finite"] = all(bool(np.isfinite(line_[k])) for k in (
+        "ess_min", "ess_median", "rhat_max", "mean_accept", "step_size",
+        "mean_L"))
+    checks["full width"] = (line_["nchains"] == samplers.REALDATA["nchains"]
+                            and line_["problem"] == [576, 10676])
+    checks["T from the map"] = line_["temperature"] == T
+    checks["one draws launch an iteration"] = counts["draws"] == iters
+    checks["accept in [0, 1]"] = 0 <= line_["mean_accept"] <= 1
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"samplers_realdata: {bad}")
+    return counts
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from gravinv3dhmc_tpu_torch import ratiogrid, realdata, sass, uniformgrid
+    from gravinv3dhmc_tpu_torch import (ratiogrid, realdata, samplers, sass,
+                                        uniformgrid)
     from gravinv3dhmc_tpu_torch.ops import _cuda, philox
     from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
 
@@ -1715,17 +1957,31 @@ def main():
         counts_samplers, M = phase_samplers(torch, tlf, dev, smi)
     if plain.calls:
         fail(f"the samplers called the plain Philox {plain.calls} times")
-    phase_samplers_kernel(torch, tlf, dev, M)
+    phase_samplers_kernel(torch, tlf, dev, M, (
+        samplers.SAMPLERS["nchains"], samplers.HMC["nchains"]))
+
+    rd_problem = realdata.build_problem(device=dev)
+    T = phase_cg(torch, tlf, dev, smi, rd_problem)["map"]["temperature"]
+    with plain:
+        counts_rd_chees = phase_samplers_realdata(torch, tlf, dev, smi,
+                                                  rd_problem, T)
+    if plain.calls:
+        fail(f"the realdata ChEES called the plain Philox {plain.calls} "
+             "times")
+    phase_samplers_kernel(torch, tlf, dev, rd_problem[0].n_active,
+                          (samplers.REALDATA["nchains"],))
+    del rd_problem
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
     # the shared-L card run, the realdata-width trajectories (synthetic,
     # then the stage's matrix without and with a metric), the unstructured
-    # gz build, both ratiogrid slices, the bench's two stages and the
-    # samplers
+    # gz build, both ratiogrid slices, the bench's two stages, the
+    # samplers and the realdata ChEES (the deterministic stages launch none)
     runs = (counts, counts_f32, counts3, counts_rd, *counts_rd_real,
-            counts_gz, counts2, counts2_f32, counts_bench, counts_samplers)
+            counts_gz, counts2, counts2_f32, counts_bench, counts_samplers,
+            counts_rd_chees)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

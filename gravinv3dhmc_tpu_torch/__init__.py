@@ -19,6 +19,10 @@ cells, the f64 tesseroid matrix from a native host engine, and the
 windowed warmup (dual-averaged dt, a diagonal metric) through the fused
 trajectory kernels on an f32 matrix. ``bench.py`` runs the JAX bench's
 two stages, uniformgrid and realdata, and prints its one JSON line.
+``samplers.py`` runs the adaptive samplers (ChEES, NUTS) on the honest
+posterior, and ``cg.py`` the deterministic inversion (projected CG,
+bootstrap, the bounded MAP that calibrates the realdata temperature,
+``inversion/reginv.py``).
 """
 
 __version__ = "0.1.0"

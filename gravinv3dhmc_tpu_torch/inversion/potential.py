@@ -1,24 +1,30 @@
 """Misfit/gradient provider for gravity, in PyTorch.
 
 Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py`` for the
-uniformgrid, ratiogrid and realdata slices and the adaptive samplers:
-``sensitivity_weighting``, :class:`GravMagModule` for ``field="gravity"``
-on cartesian prism meshes (uniform, ratio or per-segment depth spacing;
-the f64 host or f32 device matrix builder) and spherical tesseroid meshes
-(uniform or per-segment; the f64 host tesseroid builder,
-:mod:`..ops.tesseroid`), with topography carving and the frozen-cell
-``grav_fix`` correction, and ``make_potential`` with the MS or Damping
-regularizer under the 'mandatory', 'reflective' (both the identity
-transform) or 'logarithmic' constraint (the logistic box transform,
-:func:`logistic_to_mw`), at a likelihood temperature and, under
-'logarithmic', with the transform's log-Jacobian.
+uniformgrid, ratiogrid and realdata slices, the adaptive samplers and the
+deterministic inversion: ``sensitivity_weighting``, :class:`GravMagModule`
+for ``field="gravity"`` on cartesian prism meshes (uniform, ratio or
+per-segment depth spacing; the f64 host or f32 device matrix builder) and
+spherical tesseroid meshes (uniform or per-segment; the f64 host
+tesseroid builder, :mod:`..ops.tesseroid`), with topography carving and
+the frozen-cell ``grav_fix`` correction, and ``make_potential`` with the
+MS, Damping, Smoothness or TV regularizer under the 'mandatory',
+'reflective' (both the identity transform) or 'logarithmic' constraint
+(the logistic box transform, :func:`logistic_to_mw`), at a likelihood
+temperature and, under 'logarithmic', with the transform's log-Jacobian.
+For the CG solvers (:mod:`.reginv`) the module also has the JAX one's
+``kernelw``, ``device_arrays`` (the matrix and the data on the module's
+device, one copy a dtype), ``predict`` and ``_active3d``.
 
 The JAX package differentiates a scalar potential with
 ``jax.value_and_grad``; here the gradient is written out. With
 ``r = (d - mean d) - dobs_c`` and ``d = A mw + fix`` the data term
 ``sum r^2`` has gradient ``2 A^T (r - mean r)`` (the transpose of the
 mean-removal projector), and the regularizer gradients are
-``2 dm`` (Damping) and ``wm_sq * 2 beta dm / (dm^2 + beta)^2`` (MS).
+``2 dm`` (Damping), ``wm_sq * 2 beta dm / (dm^2 + beta)^2`` (MS) and the
+adjoints of the finite differences (Smoothness, TV: :mod:`..ops.fd`; on
+a carved mesh the active cells are scattered to the full grid, and the
+differences that touch a carved cell are 0).
 Under 'logarithmic', ``mw = low + (high - low) s`` with ``s = sigmoid(kx)``,
 so the mw-gradient is chained through ``dmw/dx = (high - low) k s s'``
 with ``s' = sigmoid(-kx)`` (not ``1 - s``, which is 0 once ``s`` rounds to
@@ -40,7 +46,7 @@ from torch import nn
 
 from .. import mesher
 from .._device import resolve
-from ..ops import prism, tesseroid
+from ..ops import fd, prism, tesseroid
 
 CONSTRAINTS = ("mandatory", "logarithmic", "reflective")
 
@@ -92,6 +98,30 @@ class Potential(nn.Module):
 
     def forward(self, x, alpha):
         return self.fn(x, alpha, self.params)
+
+
+def model_value_and_grad(regularization, dm, wm_sq, beta, mshape,
+                         active3d=None, active_idx=None):
+    """The regularizer's value ``(...,)`` and gradient ``(..., M)`` at
+    ``dm = mw - aprior_mw``: MS ``sum wm_sq dm^2 / (dm^2 + beta)`` with
+    gradient ``wm_sq 2 beta dm / (dm^2 + beta)^2``, Damping ``sum dm^2``
+    with ``2 dm``, Smoothness and TV from :func:`..ops.fd.value_and_grad`.
+    On a carved mesh (``active3d`` and the packed cells' grid indices
+    ``active_idx``) the active cells go to the full grid (the JAX
+    package's ``scatter_full``) and the gradient comes back."""
+    if regularization == "MS":
+        dm2 = dm * dm
+        den = dm2 + beta
+        return ((wm_sq * dm2 / den).sum(-1),
+                wm_sq * (2.0 * beta) * dm / (den * den))
+    if regularization == "Damping":
+        return (dm * dm).sum(-1), 2.0 * dm
+    if active_idx is None:
+        return fd.value_and_grad(regularization, dm, mshape, beta)
+    full = dm.new_zeros(dm.shape[:-1] + (int(np.prod(mshape)),))
+    full[..., active_idx] = dm
+    u, g = fd.value_and_grad(regularization, full, mshape, beta, active3d)
+    return u, g[..., active_idx]
 
 
 def _unported(what, item):
@@ -211,6 +241,38 @@ class GravMagModule:
         self.wdiag = wdiag
         self.wdiag_inv = wdiag_inv
         self.n_active = Aw.shape[1]
+        # the active-cell grid of a carved mesh (Smoothness and TV)
+        self._active3d = (mesh.active.reshape(mesh.shape)
+                          if not mesh.active.all() else None)
+        self._dev = {}
+
+    def kernelw(self):
+        """Weighted kernel and (vector) weighting diagonals: ``(Aw,
+        wdiag_inv, wdiag)``, host numpy, as the JAX module returns them."""
+        return self.Aw, self.wdiag_inv, self.wdiag
+
+    def device_arrays(self, dtype=None):
+        """``{"Aw", "dobs", "grav_fix"}`` as tensors of ``dtype`` (the
+        module's by default) on the module's device, made once a dtype
+        (``grav_fix`` is None without frozen cells)."""
+        dtype = dtype or self.dtype
+        if dtype not in self._dev:
+            def dev(a):
+                return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                       device=self.device)
+            self._dev[dtype] = {
+                "Aw": dev(self.Aw), "dobs": dev(self.dobs),
+                "grav_fix": dev(self.grav_fix) if self.fixed else None}
+        return self._dev[dtype]
+
+    def predict(self, mw):
+        """Predicted data of a weighted-domain model or batch ``(..., M)``:
+        ``mw @ Aw.T`` in the module's dtype. As in the JAX package's
+        ``predict``, ``grav_fix`` is not added (an open question of
+        ROADMAP.md queue 3: the realdata problems here have
+        ``grav_fix = 0``)."""
+        A = self.device_arrays()["Aw"]
+        return torch.as_tensor(mw, dtype=A.dtype, device=A.device) @ A.T
 
     def make_potential(self, aprior_mw, low, high, constraint="mandatory",
                        log_factor=1000.0, regularization="Damping",
@@ -226,9 +288,7 @@ class GravMagModule:
         (``log_factor`` k) and ``jacobian`` adds the transform's
         log-Jacobian; ``temperature`` divides the data and model terms.
         """
-        if regularization in ("Smoothness", "TV"):
-            raise _unported(f"the {regularization} regularizer", "item 8")
-        if regularization not in ("MS", "Damping"):
+        if regularization not in ("MS", "Damping", "Smoothness", "TV"):
             raise ValueError(
                 "Please choose regularization from 'MS','Damping', "
                 "'Smoothness', 'TV'.")
@@ -256,7 +316,12 @@ class GravMagModule:
             "grav_fix": vec(self.grav_fix) if self.fixed else None,
         }
         beta = float(beta)
-        ms = regularization == "MS"
+        mshape = self.mshape
+        if regularization in ("Smoothness", "TV") and self._active3d is not None:
+            params["active3d"] = torch.as_tensor(self._active3d,
+                                                 device=device)
+            params["active_idx"] = torch.as_tensor(
+                np.flatnonzero(self.mesh.active), device=device)
         logistic = constraint == "logarithmic"
         jac = logistic and jacobian
         lf = float(log_factor)
@@ -293,15 +358,9 @@ class GravMagModule:
             r = (dinv - dinv.mean(-1, keepdim=True)) - P["dobs_centered"]
             u_data = (r * r).sum(-1)
             gdata = (2.0 * (r - r.mean(-1, keepdim=True))) @ A
-            dm = mw - P["aprior_mw"]
-            dm2 = dm * dm
-            if ms:
-                den = dm2 + beta
-                u_model = (P["wm_sq"] * dm2 / den).sum(-1)
-                gm = P["wm_sq"] * (2.0 * beta) * dm / (den * den)
-            else:
-                u_model = dm2.sum(-1)
-                gm = 2.0 * dm
+            u_model, gm = model_value_and_grad(
+                regularization, mw - P["aprior_mw"], P["wm_sq"], beta,
+                mshape, P.get("active3d"), P.get("active_idx"))
             U = u_data + alpha * u_model
             g = gdata + alpha * gm
             if inv_t != 1.0:

@@ -16,8 +16,24 @@ chain-mode storage, 64 chains; the fused kernels do not take this
 target, so it runs on the eager path, its momenta and accept uniforms
 from the ``draws`` kernel.
 
-``python -m gravinv3dhmc_tpu_torch.samplers [nuts] [chees] [hmc]`` (all
-three by default) prints the card and then one JSON line per sampler
+``realdata`` is the tool's calibrated realdata ChEES (its ``realdata``
+stage with ``SAMPLERS_RD_TEMP=auto``): :func:`~.realdata.build_problem`'s
+576 x 10,676 tesseroid problem, Damping (beta 0.01) at RegulFactor 0.05
+toward the a priori model 0.001, the box [-0.5, 0.5] and the start 0.01
+(each times the weighting; x0 clipped 1e-9 of the span inside the box,
+0 where a cell has no width) under the logistic transform (k = 1000) with
+its Jacobian, at the likelihood temperature T = 2 sigma_hat^2 of the
+bounded MAP (the ``map`` stage of :mod:`.cg`) or a given number; 64
+chains, 256 draws after 256 warmup, step size 0.01 to start, seed 100.
+Its line has the tool's keys (``workload``, ``problem``,
+``RegulFactor``, ``temperature``, ``mean_L``, ``max_steps_saturated``,
+``trajectory_time``, ``target_note``, ``vs_baseline_ess`` and
+``vs_reference_kernel_ess`` from the anchors :mod:`.bench` reads) and,
+when T came from the MAP, the MAP's ``map`` summary.
+
+``python -m gravinv3dhmc_tpu_torch.samplers [nuts] [chees] [hmc]
+[realdata]`` (the first three by default) prints the card and then one
+JSON line per sampler
 with the tool's keys (``total_s``, ``ess_min``, ``ess_median``,
 ``ess_per_total_s_median``, ``rhat_max``, ``mean_accept``,
 ``step_size``, ``grad_evals``, ``grad_evals_per_total_s``; NUTS adds
@@ -40,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from . import _device, uniformgrid
+from . import _device, realdata, uniformgrid
 from .diagnostics import ess_torch, median, split_rhat
 from .inversion.chees import run_chees
 from .inversion.hmc import HamiltonianMC
@@ -56,7 +72,15 @@ SAMPLERS = dict(nchains=8, nsamples=200, nwarmup=200, nsub=64,
 #: iterations, then 64 stored iterations)
 HMC = dict(nchains=64, chunk=16, adapt_chunks=8, nsamples=64, dt=0.005,
            Lrange=(5, 20), Sigma=0.001, beta=0.01, seed=100)
-STAGES = ("nuts", "chees", "hmc")
+#: the tool's calibrated realdata ChEES (``temperature`` "auto": T = 2
+#: sigma_hat^2 from the bounded MAP; a number sets T)
+REALDATA = dict(nchains=64, nsamples=256, nwarmup=256, nsub=64,
+                step_size0=0.01, log_factor=1000.0, alpha=0.05, beta=0.01,
+                aprior=0.001, initial=0.01, box=(-0.5, 0.5), seed=100,
+                temperature="auto", draws=None)
+STAGES = ("nuts", "chees", "hmc", "realdata")
+#: the samplers run when none is named
+DEFAULT = ("nuts", "chees", "hmc")
 
 
 def _sync(device):
@@ -182,24 +206,113 @@ def _hmc(problem, device, cfg, nsub):
                       inv_mass=res["inv_mass"])
 
 
-def run(which=STAGES, device=None, problem=None, hmc=None, **overrides):
+def _realdata(problem, device, cfg):
+    """The calibrated realdata ChEES: ``(line, tensors)``."""
+    from . import cg
+    from .bench import BASELINE_REALDATA_SAMPLES_PER_S, reference_kernel
+
+    module, dobs = problem
+    M = module.n_active
+    lf = cfg["log_factor"]
+    extra = {}
+    T = cfg["temperature"]
+    if T == "auto":
+        map_line, map_t, _, _, map_s = cg.stage_map(
+            device, dict(cg.MAP, alpha=cfg["alpha"]), problem)
+        T = map_line["temperature"]
+        extra["map"] = {k: map_line[k] for k in (
+            "n_iters", "RMSD", "sigma_hat2", "data_hist_min",
+            "data_hist_last")}
+        extra["map"]["solve_s"] = map_s
+    T = float(T)
+    # the tool's target and start, built as CheesSample builds them (x0
+    # 1e-9 of the span inside the box; 0 where a cell has no width)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        pot, low, high, x0 = _logistic_target(
+            module, np.full(M, cfg["initial"]), np.full(M, cfg["aprior"]),
+            np.tile(np.asarray(cfg["box"], np.float64), (M, 1)), "Damping",
+            cfg["beta"], lf, torch.float32, T, device)
+    C, N, W = cfg["nchains"], cfg["nsamples"], cfg["nwarmup"]
+    x0_b = torch.as_tensor(np.tile(x0[None, :], (C, 1)), dtype=torch.float32,
+                           device=device)
+
+    def potential(x):
+        U, g, _ = pot(x, cfg["alpha"])
+        return U, g
+
+    sub = torch.as_tensor(np.random.RandomState(0).choice(
+        M, size=min(M, cfg["nsub"]), replace=False), device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    xs, st = run_chees(potential, x0_b, n_warmup=W, n_samples=N,
+                       step_size0=cfg["step_size0"], seed=cfg["seed"],
+                       draws=cfg["draws"])
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    lo = torch.as_tensor(low, dtype=torch.float32, device=device)[sub]
+    hi = torch.as_tensor(high, dtype=torch.float32, device=device)[sub]
+    mw = logistic_to_mw(xs.transpose(0, 1)[:, :, sub], lo, hi, lf)
+    line = _summary(mw, elapsed, torch.arange(sub.numel(), device=device),
+                    sampler="chees", workload="realdata_southchina",
+                    problem=[int(np.size(dobs)), int(M)], nwarmup=W,
+                    RegulFactor=cfg["alpha"], temperature=T,
+                    mean_accept=float(st["accept"].mean()),
+                    step_size=float(st["step_size"]),
+                    trajectory_time=float(st["trajectory_time"]),
+                    mean_L=st["mean_L"],
+                    max_steps_saturated=st["max_steps_saturated"],
+                    grad_evals=int(C * st["L"].sum()),
+                    target_note=(
+                        "calibrated honest posterior (T=2*sigma_hat^2)"
+                        if cfg["temperature"] == "auto" else
+                        "the temperature given"))
+    line["grad_evals_per_total_s"] = line["grad_evals"] / elapsed
+    # the tool's anchors: the reference's realdata samples/s, and that
+    # times the reference kernel's recorded ESS per sample
+    line["vs_baseline_ess"] = (line["ess_per_total_s_median"]
+                               / BASELINE_REALDATA_SAMPLES_PER_S)
+    ref = reference_kernel()
+    if ref is not None:
+        line["vs_reference_kernel_ess"] = (line["ess_per_total_s_median"]
+                                           / ref["ref_hw_ess_per_s"])
+    line.update(extra)
+    tensors = dict(samples=xs, x=st["state"]["x"],
+                   **st["state"]["dual_averaging"],
+                   **{f"adam_{k}": v for k, v in st["state"]["adam"].items()})
+    if extra:
+        tensors["map_mw"] = map_t["mw"]
+    return line, tensors
+
+
+def run(which=DEFAULT, device=None, problem=None, hmc=None, rd=None,
+        rd_problem=None, **overrides):
     """Run the samplers ``which`` on ``device`` (``cuda:0`` when None);
     returns ``{name: (line, tensors)}``: the JSON line's dict and the run's
     tensors (samples, final chain state, adaptation state). ``problem``
     is ``(module, dobs)`` (by default the 600 x 6000 problem built on
     ``device``); ``overrides`` change :data:`SAMPLERS` and ``hmc`` updates
-    :data:`HMC`."""
+    :data:`HMC`. ``realdata`` runs on ``rd_problem`` (by default
+    :func:`~.realdata.build_problem`'s on ``device``) with :data:`REALDATA`
+    updated by ``rd``."""
     device = _device.resolve(device)
     cfg = dict(SAMPLERS, **overrides)
-    problem = problem or uniformgrid.build_problem(device=device)
-    out = {}
     for name in which:
         if name not in STAGES:
             raise ValueError(f"unknown sampler {name!r}; choose from "
                              f"{STAGES}")
-        out[name] = (_hmc(problem, device, dict(HMC, **(hmc or {})),
-                          cfg["nsub"]) if name == "hmc"
-                     else _adaptive(name, problem, device, cfg))
+    if set(which) - {"realdata"}:
+        problem = problem or uniformgrid.build_problem(device=device)
+    out = {}
+    for name in which:
+        if name == "realdata":
+            out[name] = _realdata(
+                rd_problem or realdata.build_problem(device=device), device,
+                dict(REALDATA, **(rd or {})))
+        elif name == "hmc":
+            out[name] = _hmc(problem, device, dict(HMC, **(hmc or {})),
+                             cfg["nsub"])
+        else:
+            out[name] = _adaptive(name, problem, device, cfg)
     return out
 
 
@@ -240,14 +353,18 @@ def profile_chees_iteration(problem, device, step_size, trajectory_time,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("stages", nargs="*", metavar="{nuts,chees,hmc}",
-                    help="the samplers to run (all three by default)")
+    ap.add_argument("stages", nargs="*", metavar="{nuts,chees,hmc,realdata}",
+                    help="the samplers to run (nuts, chees and hmc by "
+                    "default)")
     ap.add_argument("--nsamples", type=int, default=SAMPLERS["nsamples"])
     ap.add_argument("--nwarmup", type=int, default=SAMPLERS["nwarmup"])
     ap.add_argument("--profile", action="store_true",
                     help="after chees, profile one of its iterations")
+    ap.add_argument("--temperature", default=REALDATA["temperature"],
+                    help="realdata's likelihood temperature: 'auto' (2 "
+                    "sigma_hat^2 from the bounded MAP) or a number")
     args = ap.parse_args(argv)
-    stages = args.stages or list(STAGES)
+    stages = args.stages or list(DEFAULT)
     if not set(stages) <= set(STAGES):
         ap.error(f"choose samplers from {STAGES}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,10 +374,14 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    problem = uniformgrid.build_problem(device=device)
+    problem = (uniformgrid.build_problem(device=device)
+               if set(stages) - {"realdata"} else None)
+    temperature = (args.temperature if args.temperature == "auto"
+                   else float(args.temperature))
     for name in stages:
         line, _ = run((name,), device, problem, nsamples=args.nsamples,
-                      nwarmup=args.nwarmup)[name]
+                      nwarmup=args.nwarmup,
+                      rd=dict(temperature=temperature))[name]
         print(json.dumps({"card": card, **line}), flush=True)
         if name == "chees" and args.profile:
             print(json.dumps({"card": card, "profile": "chees iteration",

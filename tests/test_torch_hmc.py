@@ -209,8 +209,30 @@ def test_philox_draws_are_shared_by_all_paths(torch_module, small_module):
     assert torch.equal(runs[3]["samples"], first["samples"])
 
 
+@pytest.mark.parametrize("regularization", ["Smoothness", "TV"])
+def test_fd_regularizers_match_jax_sampler(small_module, torch_module,
+                                           regularization):
+    """Smoothness and TV (which the fused kernels do not take, so both
+    packages run their eager paths) with the JAX draws: the same accept
+    decisions and samples as the JAX sampler's run."""
+    jmod, dobs, _ = small_module
+    jc = _configure(jhmc.HamiltonianMC(jmod), jmod, dobs)
+    jc.regularization = regularization
+    jc.use_fused = False
+    jc.transfer_samples = True
+    res_j = jc.sample(16, 0)
+    tc = _configure(thmc.HamiltonianMC(torch_module), torch_module, dobs)
+    tc.regularization = regularization
+    res_t = tc.sample(16, 0, draws=jax_draws(
+        7, tc.chunk_size, tc.nchains, torch_module.n_active))
+    assert res_t["fused_mode"] == "off"
+    assert res_t["accepted"] == res_j["accepted"]
+    assert res_t["grad_evals"] == res_j["grad_evals"]
+    np.testing.assert_allclose(res_t["samples"].numpy(), res_j["samples"],
+                               rtol=5e-3, atol=5e-4)
+
+
 @pytest.mark.parametrize("attr,value", [
-    ("regularization", "TV"), ("regularization", "Smoothness"),
     ("write_files", True), ("spmd_mesh", object())])
 def test_unported_options_raise(torch_module, small_module, attr, value):
     _, dobs, _ = small_module

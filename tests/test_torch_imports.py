@@ -36,6 +36,9 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.samplers\n"
             "import gravinv3dhmc_tpu_torch.ops.tesseroid\n"
             "import gravinv3dhmc_tpu_torch.runtime.tessglq\n"
+            "import gravinv3dhmc_tpu_torch.ops.fd\n"
+            "import gravinv3dhmc_tpu_torch.inversion.reginv\n"
+            "import gravinv3dhmc_tpu_torch.cg\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
             "or m == 'gravinv3dhmc_tpu']\n"

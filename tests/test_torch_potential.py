@@ -36,7 +36,7 @@ def _modules(small_module, fixed):
 
 @pytest.mark.parametrize("fixed", [False, True])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
-@pytest.mark.parametrize("reg", ["MS", "Damping"])
+@pytest.mark.parametrize("reg", ["MS", "Damping", "Smoothness", "TV"])
 def test_potential_matches_jax(small_module, reg, dtype, tol, fixed):
     jm, tm = _modules(small_module, fixed)
     np.testing.assert_array_equal(tm.Aw, jm.Aw)
@@ -78,8 +78,8 @@ def test_bf16_storage_accumulates_in_f32(small_module):
     np.testing.assert_allclose(Ub.numpy(), Uf.numpy(), rtol=2e-2)
 
 
-@pytest.mark.parametrize("kwargs", [dict(regularization="TV"),
-                                    dict(regularization="Smoothness"),
+@pytest.mark.parametrize("kwargs", [dict(use_wavelet="1D"),
+                                    dict(use_wavelet="3D"),
                                     dict(use_wavelet=True)])
 def test_unported_potentials_raise(small_module, kwargs):
     _, tm = _modules(small_module, False)
