@@ -159,13 +159,16 @@ Phases, one line each (the script stops at the first failure, non-zero):
              called. Then ``draws`` at those runs' shapes (8 and 64 chains
              x 6016) against its plain version, timed
              (``samplers_kernel`` lines; its uniforms bit for bit).
-13. cg     — ``gravinv3dhmc_tpu_torch.cg.run()``'s three stages on the
+13. cg     — ``gravinv3dhmc_tpu_torch.cg.run()``'s four stages on the
              card, one line each with its seconds, the card and its
              launches: ``cg`` (``examples/run.py cg``: float64 CG on the
              1,200 x 12,000 two-dyke problem), ``bootstrap`` (20 float64
-             replicates on the 600 x 6000 problem in one batch) and
-             ``map`` (the float32 bounded MAP on the 576 x 10,676
-             tesseroid problem and its temperature T = 2 sigma_hat^2).
+             replicates on the 600 x 6000 problem in one batch),
+             ``bootstrap_southchina`` (``examples/run.py
+             bootstrap-southchina``: 20 float64 replicates on the 289 x
+             1,579 carved mesh with ``wavelet="1D"``) and ``map`` (the
+             float32 bounded MAP on the 576 x 10,676 tesseroid problem
+             and its temperature T = 2 sigma_hat^2).
              Every returned tensor must be on the card, the histories
              finite, the models inside their box, ``cg``'s data misfit
              below 5 % of its start and its correlation with the truth
@@ -173,8 +176,8 @@ Phases, one line each (the script stops at the first failure, non-zero):
              then each stage against the JAX package's golden numbers
              (``gravinv3dhmc_tpu_torch/golden/reginv_jax.json``, from
              ``tests/reginv_golden.py``), to the tolerances of
-             :data:`GOLDEN` (see there for why ``bootstrap`` and ``map``
-             are held as they are).
+             :data:`GOLDEN` (see there for why the bootstraps and
+             ``map`` are held as they are).
 14. samplers_realdata — the calibrated realdata ChEES
              (``samplers.run(("realdata",))``) at full width (64 chains x
              10,676 cells) at the ``map`` stage's T, cut to 16 warmup and
@@ -183,14 +186,57 @@ Phases, one line each (the script stops at the first failure, non-zero):
              at 64 x 10,752 against its plain version, its uniforms bit
              for bit (``samplers_kernel``).
 
+15. magnetic — the uniformgrid problem's magnetic twin
+             (``uniformgrid.build_problem(field="magnetic")``: the block
+             magnetized at 2 A/m along inclination 50, declination 20
+             degrees, the f64 host ``tf`` matrix, whose columns have both
+             signs): ``refresh``, ``drift``, ``residual``, ``kick``,
+             ``traj_finish`` and ``accept`` against their plain versions at
+             1024 chains on its bf16 op (accept's rejected rows back bit
+             for bit, refresh's K0 within ``KERNEL_RTOL``), then
+             ``uniformgrid.run_magnetic`` at full width (1024 chains, the
+             bf16 iteration op, 3 chunks of 128, box [0, 3]):
+             grad-evals/s, accept, every iteration kernel launched.
+16. wavelet — the uniformgrid gravity problem with ``wavelet="1D"`` and
+             ``"3D"``: one float32 leapfrog step on the card through the
+             CSR products, the transform and its adjoint against the same
+             step in float64 through the dense potential on ``Awcp W``,
+             built from the host DWT of the identity (x, p, U within
+             ``WAVELET_STEP_RTOL``), ``predict`` against the dense ``Aw``
+             (the thresholding's error, < 1e-2), the eager run cut to
+             ``WAVELET_CUT`` (64 chains; ``draws`` once an iteration), and
+             the two sparse products timed beside ``torch.matmul`` with
+             the dense ``Aw``.
+17. magnetic_demo — ``gravinv3dhmc_tpu_torch.magnetic.run()``
+             (``tools/magnetic_demo.py``'s constrained and wide
+             configurations) with the ChEES cut to ``MAGNETIC_CUT``: the
+             bounded MAPs' data misfits move (range > 1e-3 of the first)
+             and stay finite, the tesseroids are built by the native
+             engine, the ChEES statistics are finite with R-hat below
+             ``MAGNETIC_RHAT``, ``draws`` once an iteration; then
+             ``draws`` at the ChEES's 16 x 2,000 cells against its plain
+             version, its uniforms bit for bit (``samplers_kernel``; the
+             wavelet runs' 64 x 6,000 share the samplers' lane width).
+18. prism_device — ``prism_kernel_matrix(backend="jax")`` (torch float64
+             on the card) against the numpy float64 builder at ``cg``'s
+             1,200 x 12,000, within ``PRISM_DEVICE_RTOL`` of max|A| (the
+             JAX package's own device builder's gap, golden
+             ``prism_device``, reported beside it); both builds timed.
+
+Phase 13 also runs ``cg``'s ``bootstrap_southchina`` stage (the carved
+South China mesh, 20 float64 replicates with ``wavelet="1D"``) and holds
+it against its golden entry (see :data:`GOLDEN`).
+
 Slice 1's launch counts are read around phase 6 (bf16 and f32), the
 shared-L card run's in phase 6's reference, the realdata-width f32
 trajectory's in phase 6b and both on the tesseroid matrix in phase 11,
 the unstructured gz build's in phase 7, slice 2's (bf16 and f32) in
 phase 8, the bench's (both stages) in phase 11, the samplers' (``draws``:
 ChEES's and the honest HMC's) in phase 12, the deterministic stages' in
-phase 13 (their products are ``torch.matmul``, so none) and the realdata
-ChEES's in phase 14: these runs' counts make the
+phase 13 (their products are ``torch.matmul``, so none), the realdata
+ChEES's in phase 14, the magnetic stage's in phase 15, the wavelet
+runs' in phase 16 and the magnetic demo's ChEES's in phase 17: these
+runs' counts make the
 ``launches`` of the kernels line. ``draws``
 and ``refresh`` are bounded by the issued
 instructions of their Philox and Box-Muller, counted in phase 1; ``draws``'s
@@ -1666,10 +1712,33 @@ def phase_samplers_kernel(torch, tlf, dev, M, chains):
 #:   and at most 2 data_hist[0] (the level set's bound on the mean-removed
 #:   misfit); T's gap to the JAX package's is reported in the line, not
 #:   held.
+#: ``bootstrap_southchina`` — float64 ``BootStrap`` with ``wavelet="1D"``
+#:   on the carved South China mesh (the solve reads the dense matrix, as
+#:   the JAX package's does): its data misfits grow rounding about tenfold
+#:   an iteration, and the JAX package's own batch-1 and batch-5 runs part
+#:   from its one-batch run by more than 1e-6 at iteration 7 to 11 and
+#:   move its summaries by 3.3 % (std max) and 13.6 % (mean max). So: the
+#:   mesh, the carved cell count and ``Awcp``'s shape and nonzeros equal
+#:   the golden's, the same iteration counts, the first ``prefix`` data
+#:   misfits within ``rtol`` with the same alpha decays among them, and
+#:   each summary within ``spread`` times the JAX package's own spread.
 GOLDEN = {"cg": dict(rtol=1e-6),
           "bootstrap": dict(rtol=1e-6, prefix=50, spread=4.0),
+          "bootstrap_southchina": dict(rtol=1e-6, prefix=6, spread=4.0),
           "map": dict(rtol=1e-6, prefix=40, prefix_rtol=1e-5, moved=1e-3,
                       level_set=1e-4)}
+
+
+def load_golden():
+    """The JAX package's golden numbers
+    (``gravinv3dhmc_tpu_torch/golden/reginv_jax.json``)."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "gravinv3dhmc_tpu_torch", "golden",
+                        "reginv_jax.json")
+    with open(path) as f:
+        return json.load(f)
 
 
 def rel_gap(a, b):
@@ -1702,7 +1771,7 @@ def golden_checks(name, line, hist, golden):
             gaps[k] = rel_gap(line[k], g[k])
         checks.update({f"{k} within {tol['rtol']}": v <= tol["rtol"]
                        for k, v in gaps.items()})
-    elif name == "bootstrap":
+    elif name.startswith("bootstrap"):
         n = tol["prefix"]
         checks["n_iters"] = line["n_iters"] == g["n_iters"]
         d_h = hist["data_hist"]
@@ -1719,10 +1788,13 @@ def golden_checks(name, line, hist, golden):
              np.abs(d_h / np.asarray(g["data_hist"]) - 1)
              if (r > tol["rtol"]).any()), default=-1) \
             if d_h.shape == np.shape(g["data_hist"]) else None
-        for k in ("mean_model_max", "std_model_max", "RMSM"):
+        for k in g["self_spread"]:
             gaps[k] = rel_gap(line[k], g[k])
             bound = tol["spread"] * g["self_spread"][k]
             checks[f"{k} within {bound:.3g}"] = gaps[k] <= bound
+        for k in ("mesh_shape", "carved_cells", "Awcp"):
+            if k in g:
+                checks[f"{k} as the golden's"] = line[k] == g[k]
     else:
         D, M = line["problem"]
         checks["n_iters"] = line["n_iters"] == g["n_iters"]
@@ -1761,15 +1833,9 @@ def phase_cg(torch, tlf, dev, smi, rd_problem):
     """``cg.run()``'s three stages on the card, each with its launches
     counted from 0 just before it, held as :data:`GOLDEN` says; returns
     the stages' lines."""
-    import os
-
     from gravinv3dhmc_tpu_torch import cg
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "gravinv3dhmc_tpu_torch", "golden",
-                        "reginv_jax.json")
-    with open(path) as f:
-        golden = json.load(f)
+    golden = load_golden()
     lines = {}
     for name in cg.STAGES:
         sync(torch)
@@ -1784,13 +1850,15 @@ def phase_cg(torch, tlf, dev, smi, rd_problem):
         checks.update({f"{k} on the card": v.is_cuda
                        for k, v in tensors.items()})
         d_h = np.asarray(hist["data_hist"])
-        if name == "bootstrap":
+        if name.startswith("bootstrap"):
             checks["finite histories"] = all(
                 np.isfinite(row[:n - 1]).all()
                 for row, n in zip(d_h, line_["n_iters"]))
             models = hist["models"]
+            lo, hi = ((0.0, 1.0) if name == "bootstrap"
+                      else cg.SOUTHCHINA["boundary"])
             checks["models in the box"] = bool(
-                (models >= -1e-12).all() and (models <= 1 + 1e-12).all())
+                (models >= lo - 1e-12).all() and (models <= hi + 1e-12).all())
         else:
             checks["finite histories"] = bool(np.isfinite(d_h).all())
         if name == "cg":
@@ -1854,14 +1922,256 @@ def phase_samplers_realdata(torch, tlf, dev, smi, rd_problem, T):
     return counts
 
 
+def phase_magnetic(torch, tlf, dev, smi):
+    """The magnetic uniformgrid stage: the six iteration kernels against
+    their plain versions on the magnetic matrix (columns of both signs),
+    then ``uniformgrid.run_magnetic`` at full width (1024 chains, the bf16
+    iteration op), its launches counted from 0 just before it; returns
+    them."""
+    from gravinv3dhmc_tpu_torch import uniformgrid
+
+    t0 = time.perf_counter()
+    cfg = uniformgrid.MAGNETIC
+    problem = uniformgrid.build_problem(device=dev, field="magnetic",
+                                        mangle=cfg["mangle"])
+    module, dobs = problem
+    line("magnetic_problem", seconds=time.perf_counter() - t0,
+         shape=[int(dobs.size), module.n_active],
+         A_range=[float(module.A.min()), float(module.A.max())])
+    if not (module.A.min() < 0 < module.A.max()):
+        fail("magnetic: the matrix's columns should have both signs")
+    op = tlf.make_fused_iteration(
+        *fused_args(module, dobs, high=cfg["box"][1]), regularization="MS",
+        beta=0.001, Sigma=0.001, matvec_dtype=torch.bfloat16, device=dev)
+    C = uniformgrid.SLICE["nchains"]
+    cases = {k: v for k, v in kernel_cases(torch, op, C, dev).items()
+             if k in tlf.ITERATION_KERNELS}
+    run_kernel_cases(torch, tlf, cases, [C, op.Dp, op.Mp], "magnetic_kernel")
+    del op
+    path = tlf.path_kernels(tlf.ITERATION_KERNELS, torch.bfloat16)
+    sync(torch)
+    tlf.reset_launch_counts()
+    stage, res = uniformgrid.run_magnetic(dev, problem)
+    sync(torch)
+    counts = tlf.launch_counts()
+    finite = bool(torch.isfinite(res["samples"]).all())
+    line("magnetic", card=smi, **stage, finite=finite,
+         launches={n: counts[n] for n in path})
+    missing = [n for n in path if counts[n] <= 0]
+    if missing or not finite or not 0 < stage["accept_ratio"] <= 1:
+        fail(f"magnetic: kernels never launched {missing}, finite "
+             f"{finite}, accept {stage['accept_ratio']}")
+    if not stage["fused_mode"].startswith("iteration"):
+        fail(f"magnetic: ran {stage['fused_mode']}, not the iteration op")
+    return counts
+
+
+#: the wavelet stage's cut: stored iterations (two chunks of 32)
+WAVELET_CUT = dict(nsamples=32, ndraws=32)
+#: one leapfrog step in float32 on the sparse path against the float64
+#: dense reference: x, p and U within this of max|value|
+WAVELET_STEP_RTOL = 1e-4
+
+
+def wavelet_dense(torch, module, dev, chunk=500):
+    """``Awcp W`` as a dense (D, M) float64 tensor on ``dev``: the host
+    DWT (``dwt1d``/``dwt3d``, the JAX package's bit for bit) of the
+    identity's rows, in chunks, times the dense ``Awcp``. It shares no code
+    with the card's transform, its adjoint or the CSR products."""
+    from gravinv3dhmc_tpu_torch.ops import wavelet
+
+    M = module.n_active
+    rows = []
+    for i in range(0, M, chunk):
+        n = min(chunk, M - i)
+        e = np.zeros((n, M))
+        e[np.arange(n), i + np.arange(n)] = 1.0
+        rows.append(wavelet.dwt1d(e) if module.wavelet == "1D" else
+                    wavelet.dwt3d(e.reshape(n, *module.mshape)))
+    Wt = torch.as_tensor(np.concatenate(rows), device=dev)  # (M, K): W^T
+    return torch.as_tensor(module.Awcp.toarray(), device=dev) @ Wt.T
+
+
+def leapfrog_step(pot, x, p, dt, dtype):
+    """One leapfrog step (half kick, drift, half kick) on ``pot`` in
+    ``dtype``; returns x', p' and U(x')."""
+    x, p = x.to(dtype), p.to(dtype)
+    p = p - 0.5 * dt * pot(x, 1.0)[1]
+    x = x + dt * p
+    U, g = pot(x, 1.0)[:2]
+    return x, p - 0.5 * dt * g, U
+
+
+def phase_wavelet(torch, tlf, dev, smi):
+    """The wavelet stages, 1D and 3D, on the uniformgrid problem: one
+    leapfrog step of the card (float32, the CSR products, the transform
+    and its adjoint) against the same step in float64 through the
+    module's dense potential on :func:`wavelet_dense`'s ``Awcp W``;
+    ``predict`` against the dense ``Aw`` (the thresholding's
+    error, reported); the eager run cut to :data:`WAVELET_CUT`, its
+    launches counted from 0 just before it; the two sparse products
+    against ``torch.matmul`` with the dense ``Aw``. Returns the runs'
+    summed launch counts."""
+    from gravinv3dhmc_tpu_torch import uniformgrid
+
+    total = {name: 0 for name in tlf.KERNELS}
+    for mode in ("1D", "3D"):
+        t0 = time.perf_counter()
+        problem = uniformgrid.build_problem(device=dev, wavelet=mode)
+        module, dobs = problem
+        build_s = time.perf_counter() - t0
+        M = module.n_active
+        w = torch.as_tensor(module.wdiag, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = (0.3 + 0.05 * torch.randn(64, M, generator=gen, device=dev,
+                                      dtype=torch.float64)) * w
+        p = 1e-3 * torch.randn(64, M, generator=gen, device=dev,
+                               dtype=torch.float64)
+        wd = module.wdiag
+        pot_args = (wd * 0.001, 0 * wd, wd)
+        pot_kw = dict(regularization="MS", beta=0.001)
+        card = leapfrog_step(module.make_potential(*pot_args, **pot_kw,
+                                                   dtype=torch.float32),
+                             x, p, 0.01, torch.float32)
+        ref_pot = module.make_potential(*pot_args, **pot_kw,
+                                        dtype=torch.float64,
+                                        use_wavelet=False)
+        ref_pot.params["Aw"] = wavelet_dense(torch, module, dev)
+        ref = leapfrog_step(ref_pot, x, p, 0.01, torch.float64)
+        del ref_pot
+        errs = {k: rel_err(a.double(), b)[1]
+                for k, a, b in zip(("x", "p", "U"), card, ref)}
+        module64 = module.device_arrays(torch.float64)
+        d_sparse = (module.predict(x.float()).double())
+        d_dense = x @ module64["Aw"].T
+        threshold_err = rel_err(d_sparse, d_dense)[1]
+        sync(torch)
+        tlf.reset_launch_counts()
+        stage, res = uniformgrid.run_wavelet(dev, mode, problem, **{
+            k: v for k, v in WAVELET_CUT.items()})
+        sync(torch)
+        counts = tlf.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        products = uniformgrid.time_products(module, dev,
+                                             uniformgrid.WAVELET["nchains"],
+                                             rounds=3)
+        finite = bool(torch.isfinite(res["samples"]).all())
+        line("wavelet", card=smi, build_s=build_s, step_rel_err=errs,
+             predict_vs_dense_rel_err=threshold_err, products_ms=products,
+             finite=finite, reduced={k: [uniformgrid.WAVELET[k], v]
+                                     for k, v in WAVELET_CUT.items()},
+             launches={k: v for k, v in counts.items() if v}, **stage)
+        iters = stage["iterations"]
+        checks = {"step within rtol": max(errs.values()) <= WAVELET_STEP_RTOL,
+                  "eager path": stage["fused_mode"] == "off",
+                  "one draws launch an iteration": counts["draws"] == iters,
+                  "finite": finite,
+                  "accept in (0, 1]": 0 < stage["accept_ratio"] <= 1,
+                  "compressed close to dense": threshold_err < 1e-2}
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"wavelet {mode}: {bad}")
+    return total
+
+
+#: the magnetic demo's ChEES cut (the demo runs 192 + 256 in blocks of
+#: 32): at phase 14's 16 + 16 the split R-hat over the 2,000 cells of 16
+#: chains stays far above 1.2 (1.70 on the H100), at 64 + 64 it falls
+#: below
+MAGNETIC_CUT = dict(nwarmup=64, nsamples=64, chunk_iters=32)
+#: the ChEES's R-hat bound (the cut run's, the largest over every cell)
+MAGNETIC_RHAT = 1.2
+
+
+def phase_magnetic_demo(torch, tlf, dev, smi):
+    """``magnetic.run()`` (``tools/magnetic_demo.py``'s two
+    configurations) with the ChEES cut to :data:`MAGNETIC_CUT`, its
+    launches counted from 0 just before it; returns them and the ChEES's
+    cell count."""
+    from gravinv3dhmc_tpu_torch import magnetic
+
+    sync(torch)
+    tlf.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, tensors, hists = magnetic.run(dev, chees=MAGNETIC_CUT)
+    sync(torch)
+    counts = tlf.launch_counts()
+    reduced = {k: [magnetic.WIDE["chees"][k], v]
+               for k, v in MAGNETIC_CUT.items()}
+    print(json.dumps({"phase": "magnetic_demo", "seconds":
+                      time.perf_counter() - t0, "card": smi, **res,
+                      "reduced": reduced,
+                      "launches": {k: v for k, v in counts.items() if v}}),
+          flush=True)
+    checks = {}
+    for name, h in hists.items():
+        d_h = np.asarray(h["data_hist"])
+        checks[f"{name} MAP moved"] = bool(np.ptp(d_h) > 1e-3 * d_h[0])
+        checks[f"{name} MAP finite"] = bool(np.isfinite(d_h).all())
+        checks[f"{name} MAP on the card"] = \
+            res[name]["bounded_map"]["m_on_card"]
+        checks[f"{name} native tesseroids"] = \
+            res[name]["tess_backend"] == "native"
+    ch = res["wide_nonunique"]["honest_chees"]
+    checks["ChEES finite"] = all(bool(np.isfinite(ch[k])) for k in (
+        "accept", "posterior_truth_corr", "coverage_2std",
+        "mean_posterior_std", "rhat_max", "step_size", "mean_L"))
+    checks[f"ChEES R-hat < {MAGNETIC_RHAT}"] = ch["rhat_max"] < MAGNETIC_RHAT
+    checks["ChEES tensors on the card"] = all(
+        v.is_cuda for v in tensors["wide_nonunique"].values())
+    checks["one draws launch an iteration"] = \
+        counts["draws"] == ch["nwarmup"] + ch["nsamples"]
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"magnetic_demo: {bad}")
+    return counts, res["wide_nonunique"]["problem"][1]
+
+
+#: the f64 device prism builder against the numpy one, relative to
+#: max|A| (the JAX package's own device builder, XLA on the CPU, is
+#: 4.24e-12 from its numpy one at this size: the golden ``prism_device``
+#: entry, reported beside the card's gap)
+PRISM_DEVICE_RTOL = 1e-12
+
+
+def phase_prism_device(torch, dev, smi):
+    """``prism_kernel_matrix(backend="jax")`` (torch float64 on the card)
+    against the numpy float64 builder at ``cg``'s 1,200 x 12,000, within
+    :data:`PRISM_DEVICE_RTOL` of max|A|; both builds timed."""
+    from gravinv3dhmc_tpu_torch import cg
+    from gravinv3dhmc_tpu_torch.ops import prism
+
+    wl = cg.twodykes()
+    t0 = time.perf_counter()
+    A_host = prism.prism_kernel_matrix("gz", *wl["obs"], wl["mesh"])
+    host_s = time.perf_counter() - t0
+    timings = {}
+    sync(torch)
+    t0 = time.perf_counter()
+    A_dev = prism.prism_kernel_matrix("gz", *wl["obs"], wl["mesh"],
+                                      backend="jax", device=dev,
+                                      timings=timings)
+    dev_s = time.perf_counter() - t0
+    err = float(np.abs(A_dev - A_host).max() / np.abs(A_host).max())
+    golden = load_golden()["prism_device"]
+    line("prism_device", card=smi, shape=list(A_host.shape),
+         host_build_s=host_s, device_build_s=dev_s, **timings,
+         rel_err=err, jax_self_gap=golden["self_gap"],
+         dtype=str(A_dev.dtype))
+    if A_dev.dtype != np.float64 or not err <= PRISM_DEVICE_RTOL:
+        fail(f"prism_device: rel err {err} > {PRISM_DEVICE_RTOL} or dtype "
+             f"{A_dev.dtype}")
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from gravinv3dhmc_tpu_torch import (ratiogrid, realdata, samplers, sass,
-                                        uniformgrid)
+    from gravinv3dhmc_tpu_torch import (magnetic, ratiogrid, realdata,
+                                        samplers, sass, uniformgrid)
     from gravinv3dhmc_tpu_torch.ops import _cuda, philox
     from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
 
@@ -1972,16 +2282,30 @@ def main():
                           (samplers.REALDATA["nchains"],))
     del rd_problem
 
+    counts_mag = phase_magnetic(torch, tlf, dev, smi)
+    with plain:
+        counts_wav = phase_wavelet(torch, tlf, dev, smi)
+        counts_mag_demo, M_demo = phase_magnetic_demo(torch, tlf, dev, smi)
+    if plain.calls:
+        fail(f"the wavelet and magnetic samplers called the plain Philox "
+             f"{plain.calls} times")
+    # the wavelet runs' 64 x 6,000 pad to the samplers' 64 x 6,016
+    phase_samplers_kernel(torch, tlf, dev, M_demo,
+                          (magnetic.WIDE["chees"]["nchains"],))
+    phase_prism_device(torch, dev, smi)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
     # the shared-L card run, the realdata-width trajectories (synthetic,
     # then the stage's matrix without and with a metric), the unstructured
     # gz build, both ratiogrid slices, the bench's two stages, the
-    # samplers and the realdata ChEES (the deterministic stages launch none)
+    # samplers, the realdata ChEES (the deterministic stages launch none),
+    # the magnetic uniformgrid stage, the wavelet stages and the magnetic
+    # demo's ChEES
     runs = (counts, counts_f32, counts3, counts_rd, *counts_rd_real,
             counts_gz, counts2, counts2_f32, counts_bench, counts_samplers,
-            counts_rd_chees)
+            counts_rd_chees, counts_mag, counts_wav, counts_mag_demo)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

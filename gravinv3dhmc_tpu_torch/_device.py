@@ -26,3 +26,19 @@ def resolve(device=None):
             f"on {DEFAULT} by default; pass device='cpu' to run the plain "
             f"PyTorch versions on the CPU")
     return torch.device(DEFAULT)
+
+
+def sync(device):
+    """Wait for ``device``'s queued work; nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card():
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]

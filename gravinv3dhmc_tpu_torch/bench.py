@@ -55,7 +55,6 @@ import torch
 from . import _device, realdata, uniformgrid
 from .diagnostics import ess_torch, median
 from .ops import leapfrog
-from .uniformgrid import _sync
 
 METRIC = "uniformgrid leapfrog grad-evals/s/chip"
 BASELINE_GRAD_EVALS_PER_S = 440.0  # 2 chains x ~220/s (BASELINE.md)
@@ -117,7 +116,7 @@ def uniformgrid_stage(device, stage, problem=None):
     seed = chain.seed
     before = leapfrog.launch_counts()
     carry, _ = run_chunk(carry, seed, 0)
-    _sync(device)
+    _device.sync(device)
     stage("warmup chunk ran")
 
     # counters summed on the card, one read after the last chunk; the
@@ -230,7 +229,7 @@ def realdata_stage(device, stage, problem=None):
     stage("realdata sampler configured (adaptive warmup on)")
     before = leapfrog.launch_counts()
     out = chain.sample(nsamples, 0)
-    _sync(device)
+    _device.sync(device)
     launches = _launches(before)
     stage(f"realdata adaptive run done ({out['elapsed_s']:.1f}s, "
           f"accept {out['accept_ratio']:.2f})")

@@ -26,7 +26,8 @@ draws through it, and on the fused paths they enter as ``refresh``'s and
 ``accept``'s inputs.
 
 Configurations the fused ops do not take (the 'logarithmic' or
-'reflective' constraint, a Jacobian, a temperature other than 1) run, as
+'reflective' constraint, a Jacobian, a temperature other than 1, a
+wavelet-compressed kernel) run, as
 in the JAX package, on the eager path: by default one trajectory length
 per chain (the JAX package's masked-L scan: steps past a chain's L pass
 its state through; the loop stops at the longest L, past which every
@@ -451,11 +452,14 @@ class HamiltonianMC:
         configuration the fused kernels do not take (the JAX package's
         rule: a constraint other than 'mandatory', a Jacobian, a
         temperature other than 1, a regularizer other than MS or
-        Damping), which then runs on the eager path (``_fused_mode``
+        Damping, a module whose potential runs on the wavelet-compressed
+        kernel), which then runs on the eager path (``_fused_mode``
         "off")."""
         if (self.constraint != "mandatory"
                 or self.regularization not in ("MS", "Damping")
-                or self.jacobian or float(self.temperature) != 1.0):
+                or self.jacobian or float(self.temperature) != 1.0
+                or (getattr(self.model, "Awcp", None) is not None
+                    and self.model.wavelet)):
             self._fused_mode = "off"
             return None, None
         mv = self.fused_matvec_dtype or torch.bfloat16

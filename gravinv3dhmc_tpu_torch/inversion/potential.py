@@ -1,26 +1,35 @@
-"""Misfit/gradient provider for gravity, in PyTorch.
+"""Misfit/gradient provider for gravity and magnetics, in PyTorch.
 
-Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py`` for the
-uniformgrid, ratiogrid and realdata slices, the adaptive samplers and the
-deterministic inversion: ``sensitivity_weighting``, :class:`GravMagModule`
-for ``field="gravity"`` on cartesian prism meshes (uniform, ratio or
-per-segment depth spacing; the f64 host or f32 device matrix builder) and
-spherical tesseroid meshes (uniform or per-segment; the f64 host
-tesseroid builder, :mod:`..ops.tesseroid`), with topography carving and
-the frozen-cell ``grav_fix`` correction, and ``make_potential`` with the
-MS, Damping, Smoothness or TV regularizer under the 'mandatory',
-'reflective' (both the identity transform) or 'logarithmic' constraint
-(the logistic box transform, :func:`logistic_to_mw`), at a likelihood
-temperature and, under 'logarithmic', with the transform's log-Jacobian.
-For the CG solvers (:mod:`.reginv`) the module also has the JAX one's
-``kernelw``, ``device_arrays`` (the matrix and the data on the module's
-device, one copy a dtype), ``predict`` and ``_active3d``.
+Counterpart of ``gravinv3dhmc_tpu/inversion/potential.py``:
+``sensitivity_weighting`` and :class:`GravMagModule` for ``field="gravity"``
+or ``"magnetic"`` (the total field) on cartesian prism meshes (uniform,
+ratio or per-segment depth spacing) and spherical tesseroid meshes
+(uniform or per-segment), with topography carving, the frozen-cell
+``grav_fix`` correction and the wavelet-compressed kernel (``wavelet`` or
+``wavelet_mode`` "1D" or "3D", :mod:`..ops.wavelet`), and
+``make_potential`` with the MS, Damping, Smoothness or TV regularizer
+under the 'mandatory', 'reflective' (both the identity transform) or
+'logarithmic' constraint (the logistic box transform,
+:func:`logistic_to_mw`), at a likelihood temperature and, under
+'logarithmic', with the transform's log-Jacobian. For the CG solvers
+(:mod:`.reginv`) the module also has the JAX one's ``kernelw``,
+``device_arrays`` (the matrix and the data on the module's device, one
+copy a dtype), ``predict`` and ``_active3d``.
+
+The kernel matrix: prism gz from the f64 host builder, the torch device
+builder (``kernel_backend="jax"``, f64) or the f32 CUDA gz kernels
+(``"pallas"``); the prism total field (:func:`..ops.prism.tf`) and every
+tesseroid field (the native f64 engine, :mod:`..ops.tesseroid`) on the
+host in f64, as in the JAX package.
 
 The JAX package differentiates a scalar potential with
 ``jax.value_and_grad``; here the gradient is written out. With
 ``r = (d - mean d) - dobs_c`` and ``d = A mw + fix`` the data term
 ``sum r^2`` has gradient ``2 A^T (r - mean r)`` (the transpose of the
-mean-removal projector), and the regularizer gradients are
+mean-removal projector); with the wavelet kernel ``d = Awcp W mw + fix``
+and the gradient is ``W^T Awcp^T 2 (r - mean r)``, the adjoint of the
+transform written out (:meth:`..ops.wavelet.ModelTransform.adjoint`) and
+``Awcp^T`` kept as a CSR tensor of its own. The regularizer gradients are
 ``2 dm`` (Damping), ``wm_sq * 2 beta dm / (dm^2 + beta)^2`` (MS) and the
 adjoints of the finite differences (Smoothness, TV: :mod:`..ops.fd`; on
 a carved mesh the active cells are scattered to the full grid, and the
@@ -29,9 +38,10 @@ Under 'logarithmic', ``mw = low + (high - low) s`` with ``s = sigmoid(kx)``,
 so the mw-gradient is chained through ``dmw/dx = (high - low) k s s'``
 with ``s' = sigmoid(-kx)`` (not ``1 - s``, which is 0 once ``s`` rounds to
 1 at large kx), and the Jacobian term ``softplus(kx) + softplus(-kx) -
-log((high - low) k)`` adds ``k (s - s')``. Products with the matrix are
-IEEE float32 ``torch.matmul`` on the card (TF32 stays off: PyTorch's
-default for matmul, ``torch.backends.cuda.matmul.allow_tf32`` False).
+log((high - low) k)`` adds ``k (s - s')``. Dense products with the matrix
+are IEEE float32 ``torch.matmul`` on the card (TF32 stays off: PyTorch's
+default for matmul, ``torch.backends.cuda.matmul.allow_tf32`` False);
+the wavelet products are ``torch.sparse`` CSR products.
 
 Every other option raises ``NotImplementedError`` naming the ROADMAP.md
 item that brings it.
@@ -39,6 +49,7 @@ item that brings it.
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -47,6 +58,8 @@ from torch import nn
 from .. import mesher
 from .._device import resolve
 from ..ops import fd, prism, tesseroid
+from ..ops import wavelet as wavelet_ops
+from ..utils.units import ang2vec
 
 CONSTRAINTS = ("mandatory", "logarithmic", "reflective")
 
@@ -124,39 +137,73 @@ def model_value_and_grad(regularization, dm, wm_sq, beta, mshape,
     return u, g[..., active_idx]
 
 
+def sparse_pair(Awcp, dtype, device):
+    """``{"Awcp", "AwcpT"}``: the scipy matrix and its transpose as torch
+    CSR tensors of ``dtype`` on ``device``. The transpose has a CSR copy of
+    its own, so the gradient's product is a CSR product too."""
+    def csr(m):
+        m = m.tocsr()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+            return torch.sparse_csr_tensor(
+                torch.as_tensor(m.indptr, dtype=torch.int64),
+                torch.as_tensor(m.indices, dtype=torch.int64),
+                torch.as_tensor(m.data, dtype=dtype), size=m.shape,
+                device=device, check_invariants=False)
+    return {"Awcp": csr(Awcp), "AwcpT": csr(Awcp.T)}
+
+
+def spmm(S, v):
+    """``S v`` on the last axis of ``v`` (..., K) for a CSR ``S`` (D, K):
+    (..., D), one CSR product with the batch as columns."""
+    K = v.shape[-1]
+    cols = v.reshape(-1, K).T.contiguous()
+    return (S @ cols).T.reshape(v.shape[:-1] + (S.shape[0],))
+
+
 def _unported(what, item):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, {item})")
 
 
 class GravMagModule:
-    """Builds the gravity kernel and its weighting; provides the potential.
+    """Builds the kernel and its weighting; provides the potential.
 
-    The constructor keeps the JAX package's signature. Gravity is ported
-    on both coordinates: cartesian prisms (:class:`~..mesher.PrismMesh`,
-    or :class:`~..mesher.PrismMeshSegment` with ``mseg``) and spherical
+    The constructor keeps the JAX package's signature. Gravity and the
+    total magnetic field (``field="magnetic"``, ``mangle=(inc, dec)`` in
+    degrees: the column of a cell is the anomaly of a unit magnetization
+    induced along the regional field) are ported on both coordinates:
+    cartesian prisms (:class:`~..mesher.PrismMesh`, or
+    :class:`~..mesher.PrismMeshSegment` with ``mseg``) and spherical
     tesseroids (:class:`~..mesher.TesseroidMesh`, or
     :class:`~..mesher.TesseroidMeshSegment` with ``mseg`` and
     ``mdivisionsection``). Any extra keyword argument is the topography
     triple ``mtopo = (x, y, height)``, as in the JAX package: the mesh is
     carved under it, ``mask`` lists the carved cells and ``topocarve`` is
-    set. ``fixed`` with ``grav_fix`` adds the frozen cells' data. The
-    other arguments must keep their defaults.
+    set. ``fixed`` with ``grav_fix`` adds the frozen cells' data.
+    ``wavelet`` (or ``wavelet_mode``) "1D" or "3D" also thresholds the
+    weighted kernel's wavelet coefficients into ``Awcp`` (scipy CSR, f64,
+    on the host; :mod:`..ops.wavelet`), which :meth:`predict` and
+    :meth:`make_potential` use by default; a 3D wavelet needs the full
+    grid, so a carved mesh refuses it (``ValueError``, as the JAX module
+    fails in its reshape). ``kernel_device`` and ``kernel_cache`` raise
+    ``NotImplementedError``.
 
     ``device`` (by default ``cuda:0``, see
     :mod:`~gravinv3dhmc_tpu_torch._device`) is where
-    :meth:`make_potential` puts its tensors and, for prisms with
-    ``kernel_backend="pallas"``, where the f32 matrix is built (the CUDA
-    gz kernels, see :func:`~..ops.prism.prism_kernel_matrix`); the
-    weighting then runs in numpy on the f32 matrix, as in the JAX package,
-    so ``wdiag`` and ``Aw`` are f32 too. A tesseroid matrix is built in
-    f64 on the host by the native engine (numpy with a warning when it
-    cannot be built), as in the JAX package; ``tess_backend`` says which
-    ran. ``kernel_build_s`` is the builder's wall time, the copy to the
-    host included; ``build_seconds`` splits the build: the device
-    builder's ``gz_kernel_s`` (on a GPU) and ``to_host_s`` (see
-    :func:`~..ops.prism.prism_kernel_matrix`), and ``weighting_s``, the
-    wall time of :func:`sensitivity_weighting`.
+    :meth:`make_potential` puts its tensors and, for prism gz with
+    ``kernel_backend="jax"`` (f64) or ``"pallas"`` (f32, the CUDA gz
+    kernels), where the matrix is built (see
+    :func:`~..ops.prism.prism_kernel_matrix`); the weighting then runs in
+    numpy on the returned matrix, as in the JAX package. A tesseroid
+    matrix is built in f64 on the host by the native engine (numpy with a
+    warning when it cannot be built), as in the JAX package;
+    ``tess_backend`` says which ran. ``kernel_build_s`` is the builder's
+    wall time, the copy to the host included; ``build_seconds`` splits the
+    build: the device builders' timings (see
+    :func:`~..ops.prism.prism_kernel_matrix`), ``weighting_s``, the wall
+    time of :func:`sensitivity_weighting`, and ``wavelet_s``, the
+    compressor's.
     """
 
     def __init__(self, dobs, mrange, mspacing, obsurface, fixed=False,
@@ -170,10 +217,10 @@ class GravMagModule:
             raise ValueError(
                 "Please choose coordinate from(cartesian, spherical) and "
                 "field from(gravity, magnetic)!")
-        if field != "gravity":
-            raise _unported(f"{coordinate} {field}", "item 9")
-        if wavelet or wavelet_mode:
-            raise _unported("wavelet compression", "item 8")
+        if field not in ("gravity", "magnetic"):
+            raise ValueError(
+                "Please choose coordinate from(cartesian, spherical) and "
+                "field from(gravity, magnetic)!")
         if kernel_device:
             raise _unported("the device tesseroid builder (kernel_device)",
                             "item 12")
@@ -191,6 +238,9 @@ class GravMagModule:
         self.weightfactor = weightfactor
         self.coordinate = coordinate
         self.field = field
+        self.inc, self.dec = mangle
+        # the reference passes the mode under the name 'wavelet'
+        self.wavelet = wavelet_mode if wavelet_mode is not None else wavelet
         self.dtype = dtype
         self.device = resolve(device)
         self.lonobs = np.asarray(obsurface[0], dtype=np.float64)
@@ -215,21 +265,35 @@ class GravMagModule:
             self.mask = mesh.carvetopo(mtopo[0], mtopo[1], mtopo[2])
         self.mesh = mesh
         self.mshape = mesh.shape
+        if self.wavelet == "3D" and not mesh.active.all():
+            raise ValueError(
+                f"a 3D wavelet needs the full {mesh.shape} grid: the "
+                f"carved mesh keeps {int(mesh.active.sum())} of {mesh.size} "
+                "cells, and the 3D compressor reshapes the packed kernel to "
+                "the grid; use wavelet='1D'")
         start = time.time()
-        mesh.addprop("density", np.zeros(mesh.size))
         self.build_seconds = {}
         self.tess_backend = None
-        if coordinate == "spherical":
-            info = {}
+        info = {}
+        if field == "magnetic":
+            mesh.addprop("magnetization",
+                         ang2vec(np.zeros(mesh.size), self.inc, self.dec))
+            builder = tesseroid if coordinate == "spherical" else prism
+            kw = {"info": info} if coordinate == "spherical" else {}
+            _, kernel = builder.tf(self.lonobs, self.latobs, self.heightobs,
+                                   mesh, self.inc, self.dec, **kw)
+        elif coordinate == "spherical":
+            mesh.addprop("density", np.zeros(mesh.size))
             kernel = tesseroid.tesseroid_kernel_matrix(
                 "gz", self.lonobs, self.latobs, self.heightobs, mesh,
                 info=info)
-            self.tess_backend = info["tess_backend"]
         else:
+            mesh.addprop("density", np.zeros(mesh.size))
             kernel = prism.prism_kernel_matrix(
                 "gz", self.lonobs, self.latobs, self.heightobs, mesh,
                 backend=kernel_backend, device=self.device,
                 timings=self.build_seconds)
+        self.tess_backend = info.get("tess_backend")
         self.kernel_build_s = time.time() - start
         if verbose:
             print("End of calculate kernel:%.6f s" % (time.time() - start))
@@ -244,6 +308,20 @@ class GravMagModule:
         # the active-cell grid of a carved mesh (Smoothness and TV)
         self._active3d = (mesh.active.reshape(mesh.shape)
                           if not mesh.active.all() else None)
+        # the wavelet-compressed kernel, thresholded in f64 on the host
+        self.Awcp = None
+        self._model_transform = None
+        if self.wavelet in ("1D", "3D"):
+            if verbose:
+                print(f"Using {self.wavelet} wavelet to compress kernel.")
+            t0 = time.perf_counter()
+            if self.wavelet == "1D":
+                self.Awcp = wavelet_ops.kernelcompressor_1d(Aw)
+            else:
+                self.Awcp = wavelet_ops.kernelcompressor_3d(Aw, self.mshape)
+            self._model_transform = wavelet_ops.make_model_transform(
+                mshape=self.mshape, mode=self.wavelet)
+            self.build_seconds["wavelet_s"] = time.perf_counter() - t0
         self._dev = {}
 
     def kernelw(self):
@@ -254,7 +332,9 @@ class GravMagModule:
     def device_arrays(self, dtype=None):
         """``{"Aw", "dobs", "grav_fix"}`` as tensors of ``dtype`` (the
         module's by default) on the module's device, made once a dtype
-        (``grav_fix`` is None without frozen cells)."""
+        (``grav_fix`` is None without frozen cells); with a wavelet kernel
+        also ``"Awcp"`` and its transpose ``"AwcpT"``, CSR tensors cast
+        from the f64 thresholded matrix (so both hold its nonzero set)."""
         dtype = dtype or self.dtype
         if dtype not in self._dev:
             def dev(a):
@@ -263,16 +343,25 @@ class GravMagModule:
             self._dev[dtype] = {
                 "Aw": dev(self.Aw), "dobs": dev(self.dobs),
                 "grav_fix": dev(self.grav_fix) if self.fixed else None}
+            if self.Awcp is not None:
+                self._dev[dtype].update(sparse_pair(self.Awcp, dtype,
+                                                    self.device))
         return self._dev[dtype]
 
-    def predict(self, mw):
-        """Predicted data of a weighted-domain model or batch ``(..., M)``:
-        ``mw @ Aw.T`` in the module's dtype. As in the JAX package's
-        ``predict``, ``grav_fix`` is not added (an open question of
-        ROADMAP.md queue 3: the realdata problems here have
-        ``grav_fix = 0``)."""
-        A = self.device_arrays()["Aw"]
-        return torch.as_tensor(mw, dtype=A.dtype, device=A.device) @ A.T
+    def predict(self, mw, use_wavelet=None):
+        """Predicted data of a weighted-domain model or batch ``(..., M)``
+        in the module's dtype: ``mw @ Aw.T``, or with the wavelet kernel
+        (the module's ``wavelet`` unless ``use_wavelet`` says otherwise)
+        ``Awcp W mw``. As in the JAX package's ``predict``, ``grav_fix``
+        is not added (an open question of ROADMAP.md queue 3: the realdata
+        problems here have ``grav_fix = 0``)."""
+        arrs = self.device_arrays()
+        A = arrs["Aw"]
+        mw = torch.as_tensor(mw, dtype=A.dtype, device=A.device)
+        use_wavelet = self.wavelet if use_wavelet is None else use_wavelet
+        if use_wavelet and self.Awcp is not None:
+            return spmm(arrs["Awcp"], self._model_transform(mw))
+        return mw @ A.T
 
     def make_potential(self, aprior_mw, low, high, constraint="mandatory",
                        log_factor=1000.0, regularization="Damping",
@@ -283,7 +372,10 @@ class GravMagModule:
 
         ``aprior_mw``, ``low`` and ``high`` are in the weighted (mw)
         domain. ``matvec_dtype`` (e.g. ``torch.bfloat16``) stores the kernel
-        matrix in that type; products are accumulated in ``dtype``. Under
+        matrix in that type; products are accumulated in ``dtype``. With a
+        wavelet kernel the data term is ``Awcp W mw`` (the module's
+        ``wavelet`` unless ``use_wavelet`` says otherwise; ``Awcp`` at
+        ``dtype``, ``matvec_dtype`` unused, as in the JAX package). Under
         ``constraint="logarithmic"`` x is the logistic variable
         (``log_factor`` k) and ``jacobian`` adds the transform's
         log-Jacobian; ``temperature`` divides the data and model terms.
@@ -296,8 +388,8 @@ class GravMagModule:
             raise ValueError(
                 "Please choose right boundary constraint(mandatory, "
                 "logarithmic)!")
-        if use_wavelet:
-            raise _unported("wavelet potentials", "item 8")
+        use_wavelet = self.wavelet if use_wavelet is None else use_wavelet
+        wave = bool(use_wavelet) and self.Awcp is not None
         dtype = dtype or self.dtype
         device = self.device if device is None else torch.device(device)
 
@@ -306,8 +398,6 @@ class GravMagModule:
 
         dobs = vec(self.dobs)
         params = {
-            "Aw": torch.as_tensor(self.Aw, dtype=matvec_dtype or dtype,
-                                  device=device),
             "dobs_centered": dobs - dobs.mean(),
             "aprior_mw": vec(aprior_mw),
             "low": vec(low),
@@ -315,6 +405,16 @@ class GravMagModule:
             "wm_sq": vec(self.wdiag * self.wdiag),
             "grav_fix": vec(self.grav_fix) if self.fixed else None,
         }
+        if not wave:
+            params["Aw"] = torch.as_tensor(
+                self.Aw, dtype=matvec_dtype or dtype, device=device)
+        elif device == self.device:
+            arrs = self.device_arrays(dtype)
+            params.update(Awcp=arrs["Awcp"], AwcpT=arrs["AwcpT"])
+        else:
+            params.update(sparse_pair(self.Awcp, dtype, device))
+        transform = self._model_transform
+        M = self.n_active
         beta = float(beta)
         mshape = self.mshape
         if regularization in ("Smoothness", "TV") and self._active3d is not None:
@@ -345,19 +445,27 @@ class GravMagModule:
                 mw = P["low"] + P["width"] * s
             else:
                 mw = x
-            A = P["Aw"]
-            if A.dtype != dtype:
-                # reduced-precision storage: round the model to A's type,
-                # then multiply and accumulate in ``dtype``
-                A = A.to(dtype)
-                mv = mw.to(P["Aw"].dtype).to(dtype)
+            if wave:
+                dpre = spmm(P["Awcp"], transform(mw))
             else:
-                mv = mw
-            dpre = mv @ A.T
+                A = P["Aw"]
+                if A.dtype != dtype:
+                    # reduced-precision storage: round the model to A's
+                    # type, then multiply and accumulate in ``dtype``
+                    A = A.to(dtype)
+                    mv = mw.to(P["Aw"].dtype).to(dtype)
+                else:
+                    mv = mw
+                dpre = mv @ A.T
             dinv = dpre + P["grav_fix"] if P["grav_fix"] is not None else dpre
             r = (dinv - dinv.mean(-1, keepdim=True)) - P["dobs_centered"]
             u_data = (r * r).sum(-1)
-            gdata = (2.0 * (r - r.mean(-1, keepdim=True))) @ A
+            rc = 2.0 * (r - r.mean(-1, keepdim=True))
+            if wave:
+                # W^T Awcp^T rc: the transpose's own CSR, then the adjoint
+                gdata = transform.adjoint(spmm(P["AwcpT"], rc), M)
+            else:
+                gdata = rc @ A
             u_model, gm = model_value_and_grad(
                 regularization, mw - P["aprior_mw"], P["wm_sq"], beta,
                 mshape, P.get("active3d"), P.get("active_idx"))

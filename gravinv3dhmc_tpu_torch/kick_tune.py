@@ -18,11 +18,11 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 from pathlib import Path
 
 import torch
 
+from ._device import card
 from .ops import _cuda
 from .ops import leapfrog as tlf
 from .timing import device_ms
@@ -73,14 +73,6 @@ def build_baseline(path, kind="leapfrog", entries=None, name="baseline"):
     when given) as library ``name``; returns it."""
     _add_source(name, path, kind, entries)
     return _cuda.build_all([name])[name]
-
-
-def card():
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def use_library(name, kind="leapfrog"):

@@ -17,9 +17,12 @@ package's ``tessglq.cpp``) or by the numpy worklist expansion. It is not
 a TPU kernel. ``backend="auto"`` takes the native engine and falls back to
 numpy only with a warning, and every build says which one ran (``info``).
 
-Not copied yet (ROADMAP.md queue 1): the field forwards (``gz`` and the
-other components of a mesh's density), the magnetic kernels,
-``subdivision_mask`` and the device builder ``tesseroid_kernel_device``.
+The field forwards (``potential`` ... ``gzz`` of a mesh's density,
+:func:`forward`) and the magnetics (:func:`tf`, :func:`bx`, :func:`by`,
+:func:`bz`: Poisson's relation over the six tensor matrices,
+``_tensor_kernels_local_down``) are copies of the JAX package's too. Not
+copied yet (ROADMAP.md queue 1, item 12): ``subdivision_mask`` and the
+device builder ``tesseroid_kernel_device``.
 """
 from __future__ import annotations
 
@@ -464,3 +467,144 @@ def tesseroid_kernel_matrix(field, lon, lat, height, mesh_or_cells,
         np.add.at(kernel, (s0 + p_obs, p_cell), vals)
     kernel *= _SCALES[field]
     return kernel
+
+
+def _tess_field(field):
+    def compute(lon, lat, height, model, dens=None, ratio=None, njobs=1,
+                pool=None, **_ignored):
+        """Field value and sensitivity matrix, reference-compatible API
+        (reference: gravmag/tesseroid.py:324-508): returns
+        ``(res, kernel2d)`` with res = kernel2d @ densities. ``njobs`` and
+        ``pool`` are accepted for parity and ignored."""
+        kernel2d = tesseroid_kernel_matrix(field, lon, lat, height, model,
+                                           ratio=ratio)
+        if dens is not None:
+            densities = np.full(kernel2d.shape[1], float(dens))
+        elif hasattr(model, "props") and "density" in model.props:
+            densities = np.asarray(model.props["density"],
+                                   dtype=np.float64)[model.active]
+        else:
+            densities = np.zeros(kernel2d.shape[1])
+        res = kernel2d @ densities
+        return res, kernel2d
+
+    compute.__name__ = field
+    return compute
+
+
+potential = _tess_field("potential")
+geoid = _tess_field("geoid")
+gx = _tess_field("gx")
+gy = _tess_field("gy")
+gz = _tess_field("gz")
+gxx = _tess_field("gxx")
+gxy = _tess_field("gxy")
+gxz = _tess_field("gxz")
+gyy = _tess_field("gyy")
+gyz = _tess_field("gyz")
+gzz = _tess_field("gzz")
+
+
+def forward(field, lon, lat, height, model, dens=None, ratio=None):
+    """Forward-only evaluation: the field of the model's density (the
+    reference's ``tesseroidforward`` module,
+    reference: gravmag/tesseroidforward.py)."""
+    res, _ = _tess_field(field)(lon, lat, height, model, dens=dens,
+                                ratio=ratio)
+    return res
+
+
+# --------------------------------------------------------------------------
+# magnetics (the JAX package's extension; the reference declares
+# spherical magnetics unimplemented, readme.md:9-18): Poisson's relation,
+# the induction of a uniformly magnetized body is the gravity-gradient
+# tensor of the same geometry contracted with the magnetization vector
+# --------------------------------------------------------------------------
+
+def _tensor_kernels_local_down(lons, lats, heights, mesh_or_cells,
+                               ratio=None, backend="auto", info=None):
+    """Six RAW tensor kernel matrices in the local x=north, y=east,
+    z=DOWN frame (the prism/magnetics convention, :mod:`.prism`).
+
+    The GLQ tensor kernels use a local z-UP radial axis, so the mixed
+    z terms flip sign (gxz/gyz). "Raw" = each field's output scaling
+    divided back out (this also neutralises the reference's Gs-on-gy
+    quirk, which must not leak into magnetics). ``info`` receives the
+    builder's ``tess_backend``.
+    """
+    vs = []
+    for f in ("gxx", "gxy", "gxz", "gyy", "gyz", "gzz"):
+        k = tesseroid_kernel_matrix(f, lons, lats, heights, mesh_or_cells,
+                                    ratio=ratio, backend=backend, info=info)
+        k = k / _SCALES[f]
+        if f in ("gxz", "gyz"):
+            k = -k
+        vs.append(k)
+    return vs
+
+
+def tf(lons, lats, heights, mesh_or_cells, inc, dec, pmag=None,
+       ratio=None, backend="auto", info=None, **_ignored):
+    """Total-field magnetic anomaly of tesseroids and its sensitivity
+    matrix, with the API and conventions of :func:`.prism.tf` (inc/dec in
+    degrees, inc positive down; output nT via CM * T2NT; ``kernel2d``
+    columns = unit INDUCED magnetization along the regional field).
+    ``info`` receives the builder's ``tess_backend``."""
+    from ..utils.units import dircos
+    from .prism import _magnetization_vectors, _project
+
+    cells = _tess_cells(mesh_or_cells)
+    M = cells.shape[0]
+    fdir = dircos(inc, dec)
+    fx, fy, fz = fdir
+    # magnetization override rules shared with the prism driver (bounds
+    # units differ between prisms and tesseroids, props do not)
+    mvec = _magnetization_vectors(mesh_or_cells, pmag, fdir, M)
+    vs = _tensor_kernels_local_down(lons, lats, heights, mesh_or_cells,
+                                    ratio=ratio, backend=backend, info=info)
+    scale = constants.CM * constants.T2NT
+    bxm, bym, bzm = _project(vs, (mvec[0][None, :], mvec[1][None, :],
+                                  mvec[2][None, :]))
+    res = (fx * bxm + fy * bym + fz * bzm).sum(axis=1) * scale
+    bxf, byf, bzf = _project(vs, (fx, fy, fz))
+    kernel2d = (fx * bxf + fy * byf + fz * bzf) * scale
+    return res, kernel2d
+
+
+def _b_component_tess(index):
+    def compute(lons, lats, heights, mesh_or_cells, pmag=None, ratio=None,
+                backend="auto", **_ignored):
+        """One component of the magnetic induction (nT), local x=north /
+        y=east / z=down: the tesseroid counterpart of
+        ``prism.bx``/``by``/``bz`` (result only)."""
+        from .prism import _project
+
+        cells = _tess_cells(mesh_or_cells)
+        M = cells.shape[0]
+        if pmag is not None:
+            vec = np.asarray(pmag, dtype=np.float64).reshape(3, 1)
+            mvec = np.broadcast_to(vec, (3, M))
+        else:
+            values = None
+            if hasattr(mesh_or_cells, "props"):
+                values = mesh_or_cells.props.get("magnetization")
+                if values is not None:
+                    values = np.asarray(values,
+                                        np.float64)[mesh_or_cells.active]
+            if values is None or np.asarray(values).ndim != 2:
+                raise ValueError(
+                    "b-components need vector magnetization or pmag")
+            mvec = np.asarray(values, dtype=np.float64).T
+        vs = _tensor_kernels_local_down(lons, lats, heights,
+                                        mesh_or_cells, ratio=ratio,
+                                        backend=backend)
+        comps = _project(vs, (mvec[0][None, :], mvec[1][None, :],
+                              mvec[2][None, :]))
+        return comps[index].sum(axis=1) * constants.CM * constants.T2NT
+
+    return compute
+
+
+bx = _b_component_tess(0)
+by = _b_component_tess(1)
+bz = _b_component_tess(2)

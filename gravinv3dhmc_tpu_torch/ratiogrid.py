@@ -21,11 +21,11 @@ import time
 import numpy as np
 import torch
 
-from . import mesher, utils
+from . import _device, mesher, utils
 from .inversion.hmc import make_chunk_sampler
 from .inversion.potential import GravMagModule
 from .ops import leapfrog, prism
-from .uniformgrid import _sync, profile_run
+from .uniformgrid import profile_run
 
 #: the bench's per-step sampler settings at full width: MS, alpha 1,
 #: bf16 matrix, store_mode 'chain'
@@ -139,7 +139,7 @@ def run_chunks(run_chunk, carry, seed, n_chunks, device):
 
     device = torch.device(device)
     carry, _ = run_chunk(carry, seed, 0)
-    _sync(device)
+    _device.sync(device)
     grad_evals = accepts = 0.0
     attempted = 0
     finite = torch.ones((), dtype=torch.bool, device=device)
@@ -150,7 +150,7 @@ def run_chunks(run_chunk, carry, seed, n_chunks, device):
         accepts = accepts + stats[..., 0].sum(dtype=torch.float64)
         finite = finite & torch.isfinite(stats).all()
         attempted += stats.shape[0] * stats.shape[1]
-    _sync(device)
+    _device.sync(device)
     elapsed = time.perf_counter() - t0
     finite = bool(finite & torch.isfinite(carry[0]).all()
                   & torch.isfinite(carry[6]).all())

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -81,11 +80,6 @@ REALDATA = dict(nchains=64, nsamples=256, nwarmup=256, nsub=64,
 STAGES = ("nuts", "chees", "hmc", "realdata")
 #: the samplers run when none is named
 DEFAULT = ("nuts", "chees", "hmc")
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def target(module, device, log_factor=SAMPLERS["log_factor"],
@@ -128,7 +122,7 @@ def _adaptive(name, problem, device, cfg):
     sub = torch.as_tensor(np.random.RandomState(0).choice(
         module.n_active, size=min(module.n_active, cfg["nsub"]),
         replace=False), device=device)
-    _sync(device)
+    _device.sync(device)
     t0 = time.perf_counter()
     if name == "chees":
         xs, st = run_chees(potential, x0_b, n_warmup=W, n_samples=N,
@@ -153,7 +147,7 @@ def _adaptive(name, problem, device, cfg):
                      step_size=float(st["step_size"].mean()))
         state = dict(x=st["state"]["x"], inv_mass=st["inv_mass"],
                      **st["state"]["dual_averaging"])
-    _sync(device)
+    _device.sync(device)
     elapsed = time.perf_counter() - t0
     lo = torch.as_tensor(low, dtype=torch.float32, device=device)
     hi = torch.as_tensor(high, dtype=torch.float32, device=device)
@@ -186,10 +180,10 @@ def _hmc(problem, device, cfg, nsub):
     chain.low, chain.high = 0.0 * w, 1.0 * w
     chain.initial_model = chain.aprior_model = 0.001 * w
     chain.dobs = dobs
-    _sync(device)
+    _device.sync(device)
     t0 = time.perf_counter()
     res = chain.sample(cfg["nsamples"], 0)
-    _sync(device)
+    _device.sync(device)
     elapsed = time.perf_counter() - t0
     sub = torch.as_tensor(np.random.RandomState(0).choice(
         M, size=min(M, nsub), replace=False), device=device)
@@ -242,12 +236,12 @@ def _realdata(problem, device, cfg):
 
     sub = torch.as_tensor(np.random.RandomState(0).choice(
         M, size=min(M, cfg["nsub"]), replace=False), device=device)
-    _sync(device)
+    _device.sync(device)
     t0 = time.perf_counter()
     xs, st = run_chees(potential, x0_b, n_warmup=W, n_samples=N,
                        step_size0=cfg["step_size0"], seed=cfg["seed"],
                        draws=cfg["draws"])
-    _sync(device)
+    _device.sync(device)
     elapsed = time.perf_counter() - t0
     lo = torch.as_tensor(low, dtype=torch.float32, device=device)[sub]
     hi = torch.as_tensor(high, dtype=torch.float32, device=device)[sub]
@@ -330,12 +324,12 @@ def profile_chees_iteration(problem, device, step_size, trajectory_time,
     kw = dict(n_warmup=0, n_samples=1, step_size0=step_size,
               T0=trajectory_time)
     run_chees(potential, x, **kw)
-    _sync(device)
+    _device.sync(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, st = run_chees(potential, x, **kw)
-        _sync(device)
+        _device.sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = uniformgrid._device_intervals(prof)
     busy_ms = uniformgrid._union_us(spans) / 1e3
@@ -369,10 +363,7 @@ def main(argv=None):
         ap.error(f"choose samplers from {STAGES}")
     torch.backends.cuda.matmul.allow_tf32 = False
     device = _device.resolve(None)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _device.card()
     print(card, flush=True)
     problem = (uniformgrid.build_problem(device=device)
                if set(stages) - {"realdata"} else None)

@@ -1,6 +1,7 @@
 """Host numpy utilities copied from ``gravinv3dhmc_tpu/utils``."""
 from .grids import contaminate, regular
 from .units import (
+    ang2vec,
     dircos,
     eotvos2si,
     mgal2si,
@@ -8,10 +9,12 @@ from .units import (
     si2eotvos,
     si2mgal,
     si2nt,
+    sph2cart,
+    vec2ang,
 )
 
 __all__ = [
     "regular", "contaminate",
     "si2mgal", "mgal2si", "si2eotvos", "eotvos2si", "si2nt", "nt2si",
-    "dircos",
+    "sph2cart", "dircos", "ang2vec", "vec2ang",
 ]

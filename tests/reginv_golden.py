@@ -1,9 +1,10 @@
 """Golden numbers of the JAX package's deterministic inversion, for the
 port's check on the GPU (not a test: it takes a few minutes on the CPU).
 
-    JAX_PLATFORMS=cpu python tests/reginv_golden.py [cg] [bootstrap] [map]
+    JAX_PLATFORMS=cpu python tests/reginv_golden.py [cg] [bootstrap]
+        [bootstrap_southchina] [map] [prism_device]
 
-The three stages of ``gravinv3dhmc_tpu_torch.cg`` at their full sizes,
+The four stages of ``gravinv3dhmc_tpu_torch.cg`` at their full sizes,
 run by the JAX package on the CPU with the JAX commands' own inputs:
 
 * ``cg``: ``examples/run.py cg`` at its defaults (``workloads.cg_model``
@@ -12,6 +13,10 @@ run by the JAX package on the CPU with the JAX commands' own inputs:
 * ``bootstrap``: ``examples/run.py bootstrap`` at its defaults
   (``workloads.uniformgrid``, the same noise, 20 replicates, maxk 200,
   beta 0.01, float64, one batch);
+* ``bootstrap_southchina``: ``examples/run.py bootstrap-southchina`` at
+  its defaults (20 float64 replicates, maxk 200, beta 0.01, box [-1, 1],
+  ``wavelet="1D"``, one batch; the geometry of ``cg.southchina``, which
+  ``tests/test_torch_cg.py`` holds equal to the command's);
 * ``map``: the bounded MAP of ``tools/samplers_tpu.py realdata`` with
   ``SAMPLERS_RD_TEMP=auto`` (``bench.build_realdata_problem``,
   ``cg_device`` with Damping, alpha 0.05, maxk 400, float32, box
@@ -21,7 +26,8 @@ run by the JAX package on the CPU with the JAX commands' own inputs:
 Writes ``gravinv3dhmc_tpu_torch/golden/reginv_jax.json`` (``--out``),
 merging into the stages already there, and prints one line a stage with
 its CPU seconds. The alpha-decay iterations are those k >= 2 at which the
-regularization factor fell. ``bootstrap``'s ``self_spread`` is how far
+regularization factor fell. ``bootstrap``'s (and
+``bootstrap_southchina``'s) ``self_spread`` is how far
 the JAX package's own summaries move when the same replicates are solved
 one and five at a time (other product shapes, other rounding), and
 ``self_parting`` each replicate's first iteration (of the histories
@@ -29,7 +35,9 @@ without their k = 0 entry) at which those runs' data misfits part by more
 than 1e-6 (-1: never). ``map``'s ``objective_spread`` is the largest
 relative distance of an iterate's objective from the start's, and
 ``temperature_f64`` and ``objective_spread_f64`` the same solve's in
-float64.
+float64. ``prism_device`` (not a ``cg`` stage) is the JAX package's
+float64 device prism builder against its numpy one at ``cg``'s size:
+``self_gap``, their largest difference over max|A|.
 """
 import argparse
 import json
@@ -50,7 +58,8 @@ import jax.numpy as jnp  # noqa: E402
 import workloads as W  # noqa: E402
 from gravinv3dhmc_tpu import bench as jbench  # noqa: E402
 from gravinv3dhmc_tpu.inversion.reginv import BootStrap, cg_device  # noqa: E402
-from gravinv3dhmc_tpu_torch.cg import decay_iters  # noqa: E402
+from gravinv3dhmc_tpu_torch.cg import (SOUTHCHINA, decay_iters,  # noqa: E402
+                                       southchina)
 
 OUT = os.path.join(REPO, "gravinv3dhmc_tpu_torch", "golden",
                    "reginv_jax.json")
@@ -76,6 +85,55 @@ def stage_cg():
                 decay_iters=decay_iters(r_h),
                 model_max=float(np.max(model_inv)),
                 model_min=float(np.min(model_inv)))
+
+
+def self_compared(bs, summarize):
+    """The replicates in one batch, then one and five at a time:
+    ``(out, models, d_h, m_h, r_h, spread, parting)`` (see the module
+    docstring)."""
+    def summary(batch):
+        models, d_h, m_h, r_h = bs.BSCG(np.zeros(bs.msize), batch=batch)
+        return summarize(models), models, d_h, m_h, r_h
+
+    out, models, d_h, m_h, r_h = summary(None)
+    # the JAX package against itself: the same replicates solved one and
+    # five at a time (other vmapped product shapes, other rounding)
+    spread = {k: 0.0 for k in out}
+    part = []
+    for batch in (1, 5):
+        other, _, d_b = summary(batch)[:3]
+        for k in out:
+            spread[k] = max(spread[k], abs(other[k] / out[k] - 1))
+        rel = np.abs(d_b / d_h - 1)
+        part.append([int(np.argmax(r > 1e-6)) if (r > 1e-6).any() else -1
+                     for r in rel])
+    parting = [min((p for p in ps if p >= 0), default=-1)
+               for ps in zip(*part)]
+    return out, models, d_h, m_h, r_h, spread, parting
+
+
+def stage_bootstrap_southchina():
+    g, cfg = southchina(SOUTHCHINA["seed"]), SOUTHCHINA
+    bs = BootStrap(g["mrange"], g["mspacing"], g["obs"], g["dobs"],
+                   cfg["boundary"], samples=cfg["samples"], beta=cfg["beta"],
+                   maxk=cfg["maxk"], mratio=cfg["mratio"],
+                   wavelet=cfg["wavelet"], verbose=False,
+                   mtopo=(g["xo"], g["yo"], g["topo"]))
+
+    def summarize(models):
+        return dict(model_std_max=float(models.std(axis=0).max()),
+                    mean_model_max=float(models.mean(axis=0).max()))
+
+    out, models, d_h, m_h, r_h, spread, parting = self_compared(
+        bs, summarize)
+    n_iters = [int(np.sum(~np.isnan(row))) + 1 for row in d_h]
+    return dict(samples=cfg["samples"], mesh_shape=list(bs.mshape),
+                carved_cells=int(bs.msize),
+                Awcp=[list(bs._mod.Awcp.shape), int(bs._mod.Awcp.nnz)],
+                **out, self_spread=spread, self_parting=parting,
+                n_iters=n_iters,
+                decay_iters=[decay_iters(row) for row in r_h],
+                data_hist=[floats(row) for row in d_h])
 
 
 def stage_bootstrap():
@@ -148,12 +206,31 @@ def stage_map():
                 data_hist=floats(d_h), model_hist=floats(cg["model_hist"]))
 
 
-STAGES = {"cg": stage_cg, "bootstrap": stage_bootstrap, "map": stage_map}
+def stage_prism_device():
+    """The JAX package's float64 device builder
+    (``prism_kernel_matrix(backend="jax")``, XLA on the CPU here) against
+    its numpy one at ``cg``'s 1,200 x 12,000: the last bits of log and
+    atan2 times the corner terms' cancellation."""
+    from gravinv3dhmc_tpu.ops import prism
+
+    wl = W.cg_model("model03_twodykes")
+    A = prism.prism_kernel_matrix("gz", *wl["obs"], wl["mesh"])
+    B = prism.prism_kernel_matrix("gz", *wl["obs"], wl["mesh"],
+                                  backend="jax")
+    return dict(shape=list(A.shape),
+                self_gap=float(np.abs(A - B).max() / np.abs(A).max()))
+
+
+STAGES = {"cg": stage_cg, "bootstrap": stage_bootstrap,
+          "bootstrap_southchina": stage_bootstrap_southchina,
+          "map": stage_map, "prism_device": stage_prism_device}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("stages", nargs="*", metavar="{cg,bootstrap,map}")
+    ap.add_argument("stages", nargs="*",
+                    metavar="{cg,bootstrap,bootstrap_southchina,map,"
+                            "prism_device}")
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     if not set(args.stages) <= set(STAGES):

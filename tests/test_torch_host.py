@@ -83,16 +83,24 @@ def test_prism_kernel_matrix_and_weighting():
 
 
 def test_unported_builders_raise():
-    """The JAX package's ``backend="jax"`` builder and fields other than
-    gz are not ported; the f32 device builder (``"pallas"``) is."""
+    """Every builder of the JAX package is ported now: the ``"jax"``
+    device builder and every field on the host (both held in
+    ``tests/test_torch_magnetic.py``). The f32 device builder
+    (``"pallas"``) covers gz alone and raises for the other fields, as
+    the JAX package's does; an unknown backend or field is refused."""
     mesh = tmesher.PrismMesh(BOUNDS, (100, 100, 100))
+    for backend in ("numpy", "jax"):
+        assert np.isfinite(tprism.prism_kernel_matrix(
+            "gzz", [0.0], [0.0], [-1.0], mesh, backend=backend,
+            device="cpu")).all()
     with pytest.raises(NotImplementedError):
+        tprism.prism_kernel_matrix("gzz", [0.0], [0.0], [0.0], mesh,
+                                   backend="pallas", device="cpu")
+    with pytest.raises(ValueError):
         tprism.prism_kernel_matrix("gz", [0.0], [0.0], [0.0], mesh,
-                                   backend="jax")
-    for backend in ("numpy", "pallas"):
-        with pytest.raises(NotImplementedError):
-            tprism.prism_kernel_matrix("gzz", [0.0], [0.0], [0.0], mesh,
-                                       backend=backend)
+                                   backend="cupy")
+    with pytest.raises(ValueError):
+        tprism.prism_kernel_matrix("tf", [0.0], [0.0], [0.0], mesh)
 
 
 @pytest.mark.parametrize("division,dzlist", [

@@ -39,6 +39,9 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.ops.fd\n"
             "import gravinv3dhmc_tpu_torch.inversion.reginv\n"
             "import gravinv3dhmc_tpu_torch.cg\n"
+            "import gravinv3dhmc_tpu_torch.ops.wavelet\n"
+            "import gravinv3dhmc_tpu_torch.ops.prism\n"
+            "import gravinv3dhmc_tpu_torch.magnetic\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
             "or m == 'gravinv3dhmc_tpu']\n"

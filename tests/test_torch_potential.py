@@ -82,7 +82,20 @@ def test_bf16_storage_accumulates_in_f32(small_module):
                                     dict(use_wavelet="3D"),
                                     dict(use_wavelet=True)])
 def test_unported_potentials_raise(small_module, kwargs):
-    _, tm = _modules(small_module, False)
+    """Wavelet potentials are ported: on a module built without a wavelet
+    kernel (``Awcp`` None) ``use_wavelet`` gives the dense potential, as
+    in the JAX package. The module options still unported raise."""
+    jm, tm = _modules(small_module, False)
     w = tm.wdiag
-    with pytest.raises(NotImplementedError):
-        tm.make_potential(w * 0.001, w * 0.0, w * 1.0, **kwargs)
+    args = (w * 0.001, w * 0.0, w * 1.0)
+    x = np.random.RandomState(2).uniform(0.1, 0.6, (2, tm.n_active)) * w
+    got = tm.make_potential(*args, **kwargs)(torch.as_tensor(
+        x, dtype=torch.float32), 1.0)[1].numpy()
+    want = np.asarray(jm.make_potential(*args, **kwargs)(
+        jnp.asarray(x, jnp.float32), 1.0)[1])
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    obs = (jm.lonobs, jm.latobs, jm.heightobs)
+    for opt in (dict(kernel_device=True), dict(kernel_cache="A.npy")):
+        with pytest.raises(NotImplementedError):
+            GravMagModule(small_module[1], BOUNDS, SPACING, obs,
+                          verbose=False, device="cpu", **opt)

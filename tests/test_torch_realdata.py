@@ -94,11 +94,17 @@ def test_build_problem_is_the_jax_benchs_geometry():
 
 
 def test_unported_module_options_raise():
+    """The device tesseroid builder and the kernel cache are not ported
+    (magnetics and wavelets are: ``tests/test_torch_magnetic.py``,
+    ``tests/test_torch_wavelet.py``); a field neither package has is
+    refused."""
     args, kw = _args()
-    for extra in (dict(field="magnetic"), dict(wavelet="1D"),
-                  dict(kernel_device=True), dict(kernel_cache="k.npy")):
+    for extra in (dict(kernel_device=True), dict(kernel_cache="k.npy")):
         with pytest.raises(NotImplementedError):
             GravMagModule(*args, **{**kw, **extra}, device="cpu")
+    with pytest.raises(ValueError):
+        GravMagModule(*args, **{**kw, "field": "gravity_gradient"},
+                      device="cpu")
 
 
 def test_slice_runs_through_the_trajectory_op():

@@ -216,6 +216,34 @@ def test_cg_device_f32_restarts(problem):
     assert one["n_iters"] == 1700
 
 
+def test_cg_device_on_a_magnetic_module():
+    """``cg_device`` runs unchanged on a total-field module, whose matrix
+    has columns of both signs: the adaptive and the fixed-alpha float64
+    solves on the 8 x 8 x 4 magnetic problem of
+    ``tests/test_magnetic_wavelet.py`` against the JAX package's, the
+    histories within ``RTOL``."""
+    bounds, spacing = (0, 800, 0, 800, 0, 400), (100, 100, 100)
+    obs = utils.regular((0, 800, 0, 800), (8, 8), z=-1.0)
+    mesh = mesher.PrismMesh(bounds, spacing)
+    mag = np.zeros(mesh.shape)
+    mag[1:3, 3:6, 3:6] = 2.0
+    mesh.addprop("magnetization", mag.ravel())
+    dobs, _ = prism.tf(*obs, mesh, 50.0, 20.0)
+    kw = dict(field="magnetic", mangle=(50.0, 20.0), verbose=False)
+    jmod = JModule(dobs, bounds, spacing, obs, **kw)
+    tmod = GravMagModule(dobs, bounds, spacing, obs, device="cpu", **kw)
+    assert (tmod.A < 0).any()
+    for alpha in (None, 0.01):
+        args = dict(regularization="Damping", maxk=MAXK, alpha=alpha)
+        jo = jr.cg_device(jmod, dobs, (0.0, 3.0), dtype=jnp.float64, **args)
+        to = tr.cg_device(tmod, dobs, (0.0, 3.0), dtype=torch.float64,
+                          **args)
+        assert to["n_iters"] == jo["n_iters"]
+        for k in ("data_hist", "model_hist", "regul_hist"):
+            _close(to[k], jo[k])
+        _close(to["m"], jo["m"])
+
+
 def test_carved_smoothness_refused_by_both():
     """Smoothness and TV on a topography-carved mesh: the JAX package's
     ``fd.grid_diffs`` cannot reshape the packed active cells (TypeError);
