@@ -84,6 +84,22 @@ Phases, one line each (the script stops at the first failure, non-zero):
              launches counted. After phase 8 the same GEMM checks at
              ratiogrid's 1024 x 1024 x 17,152, where ``slice2_f32``
              launches ``step_residual_f32``.
+6c. state  — files and state at the slice's width (600 x 6000, 1024
+             chains; :data:`STATE`): a fixed-dt run through the bf16
+             iteration op and an adaptive one (dt and a diagonal metric)
+             through the bf16 trajectory op, each run uninterrupted, cut
+             with a snapshot every chunk (``checkpoint_path``) and resumed
+             from it: the resumed run's samples, misfits, state and accept
+             counts (and the adaptive run's frozen step size and inverse
+             mass) must equal the uninterrupted run's bit for bit, with no
+             ``max_chunks`` warning; the ``.npz`` size and each save's and
+             load's seconds. Then ``HMCSample`` with ``write_files`` (8
+             chains): ``diagnostics.load_chains`` must give back its
+             samples within the ``%.8f`` rounding (:data:`FILE_ROUNDING`),
+             and the same rows written by the native sink and by
+             ``PySampleSink`` must be the same bytes, both timed. These
+             runs' launches go into the kernels line; the plain Philox
+             must not be called.
 7. gz      — the ratiogrid matrix (900 obs x 17,100 ratio prisms): the
              dispatcher (``ops.prism_gz.gz_plan``) picks the node kernel
              ``gz_nodes`` (19,220 distinct nodes); its matrix equals the
@@ -159,6 +175,9 @@ Phases, one line each (the script stops at the first failure, non-zero):
              called. Then ``draws`` at those runs' shapes (8 and 64 chains
              x 6016) against its plain version, timed
              (``samplers_kernel`` lines; its uniforms bit for bit).
+             ChEES and NUTS write their draws' sample files
+             (``samplers.run(save_folder=...)``), which ``load_chains``
+             must read back as the draws within :data:`FILE_ROUNDING`.
 13. cg     — ``gravinv3dhmc_tpu_torch.cg.run()``'s four stages on the
              card, one line each with its seconds, the card and its
              launches: ``cg`` (``examples/run.py cg``: float64 CG on the
@@ -223,12 +242,18 @@ Phases, one line each (the script stops at the first failure, non-zero):
              JAX package's own device builder's gap, golden
              ``prism_device``, reported beside it); both builds timed.
 
+Before phase 13 its 576 x 10,676 realdata problem is built with a
+kernel cache and again from the cache (``state`` line ``kernel_cache``):
+``A``, ``Aw`` and the weights must be bit equal, both build times
+printed.
+
 Phase 13 also runs ``cg``'s ``bootstrap_southchina`` stage (the carved
 South China mesh, 20 float64 replicates with ``wavelet="1D"``) and holds
 it against its golden entry (see :data:`GOLDEN`).
 
 Slice 1's launch counts are read around phase 6 (bf16 and f32), the
-shared-L card run's in phase 6's reference, the realdata-width f32
+shared-L card run's in phase 6's reference, the state runs' in phase
+6c, the realdata-width f32
 trajectory's in phase 6b and both on the tesseroid matrix in phase 11,
 the unstructured gz build's in phase 7, slice 2's (bf16 and f32) in
 phase 8, the bench's (both stages) in phase 11, the samplers' (``draws``:
@@ -1538,6 +1563,234 @@ def phase_reference(torch, tlf, dev):
     return counts
 
 
+#: the state phase's runs on the uniformgrid problem at full width (1024
+#: chains, shared L, chain-mode storage): 64 iterations before storage
+#: and every 8th after for 16 samples, in chunks of 32 (a 1024 x 16 x
+#: 6000 f32 sample buffer, 393 MB: the slice's 64 samples would make a
+#: 1.57 GB snapshot, and the kernels' work does not depend on it); the
+#: fixed-dt run is cut after ``stop`` chunks, the adaptive one (dt and a
+#: diagonal metric, its kernel frozen after ``adapt_chunks``) 2 chunks
+#: after its freeze; the sample files come from ``files_chains`` chains
+#: storing ``files_nsamples`` iterations
+STATE = dict(chunk=32, nsamples=16, ndraws=64, store_thin=8, stop=3,
+             adapt_chunks=8, files_chains=8, files_nsamples=64)
+#: a ``%.8f`` file against the f32 samples cast to f64: half a unit of
+#: the eighth decimal, plus f64's spacing at the samples' size
+FILE_ROUNDING = (5e-9, 1e-15)
+
+
+def file_gap(back, samples):
+    """How far the rows read back from sample files are from the
+    returned samples, and the rounding bound it must stay within."""
+    ref = samples.detach().cpu().double().numpy()
+    gap = float(np.abs(np.asarray(back) - ref).max()) if ref.size else 0.0
+    return gap, FILE_ROUNDING[0] + FILE_ROUNDING[1] * float(np.abs(ref).max())
+
+
+def phase_state(torch, tlf, module, dobs, dev, smi):
+    """Files and state at the uniformgrid slice's width: a fixed-dt run
+    (the bf16 iteration op) and an adaptive one (the bf16 trajectory op)
+    each run uninterrupted, cut with a snapshot every chunk, and resumed
+    from the snapshot: the resumed run must equal the uninterrupted one
+    bit for bit (samples, misfits, x, accept counts; the adaptive one's
+    frozen step size and metric too) and stop without the ``max_chunks``
+    warning; the snapshot's size and its save and load seconds. Then
+    ``HMCSample`` with ``write_files`` (``STATE["files_chains"]`` chains):
+    ``load_chains`` gives back its samples to the file's rounding, and the
+    native sink's write seconds beside ``PySampleSink``'s for the same
+    rows, whose bytes must be the same. Returns the launch counts of
+    these runs, each set to 0 just before it."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from gravinv3dhmc_tpu_torch import diagnostics
+    from gravinv3dhmc_tpu_torch.inversion import hmc
+    from gravinv3dhmc_tpu_torch.runtime import sink, sink_py
+    from gravinv3dhmc_tpu_torch.uniformgrid import SLICE, slice_sampler
+
+    t_phase = time.perf_counter()
+    total = {n: 0 for n in tlf.KERNELS}
+    io_s = {"save": [], "load": []}
+    saved = hmc.save_state, hmc.load_state
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            io_s[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def counted(fn):
+        sync(torch)
+        tlf.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = fn()
+        sync(torch)
+        for k, v in tlf.launch_counts().items():
+            total[k] += v
+        return res, out.getvalue()
+
+    def run(path=None, stop=None, every=1, **kw):
+        chain = slice_sampler(module, dobs, dev, chunk=STATE["chunk"])
+        chain.store_thin = STATE["store_thin"]
+        for k, v in kw.items():
+            setattr(chain, k, v)
+        return counted(lambda: chain.sample(
+            STATE["nsamples"], STATE["ndraws"], max_chunks=stop,
+            checkpoint_path=path, checkpoint_every=every))
+
+    hmc.save_state = timed(saved[0], "save")
+    hmc.load_state = timed(saved[1], "load")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, kw, stop in (
+                    ("fixed", {}, STATE["stop"]),
+                    ("adaptive", dict(adapt_step_size=True, adapt_mass=True,
+                                      adapt_chunks=STATE["adapt_chunks"],
+                                      prefer_iteration_kernel=False),
+                     STATE["adapt_chunks"] + 2)):
+                path = os.path.join(tmp, f"{label}.npz")
+                t0 = time.perf_counter()
+                full, out_full = run(**kw)
+                for v in io_s.values():
+                    v.clear()
+                run(path, stop, **kw)
+                with np.load(path) as z:
+                    n_chunks = int(z["n_chunks"])
+                nbytes = os.path.getsize(path)
+                # the resumed run snapshots at its end only
+                resumed, out = run(path, every=10 ** 6, **kw)
+                checks = {k: bool(torch.equal(resumed[k], full[k]))
+                          for k in ("samples", "misfits", "x")}
+                checks["accepted"] = resumed["accepted"] == full["accepted"]
+                checks["step_size"] = resumed["step_size"] == \
+                    full["step_size"]
+                checks["cut"] = n_chunks == stop
+                checks["no max_chunks warning"] = (
+                    "WARNING" not in out + out_full)
+                checks["finite"] = bool(torch.isfinite(full["samples"]).all())
+                want_mode = ("trajectory(bfloat16)" if kw
+                             else "iteration(bfloat16)")
+                checks["path"] = full["fused_mode"] == want_mode
+                if kw:
+                    checks["frozen dt moved"] = (full["step_size"]
+                                                 != SLICE["dt"])
+                    checks["inv_mass"] = bool(
+                        full["inv_mass"] is not None
+                        and torch.equal(resumed["inv_mass"],
+                                        full["inv_mass"]))
+                line("state", run=label, problem=[int(dobs.size),
+                                                  module.n_active],
+                     nchains=SLICE["nchains"], fused_mode=full["fused_mode"],
+                     chunks_cut=n_chunks,
+                     samples_shape=list(full["samples"].shape),
+                     step_size=full["step_size"],
+                     accept_ratio=full["accept_ratio"], npz_bytes=nbytes,
+                     save_s=io_s["save"], load_s=io_s["load"],
+                     seconds=time.perf_counter() - t0, checks=checks,
+                     card=smi)
+                bad = [k for k, ok in checks.items() if not ok]
+                if bad:
+                    fail(f"state {label}: {bad}")
+                del full, resumed
+
+            M = module.n_active
+            C, N = STATE["files_chains"], STATE["files_nsamples"]
+            base = os.path.join(tmp, "chain")
+            t0 = time.perf_counter()
+            res, _ = counted(lambda: hmc.HMCSample(
+                module, N, 0, SLICE["dt"], SLICE["Lrange"],
+                np.full(M, 0.001), np.full(M, 0.001),
+                np.column_stack([np.zeros(M), np.ones(M)]), "mandatory",
+                1000.0, dobs, regularization="MS", beta=SLICE["beta"],
+                seed=0, Sigma=SLICE["Sigma"], save_folder=base, nchains=C,
+                chunk_size=STATE["chunk"], verbose=False, shared_L=True,
+                use_fused=True, store_mode="chain", device=dev))
+            sample_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = diagnostics.load_chains(base, C)
+            read_s = time.perf_counter() - t0
+            gap, bound_gap = file_gap(back, res["samples"])
+            rows = res["samples"].cpu().numpy().astype(np.float64)
+            ks = res["misfits"].cpu().numpy().astype(np.float64)
+            t0 = time.perf_counter()
+            native = sink.write_chains(os.path.join(tmp, "native"), 0,
+                                       rows, ks)
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for c in range(C):
+                w = sink_py.PySampleSink(os.path.join(tmp, f"py{c}"))
+                for i in range(N):
+                    w.append(rows[c, i], ks[c, i])
+                w.close()
+            py_s = time.perf_counter() - t0
+            same_bytes = all(
+                open(os.path.join(native[c], f), "rb").read()
+                == open(os.path.join(tmp, f"py{c}", f), "rb").read()
+                for c in range(C) for f in ("model.dat", "misfit.dat"))
+            checks = {
+                "folders": res["folders"] == [f"{base}{c}" for c in range(C)],
+                "shape": back.shape == (C, N, M),
+                "rounding": gap <= bound_gap,
+                "sinks' bytes equal": same_bytes,
+            }
+            line("state", run="files", nchains=C, nsamples=N,
+                 fused_mode=res["fused_mode"], model_dat_bytes=sum(
+                     os.path.getsize(os.path.join(f, "model.dat"))
+                     for f in res["folders"]),
+                 sample_and_write_s=sample_s, load_chains_s=read_s,
+                 max_file_gap=gap, bound=bound_gap,
+                 native_sink_s=native_s, py_sink_s=py_s, checks=checks,
+                 card=smi)
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                fail(f"state files: {bad}")
+    finally:
+        hmc.save_state, hmc.load_state = saved
+    line("state", seconds=time.perf_counter() - t_phase,
+         launches={k: v for k, v in total.items() if v})
+    return total
+
+
+def phase_kernel_cache(torch, dev, smi):
+    """The realdata problem built once with a kernel cache path (the
+    native tesseroid build, the matrix saved) and once more from it (an
+    ``np.load``): ``A``, ``Aw`` and the weights bit equal, both seconds.
+    Returns the built problem."""
+    import os
+    import tempfile
+
+    from gravinv3dhmc_tpu_torch import realdata
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "realdata_kernel.npy")
+        t0 = time.perf_counter()
+        built = realdata.build_problem(device=dev, kernel_cache=path)
+        build_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = realdata.build_problem(device=dev, kernel_cache=path)
+        load_s = time.perf_counter() - t0
+    a, b = built[0], loaded[0]
+    checks = {k: (getattr(a, k).dtype == getattr(b, k).dtype
+                  and getattr(a, k).tobytes() == getattr(b, k).tobytes())
+              for k in ("A", "Aw", "wdiag")}
+    checks["native build"] = a.tess_backend == "native"
+    checks["loaded, not built"] = b.tess_backend is None
+    line("state", run="kernel_cache", shape=list(a.A.shape),
+         dtype=str(a.A.dtype), npy_bytes=nbytes, build_s=build_s,
+         load_s=load_s, kernel_build_s=a.kernel_build_s,
+         kernel_load_s=b.kernel_build_s, checks=checks, card=smi)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"state kernel_cache: {bad}")
+    return built
+
+
 #: the realdata stage's post-freeze accept ratio must be at least 0.3
 #: (near 0, the dt re-seed at the metric switch or the brake failed) and
 #: below 1. It may exceed 0.95: on this synthetic problem the JAX
@@ -1622,24 +1875,41 @@ def phase_samplers(torch, tlf, dev, smi):
     """``samplers.run()``'s three samplers on the card, each with its
     launches counted from 0 just before it; returns the counts of the
     whole phase and the problem's cell count."""
+    import os
+    import tempfile
+
     from gravinv3dhmc_tpu_torch import samplers, uniformgrid
+    from gravinv3dhmc_tpu_torch.diagnostics import load_chains
 
     problem = uniformgrid.build_problem(device=dev)
     total = {name: 0 for name in tlf.KERNELS}
+    tmp = tempfile.TemporaryDirectory()
+    base = os.path.join(tmp.name, "s_")
     for name in ("chees", "nuts", "hmc"):
         sync(torch)
         tlf.reset_launch_counts()
         t0 = time.perf_counter()
-        line, tensors = samplers.run((name,), dev, problem)[name]
+        line, tensors = samplers.run((name,), dev, problem,
+                                     save_folder=base)[name]
         sync(torch)
         counts = tlf.launch_counts()
+        seconds = time.perf_counter() - t0
         for k, v in counts.items():
             total[k] += v
-        print(json.dumps({"phase": "samplers", "seconds":
-                          time.perf_counter() - t0, "card": smi, **line,
+        files = {}
+        if name != "hmc":
+            t0 = time.perf_counter()
+            back = load_chains(f"{base}{name}_", len(line.pop("folders")))
+            files = dict(zip(("file_gap", "file_bound"),
+                             file_gap(back, tensors["model"])),
+                         load_chains_s=time.perf_counter() - t0)
+        print(json.dumps({"phase": "samplers", "seconds": seconds,
+                          "card": smi, **line, **files,
                           "launches": {k: v for k, v in counts.items()
                                        if v}}), flush=True)
         checks = {f"{k} on the card": v.is_cuda for k, v in tensors.items()}
+        if files:
+            checks["sample files"] = files["file_gap"] <= files["file_bound"]
         checks["finite"] = all(bool(np.isfinite(line[k])) for k in (
             "ess_min", "ess_median", "rhat_max", "mean_accept", "step_size"))
         for key, (lo, hi) in SAMPLER_BOUNDS.get(name, {}).items():
@@ -1655,6 +1925,7 @@ def phase_samplers(torch, tlf, dev, smi):
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             fail(f"samplers {name}: {bad}")
+    tmp.cleanup()
     return total, problem[0].n_active
 
 
@@ -2228,6 +2499,8 @@ def main():
     kres.update(phase_f32_gemms(torch, tlf, f32_ops, smi))
     counts_rd = phase_traj_realdata(torch, tlf, f32_ops["realdata"][0], dev,
                                     smi)
+    with plain:
+        counts_state = phase_state(torch, tlf, module, dobs, dev, smi)
     del module, op, f32_ops
 
     gres, counts_gz = phase_gz(torch, tlf, dev, smi)
@@ -2270,7 +2543,7 @@ def main():
     phase_samplers_kernel(torch, tlf, dev, M, (
         samplers.SAMPLERS["nchains"], samplers.HMC["nchains"]))
 
-    rd_problem = realdata.build_problem(device=dev)
+    rd_problem = phase_kernel_cache(torch, dev, smi)
     T = phase_cg(torch, tlf, dev, smi, rd_problem)["map"]["temperature"]
     with plain:
         counts_rd_chees = phase_samplers_realdata(torch, tlf, dev, smi,
@@ -2297,15 +2570,18 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
-    # the shared-L card run, the realdata-width trajectories (synthetic,
+    # the shared-L card run, the state phase's runs (uninterrupted, cut
+    # and resumed, fixed-dt and adaptive, and HMCSample's with files), the
+    # realdata-width trajectories (synthetic,
     # then the stage's matrix without and with a metric), the unstructured
     # gz build, both ratiogrid slices, the bench's two stages, the
     # samplers, the realdata ChEES (the deterministic stages launch none),
     # the magnetic uniformgrid stage, the wavelet stages and the magnetic
     # demo's ChEES
-    runs = (counts, counts_f32, counts3, counts_rd, *counts_rd_real,
-            counts_gz, counts2, counts2_f32, counts_bench, counts_samplers,
-            counts_rd_chees, counts_mag, counts_wav, counts_mag_demo)
+    runs = (counts, counts_f32, counts3, counts_state, counts_rd,
+            *counts_rd_real, counts_gz, counts2, counts2_f32, counts_bench,
+            counts_samplers, counts_rd_chees, counts_mag, counts_wav,
+            counts_mag_demo)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

@@ -22,7 +22,9 @@ two stages, uniformgrid and realdata, and prints its one JSON line.
 ``samplers.py`` runs the adaptive samplers (ChEES, NUTS) on the honest
 posterior, and ``cg.py`` the deterministic inversion (projected CG,
 bootstrap, the bounded MAP that calibrates the realdata temperature,
-``inversion/reginv.py``).
+``inversion/reginv.py``). Files and state keep the JAX package's layouts:
+sample files through a native sink (``runtime/sink.py``), checkpoints
+that resume a run exactly (``checkpoint.py``) and the kernel disk cache.
 """
 
 __version__ = "0.1.0"

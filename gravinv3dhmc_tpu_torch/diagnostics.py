@@ -11,11 +11,31 @@ are the JAX package's functions of the same names; they take numpy arrays
 or tensors on any device and compute in float64 where the tensor lives.
 ``ess_frozen_floor`` and ``ess_degenerate`` flag an ESS that measures the
 ensemble's size rather than mixing (``examples/workloads.py``).
+``load_chains`` reads sample files back through the native reader
+(``runtime/sink.py``), with no ``np.loadtxt`` fall back.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+
+def load_chains(save_folder, nchains, ndraws=0, myrank=0):
+    """Load ``<save_folder><c>/model.dat`` for c in rank..rank+nchains-1,
+    skipping ``ndraws`` warm-up lines, like the reference's plot scripts
+    (reference: example/uniformgrid/plot_uniform.py:47-54); a numpy
+    (C, N, M) array cut to the shortest chain."""
+    from .runtime.sink import read_matrix
+
+    chains = []
+    for c in range(myrank, myrank + nchains):
+        path = os.path.join(f"{save_folder}{c}", "model.dat")
+        m = np.atleast_2d(read_matrix(path))
+        chains.append(m[ndraws:])
+    n = min(len(m) for m in chains)
+    return np.stack([m[:n] for m in chains])  # (C, N, M)
 
 
 def effective_sample_size(chains):

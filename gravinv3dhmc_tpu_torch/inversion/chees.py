@@ -36,6 +36,7 @@ import torch
 from .._device import resolve
 from ..ops import philox
 from ..ops.leapfrog import KERNELS, LANE
+from ..runtime.sink import write_chains
 from .nuts import (_logistic_target, _to_model, dual_averaging_tensors,
                    dual_averaging_update)
 
@@ -246,12 +247,11 @@ def CheesSample(model, nsamples, nwarmup, initial_model, aprior_model,
     signature), and, unlike the JAX package's chunked mode, the
     per-iteration ``L`` and warmup's trajectories counted in
     ``grad_evals`` (batch gradient evaluations, the JAX one-shot count).
-    ``save_folder`` (sample files) is not ported yet and raises."""
+    With ``save_folder``, chain c's samples are written to
+    ``<save_folder><myrank + c>/model.dat`` with a row of seven zeros in
+    ``misfit.dat`` each (``runtime/sink.py``), and ``folders`` lists the
+    folders, as in the JAX package."""
     del transfer_samples
-    if save_folder is not None:
-        raise NotImplementedError(
-            "sample files (save_folder) are not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 10)")
     device = resolve(device)
     pot, low, high, x0 = _logistic_target(
         model, initial_model, aprior_model, boundaries, regularization,
@@ -273,7 +273,7 @@ def CheesSample(model, nsamples, nwarmup, initial_model, aprior_model,
         seed=seed + myrank, draws=draws, verbose=verbose)
     samples = _to_model(xs, low, high, log_factor, model, dtype, device)
     elapsed = time.time() - t0
-    return {
+    out = {
         "samples": samples,
         "step_size": float(stats["step_size"]),
         "trajectory_time": float(stats["trajectory_time"]),
@@ -285,3 +285,8 @@ def CheesSample(model, nsamples, nwarmup, initial_model, aprior_model,
         "elapsed_s": elapsed,
         "grad_evals": int(stats["L"].sum() + stats["warm_L"].sum()),
     }
+    if save_folder is not None:
+        host = samples.cpu().numpy().astype(np.float64)
+        out["folders"] = write_chains(save_folder, myrank, host,
+                                      np.zeros(host.shape[:2] + (7,)))
+    return out

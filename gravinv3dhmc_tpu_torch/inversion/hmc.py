@@ -38,13 +38,20 @@ logistic variable and the stored rows are ``logistic_to_mw(x)``.
 Entry points run on ``cuda:0`` unless a device is given (see
 ``_device.py``); ``device="cpu"`` runs the plain versions.
 
-Not ported yet: checkpoints, SPMD meshes, sample files and the
-``callback`` of ``sample()``.
-Where the JAX package has a switch for one of them, setting it raises
-``NotImplementedError``.
+Files and state are the JAX package's: ``write_files`` writes each
+chain's stored rows to ``<save_folder><myrank + c>/model.dat`` and
+``misfit.dat`` through the native sink (``runtime/sink.py``), and
+``sample(checkpoint_path=...)`` snapshots the carry in the JAX ``.npz``
+layout (``checkpoint.py``) and resumes from it bit for bit. One
+deliberate difference: a snapshot taken under warmup adaptation also
+stores the frozen kernel (step size, flag, inverse mass), which the JAX
+package's lacks, so that its resumed run keeps the frozen kernel (see
+:meth:`HamiltonianMC.sample`). SPMD meshes are not ported yet: setting
+``spmd_mesh`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -52,10 +59,12 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve
+from ..checkpoint import load_extra, load_state, save_state
 from ..diagnostics import median
 from ..ops import philox
 from ..ops.leapfrog import (KERNELS, LANE, make_fused_iteration,
                             make_fused_trajectory)
+from ..runtime.sink import write_chains
 from .nuts import (dual_averaging_init, dual_averaging_update, shrink,
                    welford_init, welford_update, welford_variance)
 from .potential import CONSTRAINTS, logistic_to_mw, mw_to_logistic
@@ -400,7 +409,10 @@ class HamiltonianMC:
     ``fused_per_step_ok`` and ``transfer_samples`` are accepted for the
     JAX class's interface: this sampler never falls back to the per-step
     op (the slices choose their op), and its sample buffers and ESS stay
-    on the device whatever ``transfer_samples`` says.
+    on the device whatever ``transfer_samples`` says. ``write_files``
+    (False by default, True in :func:`HMCSample`, as the JAX class's
+    default) writes the stored rows to ``<save_folder><myrank + c>/``
+    after sampling.
     """
 
     def __init__(self, model):
@@ -420,7 +432,10 @@ class HamiltonianMC:
         self.dtype = torch.float32
         self.device = None
         self.verbose = True
-        #: sample files are not ported; True raises
+        self.save_folder = "mychain"
+        #: write each chain's stored rows to ``<save_folder><myrank + c>/``
+        #: after sampling (the JAX class defaults to True; here the sample
+        #: buffers stay on the device unless asked for)
         self.write_files = False
         self.adapt_step_size = False
         self.adapt_target = 0.8
@@ -487,8 +502,6 @@ class HamiltonianMC:
         single chunks starts here too."""
         if self.spmd_mesh is not None:
             raise _unported("SPMD meshes", "item 13")
-        if self.write_files:
-            raise _unported("sample files (write_files=True)", "item 10")
         C = self.nchains
         M = self.initial_model.shape[0]
         dtype = self.dtype
@@ -534,7 +547,8 @@ class HamiltonianMC:
             carry = carry + _zero_moments(C, M, dtype, device)
         return run_chunk, carry
 
-    def sample(self, nsamples, ndraws, max_chunks=None, checkpoint_path=None,
+    def sample(self, nsamples, ndraws, max_chunks=None, callback=None,
+               checkpoint_path=None, checkpoint_every=20, resume=True,
                draws=None):
         """Run until every chain has stored ``nsamples`` samples after
         ``ndraws`` warm-up ones (counted in accepted states, or in
@@ -553,15 +567,36 @@ class HamiltonianMC:
         chunk accepting less than a quarter of the target while some chain
         has stored nothing halves dt and restarts them again.
 
+        ``callback(nacc, x)`` is called after every chunk with the
+        per-chain accept counts (int64 numpy) and the chains' state tensor
+        (one host read a chunk, made only when a callback is given).
+        ``checkpoint_path`` snapshots the carry (``checkpoint.py``, the
+        JAX package's ``.npz`` layout) every ``checkpoint_every`` chunks
+        once the kernel is frozen and at the end, and with ``resume``
+        continues from an existing snapshot exactly as the uninterrupted
+        run would have gone on (a chunk's draws depend only on the seed
+        and the chunk index); a snapshot of another configuration raises
+        ``ValueError``. Under adaptation the snapshot also stores the
+        frozen kernel (``step_size``, ``frozen``, ``inv_mass``: keys the
+        JAX package's ``load_state`` does not read) and a resumed run
+        restores it. The JAX package does not store it and re-adapts on
+        resume, from a chunk index past its freeze, so that its resumed
+        run never freezes and stores nothing; here a snapshot without it
+        (the JAX package's) or taken before the freeze is refused with a
+        ``ValueError``. Under ``adapt_mass`` the snapshot keeps the JAX
+        package's 11 leaves, the Welford moments (no longer read after the
+        freeze) written as zeros.
+
         Returns a dict like the JAX package's; ``samples``, ``misfits``,
         ``inv_mass`` and the chains' final state ``x`` are tensors on
         ``device``, and the ESS is computed
         there (:func:`~gravinv3dhmc_tpu_torch.diagnostics.ess_torch`, its
         median as ``np.median`` takes it). ``step_size`` is the frozen dt.
+        With ``write_files`` the buffers are copied to the host once and
+        chain c's ``n_stored[c]`` rows written to
+        ``<save_folder><myrank + c>/`` (``folders``).
         ``draws`` is an optional draw source (see the module docstring).
         """
-        if checkpoint_path is not None:
-            raise _unported("checkpoints", "item 10")
         run_chunk, carry = self.prepare(nsamples, ndraws, draws=draws)
         C = self.nchains
         M = self.initial_model.shape[0]
@@ -578,14 +613,54 @@ class HamiltonianMC:
         if max_chunks is None:
             max_chunks = max(200, 100 * total // self.chunk_size + 10) + W
 
-        t0 = time.time()
-        n_chunks = attempted = grad_evals = store_iters = 0
-        acc_min = acc_sum = 0
+        ckpt_meta = {"nsamples": nsamples, "ndraws": ndraws, "nchains": C,
+                     "M": M, "seed": self.seed, "myrank": self.myrank,
+                     "store_mode": self.store_mode,
+                     "adapt": [bool(self.adapt_step_size),
+                               bool(self.adapt_mass),
+                               int(self.adapt_chunks)]}
+        n_chunks = store_iters = 0
         dt_cur = float(self.dt)
         inv_mass = None
-        da = None
         frozen = not adapting
-        if adapting:
+        if checkpoint_path and resume and os.path.exists(checkpoint_path):
+            carry, n_chunks, _, meta = load_state(checkpoint_path,
+                                                  like_carry=carry)
+            meta = dict(meta)
+            store_iters = int(meta.pop("store_iters", 0))
+            meta.setdefault("store_mode", "accepted")
+            if meta != ckpt_meta:
+                raise ValueError(
+                    f"checkpoint config mismatch: {meta} != {ckpt_meta}")
+            if adapting:
+                dt_cur, inv_mass = _frozen_kernel(
+                    checkpoint_path, n_chunks, self.adapt_mass, self.dtype,
+                    device)
+                frozen = True
+                carry = carry[:8]
+            if self.verbose:
+                print(f"resumed from {checkpoint_path} at chunk "
+                      f"{n_chunks}", flush=True)
+
+        def snapshot():
+            leaves = carry
+            if self.adapt_mass and len(leaves) == 8:
+                leaves = leaves + _zero_moments(C, M, self.dtype, device)
+            extra = {"step_size": np.float64(dt_cur),
+                     "frozen": np.bool_(frozen)}
+            if inv_mass is not None:
+                extra["inv_mass"] = inv_mass.cpu().numpy()
+            save_state(checkpoint_path, leaves, n_chunks,
+                       philox.salt_from_seed(seed),
+                       meta=dict(ckpt_meta, store_iters=store_iters),
+                       extra=extra)
+
+        t0 = time.time()
+        attempted = grad_evals = 0
+        acc_min = int(carry[5].min())
+        acc_sum = int(carry[5].sum())
+        da = None
+        if adapting and not frozen:
             da = dual_averaging_init(dt_cur, target=self.adapt_target)
 
         def storage_done():
@@ -617,7 +692,10 @@ class HamiltonianMC:
                 raise FloatingPointError(
                     f"non-finite potential in chains {bad.tolist()} at "
                     f"chunk {n_chunks} (dt={self.dt}, Sigma={self.Sigma}); "
-                    "reduce the step size or check the kernel matrix.")
+                    "reduce the step size or check the kernel matrix. "
+                    + (f"Last good state: {checkpoint_path}"
+                       if checkpoint_path else
+                       "Set checkpoint_path to make such runs resumable."))
             # the chunk's mean accept as the JAX package's f32 mean
             acc_rate = float(np.float32(acc_chunk)
                              / np.float32(stats.shape[0] * stats.shape[1]))
@@ -698,6 +776,13 @@ class HamiltonianMC:
                 if self.verbose:
                     print(f"post-freeze accept {acc_rate:.2%} -- halving "
                           f"dt to {dt_cur:.5g}", flush=True)
+            if callback is not None:
+                callback(carry[5].cpu().numpy().astype(np.int64), carry[0])
+            if (checkpoint_path and frozen
+                    and n_chunks % checkpoint_every == 0):
+                snapshot()
+        if checkpoint_path:
+            snapshot()
         elapsed = time.time() - t0
 
         accepted = carry[5].cpu().numpy().astype(np.int64)
@@ -719,12 +804,19 @@ class HamiltonianMC:
                                      torch.as_tensor(sub, device=device)])
             ess_median = float(median(ess))
             ess_per_s = ess_median / max(elapsed, 1e-9)
+        folders = []
+        if self.write_files:
+            # one copy of each buffer to the host
+            folders = write_chains(
+                self.save_folder, self.myrank,
+                carry[6].cpu().numpy().astype(np.float64),
+                carry[7].cpu().numpy().astype(np.float64), n_stored)
         return {
             "samples": carry[6],
             "misfits": carry[7],
             "x": carry[0],
             "n_stored": n_stored,
-            "folders": [],
+            "folders": folders,
             "accepted": accepted.tolist(),
             "attempted": attempted,
             "accept_ratio": float(accepted.sum()) / max(attempted, 1),
@@ -740,6 +832,29 @@ class HamiltonianMC:
         }
 
 
+def _frozen_kernel(path, n_chunks, adapt_mass, dtype, device):
+    """``(dt, inv_mass)`` of the frozen kernel an adaptive run's snapshot
+    stores; ``ValueError`` for a snapshot without it (the JAX package's)
+    or taken before the kernel froze."""
+    extra = load_extra(path)
+    need = ("step_size", "frozen") + (("inv_mass",) if adapt_mass else ())
+    missing = [k for k in need if k not in extra]
+    if missing:
+        raise ValueError(
+            f"{path} has no frozen kernel ({', '.join(missing)} missing): "
+            "an adaptive run resumes only from a snapshot that stores its "
+            "frozen step size and metric (the JAX package's snapshots do "
+            "not, and resuming one would re-adapt past the freeze)")
+    if not bool(extra["frozen"]):
+        raise ValueError(
+            f"{path} was taken at chunk {n_chunks}, during the warmup: "
+            "the warmup's adaptation state is not snapshotted; rerun "
+            "without resume")
+    inv_mass = (torch.as_tensor(extra["inv_mass"], dtype=dtype,
+                                device=device) if adapt_mass else None)
+    return float(extra["step_size"]), inv_mass
+
+
 def _zero_moments(C, M, dtype, device):
     """A fresh Welford window: ``(w_mean, w_m2, w_count)`` at zero."""
     return tuple(welford_init((C, M), dtype, device).values())
@@ -748,3 +863,70 @@ def _zero_moments(C, M, dtype, device):
 def _restart_counts(carry):
     """``carry`` with its per-chain accept counts set to 0."""
     return carry[:5] + (torch.zeros_like(carry[5]),) + carry[6:]
+
+
+# reference-compatible misspelled alias (inversion/hmc.py:29)
+HamitonianMC = HamiltonianMC
+
+
+def HMCSample(model, nsamples, ndraws, delta, Lrange, initial_model,
+              aprior_model, boundaries, constraint, log_factor, dobs,
+              adaptiveRegul=None, RegulRate=None, RegulFactor=1.0,
+              regularization="Damping", beta=0.01, seed=100, Sigma=1.0,
+              nbest=100, myrank=0, save_folder="mychain", plotsamples=False,
+              im=(0, 0), nchains=1, chunk_size=64, dtype=torch.float32,
+              verbose=True, write_files=True, adapt_step_size=False,
+              adapt_target=0.8, adapt_mass=False, adapt_chunks=10,
+              shared_L=False, use_fused=False, transfer_samples=True,
+              store_mode="accepted", store_thin=1, spmd_mesh=None,
+              jacobian=False, temperature=1.0, device=None):
+    """Reference-compatible chain factory, as the JAX package's
+    ``HMCSample`` (reference: inversion/hmc.py:358-403): configures a
+    :class:`HamiltonianMC` (seed ``seed + myrank``, the box, start and a
+    priori model moved to the weighted domain) and returns its
+    ``sample(nsamples, ndraws)``. ``nchains`` chains write
+    ``save_folder{myrank + c}/`` when ``write_files``. ``dtype`` is a torch
+    dtype and ``device`` the chains' (``cuda:0`` when None).
+    ``adaptiveRegul``, ``RegulRate``, ``nbest``, ``plotsamples`` and ``im``
+    are accepted for parity and unused, as there.
+    """
+    chain = HamiltonianMC(model)
+    chain.myrank = myrank
+    chain.save_folder = save_folder
+    chain.seed = seed + myrank
+    chain.constraint = constraint
+    chain.log_factor = log_factor
+    chain.Lrange = list(Lrange)
+    chain.dt = delta
+    chain.Sigma = Sigma
+    chain.RegulFactor = RegulFactor
+    chain.regularization = regularization
+    chain.beta = beta
+    chain.nchains = nchains
+    chain.chunk_size = chunk_size
+    chain.dtype = dtype
+    chain.device = device
+    chain.verbose = verbose
+    chain.write_files = write_files
+    chain.adapt_step_size = adapt_step_size
+    chain.adapt_target = adapt_target
+    chain.adapt_mass = adapt_mass
+    chain.adapt_chunks = adapt_chunks
+    chain.shared_L = shared_L
+    chain.use_fused = use_fused
+    chain.transfer_samples = transfer_samples
+    chain.store_mode = store_mode
+    chain.store_thin = store_thin
+    chain.spmd_mesh = spmd_mesh
+    chain.jacobian = jacobian
+    chain.temperature = temperature
+
+    boundaries = np.asarray(boundaries, dtype=np.float64)
+    wdiag = np.asarray(model.wdiag)
+    # m-domain -> mw-domain (reference: inversion/hmc.py:393-401)
+    chain.low = wdiag * boundaries[:, 0]
+    chain.high = wdiag * boundaries[:, 1]
+    chain.initial_model = wdiag * np.asarray(initial_model, dtype=np.float64)
+    chain.aprior_model = wdiag * np.asarray(aprior_model, dtype=np.float64)
+    chain.dobs = np.asarray(dobs, dtype=np.float64)
+    return chain.sample(nsamples, ndraws)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from ..runtime.sink import write_chains
 from .potential import logistic_to_mw, mw_to_logistic
 
 
@@ -366,11 +367,10 @@ def NUTSSample(model, nsamples, nwarmup, initial_model, aprior_model,
     (``cuda:0`` when None). ``grad_evals`` counts the leapfrog steps the
     sampling trees ran (the JAX package counts 2^depth - 1 a tree, more
     than a tree that stopped inside its last subtree ran).
-    ``save_folder`` (sample files) is not ported yet and raises."""
-    if save_folder is not None:
-        raise NotImplementedError(
-            "sample files (save_folder) are not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 10)")
+    With ``save_folder``, chain c's samples are written to
+    ``<save_folder><myrank + c>/model.dat`` with a row of seven zeros in
+    ``misfit.dat`` each (``runtime/sink.py``), and ``folders`` lists the
+    folders, as in the JAX package."""
     device = resolve(device)
     pot, low, high, x0 = _logistic_target(
         model, initial_model, aprior_model, boundaries, regularization,
@@ -390,7 +390,7 @@ def NUTSSample(model, nsamples, nwarmup, initial_model, aprior_model,
     samples = _to_model(xs.transpose(0, 1), low, high, log_factor, model,
                         dtype, device)
     elapsed = time.time() - t0
-    return {
+    out = {
         "samples": samples,
         "step_size": stats["step_size"],
         "inv_mass": stats["inv_mass"],
@@ -400,6 +400,11 @@ def NUTSSample(model, nsamples, nwarmup, initial_model, aprior_model,
         "elapsed_s": elapsed,
         "grad_evals": int(stats["n_leapfrog"].sum()),
     }
+    if save_folder is not None:
+        host = samples.cpu().numpy().astype(np.float64)
+        out["folders"] = write_chains(save_folder, myrank, host,
+                                      np.zeros(host.shape[:2] + (7,)))
+    return out
 
 
 def _logistic_target(model, initial_model, aprior_model, boundaries,

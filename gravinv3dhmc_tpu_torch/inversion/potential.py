@@ -48,6 +48,7 @@ item that brings it.
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 
@@ -186,7 +187,11 @@ class GravMagModule:
     on the host; :mod:`..ops.wavelet`), which :meth:`predict` and
     :meth:`make_potential` use by default; a 3D wavelet needs the full
     grid, so a carved mesh refuses it (``ValueError``, as the JAX module
-    fails in its reshape). ``kernel_device`` and ``kernel_cache`` raise
+    fails in its reshape). ``kernel_cache`` is a path: a file that exists
+    there is loaded with ``np.load`` in place of the build (the unweighted
+    matrix; a shape other than (observations, active cells) raises
+    ``ValueError``), and otherwise the built matrix is saved there with
+    ``np.save``, as the JAX module does. ``kernel_device`` raises
     ``NotImplementedError``.
 
     ``device`` (by default ``cuda:0``, see
@@ -224,8 +229,6 @@ class GravMagModule:
         if kernel_device:
             raise _unported("the device tesseroid builder (kernel_device)",
                             "item 12")
-        if kernel_cache:
-            raise _unported("the kernel disk cache", "item 10")
         self.dobs = np.asarray(dobs, dtype=np.float64)
         self.fixed = fixed
         self.grav_fix = (np.asarray(grav_fix, dtype=np.float64) if fixed
@@ -275,28 +278,50 @@ class GravMagModule:
         self.build_seconds = {}
         self.tess_backend = None
         info = {}
-        if field == "magnetic":
-            mesh.addprop("magnetization",
-                         ang2vec(np.zeros(mesh.size), self.inc, self.dec))
-            builder = tesseroid if coordinate == "spherical" else prism
-            kw = {"info": info} if coordinate == "spherical" else {}
-            _, kernel = builder.tf(self.lonobs, self.latobs, self.heightobs,
-                                   mesh, self.inc, self.dec, **kw)
-        elif coordinate == "spherical":
-            mesh.addprop("density", np.zeros(mesh.size))
-            kernel = tesseroid.tesseroid_kernel_matrix(
-                "gz", self.lonobs, self.latobs, self.heightobs, mesh,
-                info=info)
+        if kernel_cache and os.path.exists(kernel_cache):
+            # the JAX module loads whatever the file holds; a matrix of
+            # another geometry is refused here
+            kernel = np.load(kernel_cache)
+            want = (self.lonobs.size, int(mesh.active.sum()))
+            if kernel.shape != want:
+                raise ValueError(
+                    f"kernel cache {kernel_cache} holds a {kernel.shape} "
+                    f"matrix; this module's observations and active cells "
+                    f"need {want}")
+            if verbose:
+                print(f"loaded kernel from {kernel_cache}")
         else:
-            mesh.addprop("density", np.zeros(mesh.size))
-            kernel = prism.prism_kernel_matrix(
-                "gz", self.lonobs, self.latobs, self.heightobs, mesh,
-                backend=kernel_backend, device=self.device,
-                timings=self.build_seconds)
+            if field == "magnetic":
+                mesh.addprop("magnetization",
+                             ang2vec(np.zeros(mesh.size), self.inc,
+                                     self.dec))
+                builder = tesseroid if coordinate == "spherical" else prism
+                kw = {"info": info} if coordinate == "spherical" else {}
+                _, kernel = builder.tf(self.lonobs, self.latobs,
+                                       self.heightobs, mesh, self.inc,
+                                       self.dec, **kw)
+            elif coordinate == "spherical":
+                mesh.addprop("density", np.zeros(mesh.size))
+                kernel = tesseroid.tesseroid_kernel_matrix(
+                    "gz", self.lonobs, self.latobs, self.heightobs, mesh,
+                    info=info)
+            else:
+                mesh.addprop("density", np.zeros(mesh.size))
+                kernel = prism.prism_kernel_matrix(
+                    "gz", self.lonobs, self.latobs, self.heightobs, mesh,
+                    backend=kernel_backend, device=self.device,
+                    timings=self.build_seconds)
+            if verbose:
+                print("End of calculate kernel:%.6f s"
+                      % (time.time() - start))
+            if kernel_cache:
+                # np.save appends ".npy" to a path without it
+                np.save(kernel_cache if kernel_cache.endswith(".npy")
+                        else kernel_cache + ".npy", kernel)
+                if not kernel_cache.endswith(".npy"):
+                    os.replace(kernel_cache + ".npy", kernel_cache)
         self.tess_backend = info.get("tess_backend")
         self.kernel_build_s = time.time() - start
-        if verbose:
-            print("End of calculate kernel:%.6f s" % (time.time() - start))
         t0 = time.perf_counter()
         Aw, wdiag, wdiag_inv = sensitivity_weighting(kernel, weightfactor)
         self.build_seconds["weighting_s"] = time.perf_counter() - t0

@@ -3,10 +3,10 @@
 A copy of ``gravinv3dhmc_tpu/mesher/mesh.py``: :class:`StructuredMesh3D`,
 :class:`PrismMesh`, :class:`TesseroidMesh` and the per-segment depth
 spacing of :class:`PrismMeshSegment` and :class:`TesseroidMeshSegment`
-(the realdata slice's mesh). The JAX package cannot be imported here (its
-``__init__`` imports jax), so the numpy code is carried over and
-``tests/test_torch_host.py`` holds it against the original.
-:class:`~gravinv3dhmc_tpu.mesher.mesh.PrismRelief` is not copied yet.
+(the realdata slice's mesh) and :class:`PrismRelief`. The JAX package
+cannot be imported here (its ``__init__`` imports jax), so the numpy code
+is carried over and ``tests/test_torch_host.py`` and
+``tests/test_torch_utils.py`` hold it against the original.
 
 Cell ordering matches the reference exactly: x fastest, then y, z slowest
 (reference: mesher/mesh.py:131-138, 240-244).
@@ -341,3 +341,60 @@ class TesseroidMeshSegment(PrismMeshSegment):
     def __init__(self, bounds, spacing, divisionsection, props=None):
         super().__init__(bounds, spacing, divisionsection, props=props)
         self.dump = None
+
+
+class PrismRelief:
+    """Topography/basin relief as a collection of column prisms.
+
+    ``ref`` is the reference depth; each (x, y, z) node produces a prism of
+    plan size (dx, dy) spanning from z to ref (reference:
+    mesher/mesh.py:23-124). ``addprop`` flips the sign of the property for
+    prisms above the reference level, as the reference does
+    (mesher/mesh.py:116-120).
+    """
+
+    def __init__(self, ref, dims, nodes):
+        x, y, z = (np.asarray(a, dtype=np.float64) for a in nodes)
+        if not (x.size == y.size == z.size):
+            raise ValueError("x, y, z must have the same number of nodes")
+        self.x, self.y, self.z = x, y, z
+        self.size = x.size
+        self.ref = float(ref)
+        self.dy, self.dx = dims
+        self.props = {}
+        self._i = 0
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        if index < 0:
+            index = self.size + index
+        xc, yc, zc = self.x[index], self.y[index], self.z[index]
+        x1 = xc - 0.5 * self.dx
+        x2 = xc + 0.5 * self.dx
+        y1 = yc - 0.5 * self.dy
+        y2 = yc + 0.5 * self.dy
+        if zc <= self.ref:
+            z1, z2 = zc, self.ref
+        else:
+            z1, z2 = self.ref, zc
+        props = {p: self.props[p][index] for p in self.props}
+        return Prism(x1, x2, y1, y2, z1, z2, props=props)
+
+    def __iter__(self):
+        self._i = 0
+        return self
+
+    def __next__(self):
+        if self._i >= self.size:
+            raise StopIteration
+        p = self[self._i]
+        self._i += 1
+        return p
+
+    def addprop(self, prop, values):
+        values = np.asarray(values, dtype=np.float64).copy()
+        flip = self.z > self.ref
+        values[flip] = -values[flip]
+        self.props[prop] = values

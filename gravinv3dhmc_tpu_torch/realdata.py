@@ -57,12 +57,13 @@ SLICE = dict(nchains=256, chunk=64, nsamples=768, adapt_chunks=12,
              matvec=torch.float32, seed=100)
 
 
-def build_problem(device=None, step=0.5):
+def build_problem(device=None, step=0.5, kernel_cache=None):
     """``(module, dobs)``: the JAX bench's synthetic South China problem,
     observations and mesh columns ``step`` degrees apart (0.5, the
     default, is the bench's 576 x 10,676 problem; a coarser step is a
     smaller problem of the same geometry), the module's tensors on
-    ``device`` (``cuda:0`` when None)."""
+    ``device`` (``cuda:0`` when None); ``kernel_cache`` is the module's
+    (a path the tesseroid matrix is loaded from, or saved to)."""
     spacing = (DZ, step, step)
     lons, lats = np.meshgrid(np.arange(MRANGE[0] + step / 2, MRANGE[1], step),
                              np.arange(MRANGE[2] + step / 2, MRANGE[3], step))
@@ -76,7 +77,7 @@ def build_problem(device=None, step=0.5):
         dobs, MRANGE, spacing, (lons, lats, heights), fixed=True,
         grav_fix=grav_sea, mseg=True, mdivisionsection=DIVISION,
         coordinate="spherical", field="gravity", verbose=False,
-        device=device, mtopo=(lons, lats, topo))
+        device=device, kernel_cache=kernel_cache, mtopo=(lons, lats, topo))
     return module, np.asarray(dobs, np.float64)
 
 

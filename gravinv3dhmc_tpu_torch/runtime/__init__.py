@@ -1,1 +1,2 @@
-"""Host runtime: the native tesseroid engine (``tessglq``)."""
+"""Host runtime: the native tesseroid engine (``tessglq``) and the sample
+sinks (``sink``, ``sink_py``)."""

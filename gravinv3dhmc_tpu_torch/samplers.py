@@ -61,6 +61,7 @@ from .inversion.chees import run_chees
 from .inversion.hmc import HamiltonianMC
 from .inversion.nuts import _logistic_target, run_nuts
 from .inversion.potential import logistic_to_mw
+from .runtime.sink import write_chains
 
 #: the tool's defaults
 SAMPLERS = dict(nchains=8, nsamples=200, nwarmup=200, nsub=64,
@@ -111,8 +112,11 @@ def _summary(chains, elapsed, sub, **extra):
                 rhat_max=float(split_rhat(chains[:, :, sub]).max()), **extra)
 
 
-def _adaptive(name, problem, device, cfg):
-    """One run of ChEES or NUTS: ``(line, tensors)``."""
+def _adaptive(name, problem, device, cfg, save_folder=None):
+    """One run of ChEES or NUTS: ``(line, tensors)``; with ``save_folder``
+    the draws in reference units (``tensors["model"]``) are written as
+    ``CheesSample`` and ``NUTSSample`` write them, chain c to
+    ``<save_folder><name>_<c>/`` (``line["folders"]``)."""
     module = problem[0]
     potential, low, high, x0 = target(module, device, cfg["log_factor"],
                                       cfg["beta"])
@@ -154,7 +158,15 @@ def _adaptive(name, problem, device, cfg):
     mw = logistic_to_mw(xs, lo, hi, cfg["log_factor"])
     line = _summary(mw, elapsed, sub, sampler=name, nwarmup=W, **extra)
     line["grad_evals_per_total_s"] = line["grad_evals"] / elapsed
-    return line, dict(samples=xs, **state)
+    tensors = dict(samples=xs, **state)
+    if save_folder is not None:
+        model = mw * torch.as_tensor(module.wdiag_inv, dtype=torch.float32,
+                                     device=device)
+        host = model.cpu().numpy().astype(np.float64)
+        line["folders"] = write_chains(f"{save_folder}{name}_", 0, host,
+                                       np.zeros(host.shape[:2] + (7,)))
+        tensors["model"] = model
+    return line, tensors
 
 
 def _hmc(problem, device, cfg, nsub):
@@ -279,7 +291,7 @@ def _realdata(problem, device, cfg):
 
 
 def run(which=DEFAULT, device=None, problem=None, hmc=None, rd=None,
-        rd_problem=None, **overrides):
+        rd_problem=None, save_folder=None, **overrides):
     """Run the samplers ``which`` on ``device`` (``cuda:0`` when None);
     returns ``{name: (line, tensors)}``: the JSON line's dict and the run's
     tensors (samples, final chain state, adaptation state). ``problem``
@@ -287,7 +299,8 @@ def run(which=DEFAULT, device=None, problem=None, hmc=None, rd=None,
     ``device``); ``overrides`` change :data:`SAMPLERS` and ``hmc`` updates
     :data:`HMC`. ``realdata`` runs on ``rd_problem`` (by default
     :func:`~.realdata.build_problem`'s on ``device``) with :data:`REALDATA`
-    updated by ``rd``."""
+    updated by ``rd``. ``save_folder`` makes ChEES and NUTS write their
+    draws' sample files (see :func:`_adaptive`)."""
     device = _device.resolve(device)
     cfg = dict(SAMPLERS, **overrides)
     for name in which:
@@ -306,7 +319,7 @@ def run(which=DEFAULT, device=None, problem=None, hmc=None, rd=None,
             out[name] = _hmc(problem, device, dict(HMC, **(hmc or {})),
                              cfg["nsub"])
         else:
-            out[name] = _adaptive(name, problem, device, cfg)
+            out[name] = _adaptive(name, problem, device, cfg, save_folder)
     return out
 
 

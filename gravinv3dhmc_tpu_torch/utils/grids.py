@@ -1,8 +1,8 @@
 """Observation-grid generation and synthetic-noise helpers.
 
-Numpy copy of ``regular`` and ``contaminate`` from
-``gravinv3dhmc_tpu/utils/grids.py`` (reference: utils.py:114-151,
-utils.py:549-631).
+Numpy copy of ``gravinv3dhmc_tpu/utils/grids.py`` (reference:
+utils.py:114-151 ``regular``, utils.py:549-631 ``contaminate``,
+utils.py:634-690 the gaussians).
 """
 from __future__ import annotations
 
@@ -65,3 +65,24 @@ def contaminate(data, stddev, percent=False, return_stddev=False, seed=None):
     if return_stddev:
         return [contam, stddev]
     return contam
+
+
+def gaussian(x, mean, std):
+    """Normalised 1-D Gaussian (reference: utils.py:634-657, including its
+    non-standard exponent scaling, preserved for parity)."""
+    return (1 / (np.sqrt(2 * np.pi) * std)) * np.exp(-1 * ((x - mean) ** 2 / 2 * std ** 2))
+
+
+def gaussian2d(x, y, sigma_x, sigma_y, x0=0, y0=0, angle=0.0):
+    """Non-normalised rotated 2-D Gaussian (reference: utils.py:660-690)."""
+    theta = -1 * angle * np.pi / 180.0
+    tmpx = 1.0 / sigma_x ** 2
+    tmpy = 1.0 / sigma_y ** 2
+    sintheta = np.sin(theta)
+    costheta = np.cos(theta)
+    a = tmpx * costheta + tmpy * sintheta ** 2
+    b = (tmpy - tmpx) * costheta * sintheta
+    c = tmpx * sintheta ** 2 + tmpy * costheta ** 2
+    xhat = x - x0
+    yhat = y - y0
+    return np.exp(-(a * xhat ** 2 + 2.0 * b * xhat * yhat + c * yhat ** 2))

@@ -42,6 +42,17 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.ops.wavelet\n"
             "import gravinv3dhmc_tpu_torch.ops.prism\n"
             "import gravinv3dhmc_tpu_torch.magnetic\n"
+            "import gravinv3dhmc_tpu_torch.checkpoint\n"
+            "import gravinv3dhmc_tpu_torch.config\n"
+            "import gravinv3dhmc_tpu_torch.utils\n"
+            "import gravinv3dhmc_tpu_torch.utils.io\n"
+            "import gravinv3dhmc_tpu_torch.utils.linalg\n"
+            "import gravinv3dhmc_tpu_torch.utils.packing\n"
+            "import gravinv3dhmc_tpu_torch.runtime.sink\n"
+            "import gravinv3dhmc_tpu_torch.runtime.sink_py\n"
+            "from gravinv3dhmc_tpu_torch.mesher import PrismRelief\n"
+            "from gravinv3dhmc_tpu_torch.inversion.hmc import HMCSample\n"
+            "from gravinv3dhmc_tpu_torch.diagnostics import load_chains\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gravinv3dhmc_tpu.') "
             "or m == 'gravinv3dhmc_tpu']\n"

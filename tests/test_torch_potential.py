@@ -84,7 +84,8 @@ def test_bf16_storage_accumulates_in_f32(small_module):
 def test_unported_potentials_raise(small_module, kwargs):
     """Wavelet potentials are ported: on a module built without a wavelet
     kernel (``Awcp`` None) ``use_wavelet`` gives the dense potential, as
-    in the JAX package. The module options still unported raise."""
+    in the JAX package. The module option still unported
+    (``kernel_device``, item 12) raises."""
     jm, tm = _modules(small_module, False)
     w = tm.wdiag
     args = (w * 0.001, w * 0.0, w * 1.0)
@@ -95,7 +96,6 @@ def test_unported_potentials_raise(small_module, kwargs):
         jnp.asarray(x, jnp.float32), 1.0)[1])
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     obs = (jm.lonobs, jm.latobs, jm.heightobs)
-    for opt in (dict(kernel_device=True), dict(kernel_cache="A.npy")):
-        with pytest.raises(NotImplementedError):
-            GravMagModule(small_module[1], BOUNDS, SPACING, obs,
-                          verbose=False, device="cpu", **opt)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        GravMagModule(small_module[1], BOUNDS, SPACING, obs, verbose=False,
+                      device="cpu", kernel_device=True)

@@ -93,15 +93,23 @@ def test_build_problem_is_the_jax_benchs_geometry():
     np.testing.assert_array_equal(module.grav_fix, np.zeros(dobs.size))
 
 
-def test_unported_module_options_raise():
-    """The device tesseroid builder and the kernel cache are not ported
-    (magnetics and wavelets are: ``tests/test_torch_magnetic.py``,
-    ``tests/test_torch_wavelet.py``); a field neither package has is
-    refused."""
+def test_unported_module_options_raise(tmp_path):
+    """The device tesseroid builder is not ported (item 12; magnetics and
+    wavelets are: ``tests/test_torch_magnetic.py``,
+    ``tests/test_torch_wavelet.py``); the kernel cache is: the carved
+    spherical module built with a cache path loads back from it (no
+    tesseroid build) to the same matrices bit for bit. A field neither
+    package has is refused."""
     args, kw = _args()
-    for extra in (dict(kernel_device=True), dict(kernel_cache="k.npy")):
-        with pytest.raises(NotImplementedError):
-            GravMagModule(*args, **{**kw, **extra}, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        GravMagModule(*args, **kw, kernel_device=True, device="cpu")
+    path = str(tmp_path / "k.npy")
+    built = GravMagModule(*args, **kw, kernel_cache=path, device="cpu")
+    loaded = GravMagModule(*args, **kw, kernel_cache=path, device="cpu")
+    assert built.tess_backend is not None and loaded.tess_backend is None
+    for key in ("A", "Aw", "wdiag"):
+        np.testing.assert_array_equal(getattr(loaded, key),
+                                      getattr(built, key))
     with pytest.raises(ValueError):
         GravMagModule(*args, **{**kw, "field": "gravity_gradient"},
                       device="cpu")

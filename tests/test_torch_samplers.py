@@ -94,13 +94,6 @@ def test_nuts_sample_matches_jax(small_module, torch_module):
     assert 0 < res_t["grad_evals"] <= 4 * 60 * (2 ** 5 - 1)
 
 
-def test_save_folder_raises(small_module, torch_module):
-    kw = dict(_kw(small_module), nsamples=2, nwarmup=2)
-    for fn in (tchees.CheesSample, tnuts.NUTSSample):
-        with pytest.raises(NotImplementedError):
-            fn(torch_module, save_folder="chains/c", device="cpu", **kw)
-
-
 TOOL_KEYS = {"total_s", "ess_min", "ess_median", "ess_per_total_s_median",
              "rhat_max", "mean_accept", "step_size", "grad_evals",
              "grad_evals_per_total_s"}
