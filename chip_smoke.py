@@ -242,6 +242,38 @@ Phases, one line each (the script stops at the first failure, non-zero):
              JAX package's own device builder's gap, golden
              ``prism_device``, reported beside it); both builds timed.
 
+19. joint  — ``inversion/joint.py`` on the uniformgrid flagship's mesh
+             with both fields (1,200 x 12,000 block system, the
+             magnetization twice the density along inclination 60,
+             declination 10, as ``tests/test_joint.py``): the potential in
+             f32 against the same module in f64 on the card (Smoothness,
+             without and with the cross-gradient, 64 chains, within
+             :data:`JOINT_RTOL`); ``HMCSample`` at 64 chains for 128 stored
+             iterations with ``use_fused=True``, which the module (no host
+             matrix) must decline for the eager path: one ``draws`` launch
+             an iteration, accept in (0.2, 1], finite samples on the card;
+             the spherical joint module evaluated finite on the card.
+             Then ``draws`` at 64 x 12,000 against its plain version.
+20. global — the whole-Earth workload at full scale
+             (``global_tess.py``, 7,381 x 72,000, the 2.13 GB f32 matrix
+             built and weighted on the card): the build's stages (the
+             data's forward over the truth's cells, far field, native mask,
+             native pair values, weighting) and
+             :data:`GLOBAL_PAIRS` native near-field pairs; the device mask
+             against the native one (each differing pair within
+             :data:`GLOBAL_FLIP_RTOL` of its threshold); 2,000 sampled
+             entries against the native engine within
+             :data:`GLOBAL_ENTRY_RTOL`; the bounded MAP
+             (:data:`GLOBAL_MAP`: the misfit moves, corr > 0.3, beside the
+             JAX package's TPU statistics from ``GLOBAL_r05.json``); the
+             eager HMC from the MAP (:data:`GLOBAL_HMC`: the windowed
+             warmup with the Welford metric, chain storage; finite, accept
+             in (0.2, 1], ``draws`` once an iteration) and one post-freeze
+             chunk under ``torch.profiler`` (busy, idle share, the top
+             device operations, busy ms a step beside the step's bound:
+             two reads of the matrix). Then ``draws`` at 32 x 72,000
+             against its plain version.
+
 Before phase 13 its 576 x 10,676 realdata problem is built with a
 kernel cache and again from the cache (``state`` line ``kernel_cache``):
 ``A``, ``Aw`` and the weights must be bit equal, both build times
@@ -260,7 +292,8 @@ phase 8, the bench's (both stages) in phase 11, the samplers' (``draws``:
 ChEES's and the honest HMC's) in phase 12, the deterministic stages' in
 phase 13 (their products are ``torch.matmul``, so none), the realdata
 ChEES's in phase 14, the magnetic stage's in phase 15, the wavelet
-runs' in phase 16 and the magnetic demo's ChEES's in phase 17: these
+runs' in phase 16, the magnetic demo's ChEES's in phase 17, the joint
+HMC's in phase 19 and the whole-Earth HMC's in phase 20: these
 runs' counts make the
 ``launches`` of the kernels line. ``draws``
 and ``refresh`` are bounded by the issued
@@ -2435,6 +2468,299 @@ def phase_prism_device(torch, dev, smi):
              f"{A_dev.dtype}")
 
 
+#: the joint phase's settings: ``tests/test_joint.py``'s truth (the
+#: magnetization twice the density, the field at inclination 60,
+#: declination 10) on the uniformgrid flagship's mesh, its HMCSample at
+#: 64 chains, 128 stored iterations in chunks of 32
+JOINT = dict(mangle=(60.0, 10.0), nchains=64, nsamples=128, chunk_size=32)
+#: the joint potential in f32 on the card against the same module in f64
+#: on the card (the f64 reference takes the f32 inputs): U and g over
+#: their max |value| across the 64 chains
+JOINT_RTOL = 1e-4
+
+
+def joint_problem(dev):
+    """The uniformgrid flagship (20 x 30 x 10 prisms of 100 m, 600
+    observations at z = -1 m) with both fields: the ``JointModule``, the
+    data forwarded by the f64 host builders."""
+    from gravinv3dhmc_tpu_torch import mesher, uniformgrid, utils
+    from gravinv3dhmc_tpu_torch.inversion.joint import JointModule
+    from gravinv3dhmc_tpu_torch.ops import prism
+
+    nx, ny, nz, d = 20, 30, 10, 100.0
+    bounds = (0, nx * d, 0, ny * d, 0, nz * d)
+    mesh = mesher.PrismMesh(bounds, (d, d, d))
+    rho = 0.5 * uniformgrid.density_model(nx, ny, nz).ravel()
+    xo, yo, zo = utils.regular(bounds[:4], (nx, ny), z=-1.0)
+    mesh.addprop("density", rho)
+    dgz, _ = prism.gz(xo, yo, zo, mesh)
+    mesh.addprop("magnetization", 2.0 * rho)
+    dtf, _ = prism.tf(xo, yo, zo, mesh, *JOINT["mangle"])
+    return JointModule(dgz, dtf, bounds, (d, d, d), (xo, yo, zo),
+                       mangle=JOINT["mangle"], verbose=False, device=dev)
+
+
+def phase_joint(torch, tlf, dev, smi):
+    """Joint gravity and magnetics (``inversion/joint.py``) on the card:
+    the 1,200 x 12,000 block system's potential with Smoothness, without
+    and with the cross-gradient, at 64 chains in f32 against f64; then
+    ``HMCSample`` (Damping, :data:`JOINT`, ``use_fused=True``, which a
+    module without a host matrix must decline for the eager path), its
+    launches counted from 0 just before it; then the spherical joint
+    module of ``tests/test_tesseroid_magnetic.py`` evaluated on the card.
+    Returns the run's launch counts and the cells of a chain."""
+    from gravinv3dhmc_tpu_torch.inversion.hmc import HMCSample
+    from gravinv3dhmc_tpu_torch.inversion.joint import JointModule
+
+    t0 = time.perf_counter()
+    jm = joint_problem(dev)
+    build_s = time.perf_counter() - t0
+    n = jm.n_active
+    w = torch.as_tensor(jm.wdiag, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = (w * (0.05 + 0.5 * torch.rand(JOINT["nchains"], n, generator=gen,
+                                      device=dev, dtype=torch.float64))
+         ).float()
+    args = (jm.wdiag * 0.001, jm.wdiag * -0.1, jm.wdiag * 2.5)
+    errs = {}
+    for cgw in (0.0, 1.0):
+        out = [jm.make_potential(*args, regularization="Smoothness",
+                                 cross_gradient_weight=cgw,
+                                 dtype=dt)(x.to(dt), 1.0)
+               for dt in (torch.float32, torch.float64)]
+        errs[f"cgw={cgw:g}"] = {k: rel_err(a, b)[1] for k, a, b in zip(
+            ("U", "g"), out[0][:2], out[1][:2])}
+    bnd = np.stack([np.full(n, -0.1), np.full(n, 2.5)], axis=1)
+    dobs = np.concatenate([jm.dobs_gz, jm.dobs_tf])
+    sync(torch)
+    tlf.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = HMCSample(
+        jm, JOINT["nsamples"], 0, 0.005, [3, 8], np.full(n, 0.001),
+        np.full(n, 0.001), bnd, "mandatory", 1000.0, dobs, RegulFactor=1.0,
+        regularization="Damping", seed=1, Sigma=0.001,
+        nchains=JOINT["nchains"], chunk_size=JOINT["chunk_size"],
+        verbose=False, write_files=False, store_mode="chain",
+        use_fused=True, device=dev)
+    sync(torch)
+    counts = tlf.launch_counts()
+    hmc_s = time.perf_counter() - t0
+    samples = stats["samples"]
+    finite = bool(torch.isfinite(samples).all())
+    # the spherical joint problem (both tesseroid kernels, 16 x 36 cells)
+    mrange = (-0.1, 0.1, -0.1, 0.1, 0.0, -6000.0)
+    lons, lats = np.meshgrid(np.linspace(-0.08, 0.08, 4),
+                             np.linspace(-0.08, 0.08, 4))
+    lons, lats = lons.ravel(), lats.ravel()
+    rng = np.random.RandomState(1)
+    sph = JointModule(rng.normal(0, 5, lons.size),
+                      rng.normal(0, 10, lons.size), mrange,
+                      (-2000.0, 0.05, 0.05),
+                      (lons, lats, np.full(lons.size, 400.0)),
+                      coordinate="spherical", mangle=(50.0, 10.0),
+                      verbose=False, device=dev)
+    ws = sph.wdiag
+    U_s, g_s, _ = sph.make_potential(0 * ws, -2.0 * ws, 2.0 * ws)(
+        torch.as_tensor(0.1 * ws[None, :], device=dev), 1.0)
+    sph_finite = bool(torch.isfinite(U_s).all() and torch.isfinite(g_s).all())
+    iters = JOINT["nsamples"]
+    line("joint", card=smi, problem=[int(dobs.size), n],
+         build_s=build_s, f32_vs_f64_rel_err=errs, rtol=JOINT_RTOL,
+         hmc_s=hmc_s, grad_evals_per_s=stats["grad_evals_per_s"],
+         accept_ratio=stats["accept_ratio"], iterations=iters,
+         fused_mode=stats["fused_mode"], finite=finite,
+         spherical=[int(sph.dobs_gz.size), sph.n_active, sph_finite],
+         launches={k: v for k, v in counts.items() if v})
+    checks = {
+        "f32 within rtol": all(v <= JOINT_RTOL for e in errs.values()
+                               for v in e.values()),
+        "eager path": stats["fused_mode"] == "off",
+        "one draws launch an iteration": counts["draws"] == iters,
+        "samples on the card": samples.is_cuda,
+        "finite": finite,
+        "accept in (0.2, 1]": 0.2 < stats["accept_ratio"] <= 1.0,
+        "spherical finite": sph_finite,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"joint: {bad}")
+    return counts, n
+
+
+#: the whole-Earth phase (``global_tess.py`` at scale 1: 7,381
+#: observations x 72,000 tesseroids, the f32 matrix built on the card):
+#: the native f64 mask's pair count, a fact of the geometry
+#: (``GLOBAL_r05.json``'s ``nearfield_pairs``)
+GLOBAL_PAIRS = 290_884
+#: the device (f32) mask's pairs that differ from the native one's must
+#: lie within this relative distance of their threshold (the JAX
+#: ``subdivision_mask`` docstring's bound)
+GLOBAL_FLIP_RTOL = 1e-6
+#: 2,000 sampled entries of the weighted matrix (``RandomState(0)``, as
+#: ``examples/run.py global`` draws them) against the native engine's f64
+#: values with the same weights, over the largest sampled value
+#: (``tests/test_tesseroid_ops.py``'s bound)
+GLOBAL_ENTRY_RTOL = 1e-5
+#: the bounded MAP (``--map-only --cg-alpha 5 --cg-maxk 1600``) and the
+#: HMC's cut: full width, 32 chains from the MAP, the warmup at the JAX
+#: command's least 20 chunks but of 32 iterations (its default 64), and
+#: 64 stored iterations (its default 500)
+GLOBAL_MAP = dict(alpha=5.0, maxk=1600)
+GLOBAL_HMC = dict(nchains=32, chunk_size=32, adapt_chunks=20, nsamples=64)
+
+
+def mask_flips(lon, lat, height, cells, ratio, native, device):
+    """The pairs in which the device mask and the native one differ, and
+    each one's ``|d^2 - threshold| / threshold`` in f64 (the host test's
+    terms)."""
+    from gravinv3dhmc_tpu_torch.ops import tesseroid
+
+    M = cells.shape[0]
+    keys = [o.astype(np.int64) * M + c for o, c in (native, device)]
+    flips = np.setxor1d(*keys)
+    o, c = flips // M, flips % M
+    lont, _, sinlatt, coslatt, rt, thr = tesseroid._mask_cell_terms(cells,
+                                                                    ratio)
+    lon_r, lat_r = np.radians(lon[o]), np.radians(lat[o])
+    r = tesseroid.MEAN_EARTH_RADIUS + height[o]
+    cospsi = (np.sin(lat_r) * sinlatt[c]
+              + np.cos(lat_r) * coslatt[c] * np.cos(lon_r - lont[c]))
+    d2 = r ** 2 + rt[c] ** 2 - 2.0 * r * rt[c] * cospsi
+    return flips.size, np.abs(d2 - thr[c]) / thr[c]
+
+
+def phase_global(torch, tlf, dev, smi):
+    """The whole-Earth workload at full scale on the card: the build (the
+    synthetic data's forward on the host, the far field, the native mask
+    and pair values, the weighting; :data:`GLOBAL_PAIRS`), the device mask
+    against the native one, sampled entries against the native engine,
+    the bounded MAP (:data:`GLOBAL_MAP`), then the eager HMC from the MAP
+    (:data:`GLOBAL_HMC`, its launches counted from 0 just before it) and
+    one post-freeze chunk profiled. Returns the HMC's launch counts and
+    the cells of a chain."""
+    import os
+
+    from gravinv3dhmc_tpu_torch import global_tess as G
+    from gravinv3dhmc_tpu_torch.ops import tesseroid
+    from gravinv3dhmc_tpu_torch.runtime import tessglq
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wl, dpre, dobs, module = G.build(1.0, device=dev)
+    build_s = time.perf_counter() - t0
+    lon, lat, h = wl["obs"]
+    cells = wl["mesh"].cell_bounds(only_active=True)
+    D, M = lon.size, module.n_active
+    ratio = tesseroid._RATIOS["gz"]
+    t0 = time.perf_counter()
+    native = tesseroid.subdivision_mask(lon, lat, h, cells, ratio,
+                                        backend="native")
+    native_mask_s = time.perf_counter() - t0
+    sync(torch)
+    t0 = time.perf_counter()
+    on_card = tesseroid.subdivision_mask(lon, lat, h, cells, ratio,
+                                         backend="device", device=dev)
+    device_mask_s = time.perf_counter() - t0
+    n_flips, flip_rel = mask_flips(lon, lat, h, cells, ratio, native,
+                                   on_card)
+    rng = np.random.RandomState(0)
+    si, sj = rng.randint(0, D, 2000), rng.randint(0, M, 2000)
+    Aw = module.device_arrays()["Aw"]
+    got = Aw[torch.as_tensor(si, device=dev),
+             torch.as_tensor(sj, device=dev)].double().cpu().numpy()
+    want = (tessglq.kernel_pairs("gz", lon, lat, h, si, sj, cells, ratio)
+            * tesseroid._SCALES["gz"]
+            * module.wdiag_inv.double().cpu().numpy()[sj])
+    entry_err = float(np.abs(got - want).max() / np.abs(want).max())
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "GLOBAL_r05.json")) as f:
+        jax_map = json.load(f)["bounded_map_converged_recheck_maxk1600"]
+    line("global_build", card=smi, problem=[D, M],
+         matrix_bytes=Aw.numel() * Aw.element_size(), build_s=build_s,
+         forward_s=wl["forward_s"], forward_backend=wl["forward_backend"],
+         kernel_build_device_s=module.kernel_build_s,
+         weighting_device_s=module.weighting_s, **module.build_seconds,
+         nearfield_pairs=module.nearfield_pairs,
+         mask_backend=module.mask_backend,
+         pairs_backend=module.pairs_backend, native_mask_s=native_mask_s,
+         device_mask_s=device_mask_s, device_mask_pairs=int(on_card[0].size),
+         mask_flips=n_flips,
+         mask_flip_max_rel=float(flip_rel.max()) if n_flips else 0.0,
+         entry_rel_err=entry_err,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    checks = {
+        f"{GLOBAL_PAIRS} native pairs": (module.nearfield_pairs
+                                         == native[0].size == GLOBAL_PAIRS),
+        "native mask and pair values": (module.mask_backend
+                                        == module.pairs_backend
+                                        == "native"),
+        "device mask flips at the threshold": (
+            not n_flips or flip_rel.max() <= GLOBAL_FLIP_RTOL),
+        "sampled entries": entry_err <= GLOBAL_ENTRY_RTOL,
+        "matrix on the card": Aw.is_cuda and module.Aw is None,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"global build: {bad}")
+
+    mp, cg = G.bounded_map(wl, dobs, module, **GLOBAL_MAP)
+    d_h = cg["data_hist"]
+    line("global_map", card=smi, **mp, data_hist_first=float(d_h[0]),
+         data_hist_min=float(d_h.min()),
+         jax_tpu_statistics={"posterior_truth_corr": jax_map["best_corr"],
+                             "RMSM": jax_map["best_RMSM"],
+                             "source": "GLOBAL_r05.json bounded_map_"
+                                       "converged_recheck_maxk1600"})
+    checks = {"misfit moved": bool(np.ptp(d_h) > 1e-3 * d_h[0]),
+              "finite": bool(np.isfinite(d_h).all()
+                             and torch.isfinite(cg["m"]).all()),
+              "corr > 0.3": mp["posterior_truth_corr"] > 0.3,
+              "on the card": cg["m"].is_cuda}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"global map: {bad}")
+
+    sync(torch)
+    tlf.reset_launch_counts()
+    out, stats, chain_args = G.sample(wl, dobs, module, warm_start=cg,
+                                      **GLOBAL_HMC)
+    sync(torch)
+    counts = tlf.launch_counts()
+    summ, _ = G.profile_post_freeze(module, dobs, stats, chain_args)
+    # each potential evaluation reads the f32 matrix twice (A x, r A)
+    step_bound_ms = 2 * D * M * 4 / HBM_BYTES_S * 1e3
+    busy = summ["device_busy_ms"]
+    line("global_hmc", card=smi, **out,
+         reduced={"nchains": [2, GLOBAL_HMC["nchains"]],
+                  "chunk_size": [64, GLOBAL_HMC["chunk_size"]],
+                  "nsamples": [500, GLOBAL_HMC["nsamples"]]},
+         profile={k: summ[k] for k in ("iterations", "chains", "batch_steps",
+                                       "wall_ms", "device_busy_ms",
+                                       "busy_share")},
+         idle_share=None if busy is None else 1.0 - summ["busy_share"],
+         busy_ms_per_step=None if busy is None
+         else busy / summ["batch_steps"],
+         step_bound_ms=step_bound_ms, top_device_ops=summ["by_kernel"][:8],
+         launches={k: v for k, v in counts.items() if v})
+    chunk = GLOBAL_HMC["chunk_size"]
+    least = (GLOBAL_HMC["adapt_chunks"]
+             + -(-GLOBAL_HMC["nsamples"] // chunk)) * chunk
+    keys = ("RMSD", "RMSM", "posterior_truth_corr", "grad_evals_per_s",
+            "step_size", "ess_median", "ess_frozen_floor")
+    checks = {"finite": all(np.isfinite(out[k]) for k in keys),
+              "accept in (0.2, 1]": 0.2 < out["accept_ratio"] <= 1.0,
+              "eager path": out["fused_mode"] == "off",
+              "adapted": bool(out["adapted_mass"]),
+              "one draws launch an iteration": (
+                  counts["draws"] >= least and counts["draws"] % chunk == 0),
+              "samples on the card": stats["samples"].is_cuda,
+              "profiled on the card": busy is not None}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"global hmc: {bad}")
+    return counts, M
+
+
 def main():
     import torch
 
@@ -2567,6 +2893,16 @@ def main():
                           (magnetic.WIDE["chees"]["nchains"],))
     phase_prism_device(torch, dev, smi)
 
+    with plain:
+        counts_joint, M_joint = phase_joint(torch, tlf, dev, smi)
+        counts_global, M_global = phase_global(torch, tlf, dev, smi)
+    if plain.calls:
+        fail(f"the joint and global samplers called the plain Philox "
+             f"{plain.calls} times")
+    phase_samplers_kernel(torch, tlf, dev, M_joint, (JOINT["nchains"],))
+    phase_samplers_kernel(torch, tlf, dev, M_global,
+                          (GLOBAL_HMC["nchains"],))
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
@@ -2576,12 +2912,12 @@ def main():
     # then the stage's matrix without and with a metric), the unstructured
     # gz build, both ratiogrid slices, the bench's two stages, the
     # samplers, the realdata ChEES (the deterministic stages launch none),
-    # the magnetic uniformgrid stage, the wavelet stages and the magnetic
-    # demo's ChEES
+    # the magnetic uniformgrid stage, the wavelet stages, the magnetic
+    # demo's ChEES, the joint HMC and the whole-Earth HMC
     runs = (counts, counts_f32, counts3, counts_state, counts_rd,
             *counts_rd_real, counts_gz, counts2, counts2_f32, counts_bench,
             counts_samplers, counts_rd_chees, counts_mag, counts_wav,
-            counts_mag_demo)
+            counts_mag_demo, counts_joint, counts_global)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

@@ -25,6 +25,9 @@ bootstrap, the bounded MAP that calibrates the realdata temperature,
 ``inversion/reginv.py``). Files and state keep the JAX package's layouts:
 sample files through a native sink (``runtime/sink.py``), checkpoints
 that resume a run exactly (``checkpoint.py``) and the kernel disk cache.
+``inversion/joint.py`` inverts gravity and magnetics jointly, and
+``global_tess.py`` runs the whole-Earth workload on a tesseroid matrix
+built on the card (``ops/tesseroid.tesseroid_kernel_device``).
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,7 @@ are for the tests and must be asked for with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT = "cuda:0"
@@ -26,6 +27,14 @@ def resolve(device=None):
             f"on {DEFAULT} by default; pass device='cpu' to run the plain "
             f"PyTorch versions on the CPU")
     return torch.device(DEFAULT)
+
+
+def as_tensor(v, dtype, device):
+    """``v`` (a tensor, a numpy array or a number) as a tensor of
+    ``dtype`` on ``device``; a tensor on the card goes there directly,
+    never through numpy."""
+    return torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v),
+                           dtype=dtype, device=device)
 
 
 def sync(device):

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import resolve
+from .._device import as_tensor, resolve
 from ..checkpoint import load_extra, load_state, save_state
 from ..diagnostics import median
 from ..ops import philox
@@ -128,11 +128,10 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     device = resolve(device)
     dt_default = float(dt)
     sigma = float(np.float32(Sigma))
-    low_t = torch.as_tensor(np.asarray(low), dtype=dtype, device=device)
-    high_t = torch.as_tensor(np.asarray(high), dtype=dtype, device=device)
+    low_t = as_tensor(low, dtype, device)
+    high_t = as_tensor(high, dtype, device)
     alpha_c = float(np.float32(alpha))
-    wdiag_inv = torch.as_tensor(np.asarray(wdiag_inv), dtype=dtype,
-                                device=device)
+    wdiag_inv = as_tensor(wdiag_inv, dtype, device)
     total = nsamples + ndraws
     pot_raw = potential_fn.fn
 
@@ -467,12 +466,20 @@ class HamiltonianMC:
         configuration the fused kernels do not take (the JAX package's
         rule: a constraint other than 'mandatory', a Jacobian, a
         temperature other than 1, a regularizer other than MS or
-        Damping, a module whose potential runs on the wavelet-compressed
-        kernel), which then runs on the eager path (``_fused_mode``
-        "off")."""
+        Damping, a module without a host ``Aw``: a
+        :class:`~.joint.JointModule` or a matrix built on the card, a
+        module whose potential runs on the wavelet-compressed kernel),
+        which then runs on the eager path (``_fused_mode`` "off").
+
+        One deliberate difference: the JAX package also sends chain counts
+        that are not a multiple of 32 to the eager path, because its
+        Pallas kernels tile chains by 32; the CUDA kernels here guard
+        every chain tile's edge (the samplers run 200 chains through
+        them), so any count takes the fused op."""
         if (self.constraint != "mandatory"
                 or self.regularization not in ("MS", "Damping")
                 or self.jacobian or float(self.temperature) != 1.0
+                or getattr(self.model, "Aw", None) is None
                 or (getattr(self.model, "Awcp", None) is not None
                     and self.model.wavelet)):
             self._fused_mode = "off"
@@ -496,14 +503,15 @@ class HamiltonianMC:
 
     def prepare(self, nsamples, ndraws, draws=None):
         """``(run_chunk, carry)``: the chunk runner that :meth:`sample`
-        drives and the carry it starts from (the initial model with its
-        potential and gradient, zeroed counts and sample buffers, and
-        zeroed Welford moments under ``adapt_mass``). Timing or profiling
-        single chunks starts here too."""
+        drives and the carry it starts from (the initial model, (M,) or
+        one a chain (C, M), with its potential and gradient, zeroed counts
+        and sample buffers, and zeroed Welford moments under
+        ``adapt_mass``). Timing or profiling single chunks starts here
+        too."""
         if self.spmd_mesh is not None:
             raise _unported("SPMD meshes", "item 13")
         C = self.nchains
-        M = self.initial_model.shape[0]
+        M = self.initial_model.shape[-1]
         dtype = self.dtype
         device = resolve(self.device)
         potential_fn = self.model.make_potential(
@@ -528,15 +536,25 @@ class HamiltonianMC:
             store_thin=self.store_thin, draws=draws, device=device,
             log_factor=self.log_factor)
 
-        x0 = np.broadcast_to(np.asarray(self.initial_model, np.float64),
-                             (C, M)).copy()
+        if torch.is_tensor(self.initial_model):
+            # a start on the card (the device-built module's warm start)
+            # stays there, and so does its box
+            xp = torch
+            x0 = as_tensor(self.initial_model, torch.float64,
+                           device).expand(C, M).clone()
+            low, high = (as_tensor(v, torch.float64, device)
+                         for v in (self.low, self.high))
+        else:
+            x0 = np.broadcast_to(np.asarray(self.initial_model, np.float64),
+                                 (C, M)).copy()
+            low, high, xp = self.low, self.high, np
         if self.constraint == "logarithmic":
             # a start on a bound (a clipped warm start) is pulled 1e-6 of
             # the span inside, so the transform stays finite
-            span = self.high - self.low
-            x0 = mw_to_logistic(np.clip(x0, self.low + 1e-6 * span,
-                                        self.high - 1e-6 * span),
-                                self.low, self.high, self.log_factor)
+            span = high - low
+            lo, hi = low + 1e-6 * span, high - 1e-6 * span
+            x0 = mw_to_logistic(xp.minimum(xp.maximum(x0, lo), hi),
+                                low, high, self.log_factor, xp=xp)
         x = torch.as_tensor(x0, dtype=dtype, device=device)
         U, g, (_, u_data, u_model) = potential_fn(x, self.RegulFactor)
         carry = (x, U, g, u_data, u_model,
@@ -599,7 +617,7 @@ class HamiltonianMC:
         """
         run_chunk, carry = self.prepare(nsamples, ndraws, draws=draws)
         C = self.nchains
-        M = self.initial_model.shape[0]
+        M = self.initial_model.shape[-1]
         total = nsamples + ndraws
         device = resolve(self.device)
         chain_mode = self.store_mode == "chain"
@@ -922,11 +940,23 @@ def HMCSample(model, nsamples, ndraws, delta, Lrange, initial_model,
     chain.temperature = temperature
 
     boundaries = np.asarray(boundaries, dtype=np.float64)
-    wdiag = np.asarray(model.wdiag)
+    if torch.is_tensor(model.wdiag):
+        # weights on the card (a matrix built there): the box, the start
+        # (possibly a warm start on the card) and the a priori model are
+        # scaled there, in float64 as the JAX package promotes them
+        wdiag = model.wdiag.double()
+
+        def as_vec(v):
+            return as_tensor(v, torch.float64, wdiag.device)
+    else:
+        wdiag = np.asarray(model.wdiag)
+
+        def as_vec(v):
+            return np.asarray(v, dtype=np.float64)
     # m-domain -> mw-domain (reference: inversion/hmc.py:393-401)
-    chain.low = wdiag * boundaries[:, 0]
-    chain.high = wdiag * boundaries[:, 1]
-    chain.initial_model = wdiag * np.asarray(initial_model, dtype=np.float64)
-    chain.aprior_model = wdiag * np.asarray(aprior_model, dtype=np.float64)
+    chain.low = wdiag * as_vec(boundaries[:, 0])
+    chain.high = wdiag * as_vec(boundaries[:, 1])
+    chain.initial_model = wdiag * as_vec(initial_model)
+    chain.aprior_model = wdiag * as_vec(aprior_model)
     chain.dobs = np.asarray(dobs, dtype=np.float64)
     return chain.sample(nsamples, ndraws)

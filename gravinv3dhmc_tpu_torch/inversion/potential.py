@@ -20,7 +20,10 @@ The kernel matrix: prism gz from the f64 host builder, the torch device
 builder (``kernel_backend="jax"``, f64) or the f32 CUDA gz kernels
 (``"pallas"``); the prism total field (:func:`..ops.prism.tf`) and every
 tesseroid field (the native f64 engine, :mod:`..ops.tesseroid`) on the
-host in f64, as in the JAX package.
+host in f64, as in the JAX package; spherical gravity with
+``kernel_device=True`` on the card
+(:func:`..ops.tesseroid.tesseroid_kernel_device`), weighted there, with
+no host copy of the matrix.
 
 The JAX package differentiates a scalar potential with
 ``jax.value_and_grad``; here the gradient is written out. With
@@ -41,10 +44,8 @@ with ``s' = sigmoid(-kx)`` (not ``1 - s``, which is 0 once ``s`` rounds to
 log((high - low) k)`` adds ``k (s - s')``. Dense products with the matrix
 are IEEE float32 ``torch.matmul`` on the card (TF32 stays off: PyTorch's
 default for matmul, ``torch.backends.cuda.matmul.allow_tf32`` False);
-the wavelet products are ``torch.sparse`` CSR products.
-
-Every other option raises ``NotImplementedError`` naming the ROADMAP.md
-item that brings it.
+the wavelet products are ``torch.sparse`` CSR products. The joint
+gravity and magnetic module is :mod:`.joint`.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ import torch
 from torch import nn
 
 from .. import mesher
-from .._device import resolve
+from .._device import as_tensor, resolve, sync
 from ..ops import fd, prism, tesseroid
 from ..ops import wavelet as wavelet_ops
 from ..utils.units import ang2vec
@@ -162,11 +163,6 @@ def spmm(S, v):
     return (S @ cols).T.reshape(v.shape[:-1] + (S.shape[0],))
 
 
-def _unported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, {item})")
-
-
 class GravMagModule:
     """Builds the kernel and its weighting; provides the potential.
 
@@ -191,8 +187,21 @@ class GravMagModule:
     there is loaded with ``np.load`` in place of the build (the unweighted
     matrix; a shape other than (observations, active cells) raises
     ``ValueError``), and otherwise the built matrix is saved there with
-    ``np.save``, as the JAX module does. ``kernel_device`` raises
-    ``NotImplementedError``.
+    ``np.save``, as the JAX module does.
+
+    ``kernel_device=True`` (spherical gravity only; any other field,
+    coordinate or a wavelet raises ``NotImplementedError``, as in the JAX
+    package) builds the matrix on ``device`` in ``dtype``
+    (:func:`~..ops.tesseroid.tesseroid_kernel_device`: the far field in
+    torch, the near-field pairs from the native engine, or from
+    ``kernel_cache``'s host matrix when that file exists) and weights it
+    there: ``wdiag`` (column norms to the power ``weightfactor``, summed
+    in f32, zero columns left unscaled) and ``wdiag_inv`` are f32 tensors
+    on ``device``, ``device_arrays()["Aw"]`` is the weighted matrix, and
+    ``A`` and ``Aw`` are None unless the cache gave the host matrix.
+    ``kernel_build_s``, ``weighting_s``, ``nearfield_pairs``,
+    ``mask_backend``, ``pairs_backend`` and ``build_seconds`` (the
+    builder's stages) describe the build.
 
     ``device`` (by default ``cuda:0``, see
     :mod:`~gravinv3dhmc_tpu_torch._device`) is where
@@ -226,9 +235,6 @@ class GravMagModule:
             raise ValueError(
                 "Please choose coordinate from(cartesian, spherical) and "
                 "field from(gravity, magnetic)!")
-        if kernel_device:
-            raise _unported("the device tesseroid builder (kernel_device)",
-                            "item 12")
         self.dobs = np.asarray(dobs, dtype=np.float64)
         self.fixed = fixed
         self.grav_fix = (np.asarray(grav_fix, dtype=np.float64) if fixed
@@ -268,6 +274,17 @@ class GravMagModule:
             self.mask = mesh.carvetopo(mtopo[0], mtopo[1], mtopo[2])
         self.mesh = mesh
         self.mshape = mesh.shape
+        if kernel_device:
+            if not (coordinate == "spherical" and field == "gravity"):
+                raise NotImplementedError(
+                    "kernel_device=True is implemented for spherical "
+                    "gravity (the tesseroid device builder)")
+            if self.wavelet:
+                raise NotImplementedError(
+                    "wavelet compression needs the host kernel; drop "
+                    "kernel_device or wavelet")
+            self._init_kernel_device(kernel_cache, weightfactor, verbose)
+            return
         if self.wavelet == "3D" and not mesh.active.all():
             raise ValueError(
                 f"a 3D wavelet needs the full {mesh.shape} grid: the "
@@ -349,6 +366,64 @@ class GravMagModule:
             self.build_seconds["wavelet_s"] = time.perf_counter() - t0
         self._dev = {}
 
+    def _init_kernel_device(self, kernel_cache, weightfactor, verbose):
+        """The matrix built and weighted on ``self.device``; ``A`` and
+        ``Aw`` stay None unless ``kernel_cache`` holds the host matrix."""
+        t0 = time.perf_counter()
+        self.mesh.addprop("density", np.zeros(self.mesh.size))
+        cells = self.mesh.cell_bounds(only_active=True)
+        K_host = None
+        if kernel_cache and os.path.exists(kernel_cache):
+            K_host = np.load(kernel_cache)
+            if verbose:
+                print(f"loaded host kernel cache {kernel_cache} for "
+                      "near-field corrections")
+        info = {}
+        K, (oi, _) = tesseroid.tesseroid_kernel_device(
+            "gz", self.lonobs, self.latobs, self.heightobs, cells,
+            host_kernel=K_host, dtype=self.dtype, device=self.device,
+            info=info)
+        self.nearfield_pairs = int(oi.size)
+        self.mask_backend = info["mask_backend"]
+        self.pairs_backend = info.get("pairs_backend")
+        t1 = time.perf_counter()
+        if verbose:
+            print("End of calculate kernel:%.6f s" % (t1 - t0))
+        # column energies in f32 (the JAX module's), the matrix scaled in
+        # place (the JAX module donates it)
+        Kf = K.float()
+        wdiag = (Kf * Kf).sum(0) ** float(weightfactor)
+        del Kf
+        wdiag_inv = torch.where(
+            wdiag == 0, 0.0, 1.0 / torch.where(wdiag == 0, 1.0, wdiag))
+        K.mul_(wdiag_inv.to(K.dtype))
+        sync(self.device)
+        t2 = time.perf_counter()
+        self.A = K_host
+        self.Aw = None
+        if K_host is not None:
+            w = wdiag.cpu().double().numpy()
+            self.Aw = K_host * np.where(
+                w == 0, 0.0, 1.0 / np.where(w == 0, 1.0, w))[None, :]
+        self.wdiag = wdiag
+        self.wdiag_inv = wdiag_inv
+        self.n_active = int(cells.shape[0])
+        self._active3d = (self.mesh.active.reshape(self.mesh.shape)
+                          if not self.mesh.active.all() else None)
+        self.Awcp = None
+        self._model_transform = None
+        self.tess_backend = None
+        self._dev = {self.dtype: {
+            "Aw": K,
+            "dobs": as_tensor(self.dobs, self.dtype, self.device),
+            "grav_fix": (as_tensor(self.grav_fix, self.dtype, self.device)
+                         if self.fixed else None)}}
+        self.kernel_build_s = t1 - t0
+        self.weighting_s = t2 - t1
+        self.build_seconds = {k: v for k, v in info.items()
+                              if k.endswith("_s")}
+        self.build_seconds["weighting_s"] = self.weighting_s
+
     def kernelw(self):
         """Weighted kernel and (vector) weighting diagonals: ``(Aw,
         wdiag_inv, wdiag)``, host numpy, as the JAX module returns them."""
@@ -361,6 +436,10 @@ class GravMagModule:
         also ``"Awcp"`` and its transpose ``"AwcpT"``, CSR tensors cast
         from the f64 thresholded matrix (so both hold its nonzero set)."""
         dtype = dtype or self.dtype
+        if dtype not in self._dev and self.Aw is None:
+            raise ValueError(
+                f"the matrix was built on the card in {self.dtype}; this "
+                f"module has no {dtype} copy")
         if dtype not in self._dev:
             def dev(a):
                 return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -419,7 +498,7 @@ class GravMagModule:
         device = self.device if device is None else torch.device(device)
 
         def vec(v):
-            return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+            return as_tensor(v, dtype, device)
 
         dobs = vec(self.dobs)
         params = {
@@ -430,7 +509,11 @@ class GravMagModule:
             "wm_sq": vec(self.wdiag * self.wdiag),
             "grav_fix": vec(self.grav_fix) if self.fixed else None,
         }
-        if not wave:
+        if not wave and self.Aw is None:
+            # built on the card: the module's own weighted matrix
+            params["Aw"] = self.device_arrays(dtype)["Aw"].to(
+                device=device, dtype=matvec_dtype or dtype)
+        elif not wave:
             params["Aw"] = torch.as_tensor(
                 self.Aw, dtype=matvec_dtype or dtype, device=device)
         elif device == self.device:

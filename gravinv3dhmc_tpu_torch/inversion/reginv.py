@@ -47,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import resolve
+from .._device import as_tensor, resolve
 from .potential import GravMagModule, model_value_and_grad
 
 REGULARIZATIONS = ("MS", "Damping", "Smoothness", "TV")
@@ -258,7 +258,9 @@ def cg_device(module, dobs, boundary, regularization="Damping", beta=0.01,
               dtype=torch.float32, alpha=None, keep_best=None,
               segment=SEGMENT):
     """CG on an existing :class:`GravMagModule`, its matrix on the
-    module's device (:meth:`GravMagModule.device_arrays`).
+    module's device (:meth:`GravMagModule.device_arrays`; it reads no
+    host ``Aw``, so a matrix built on the card serves, and its weights,
+    ``initial`` and ``aprior`` may be tensors on the card).
 
     The reference's workflow is "CG for the map, HMC for the uncertainty
     around it"; this is the map on the module the sampler uses. ``alpha``
@@ -280,7 +282,7 @@ def cg_device(module, dobs, boundary, regularization="Damping", beta=0.01,
     dev = Aw.device
 
     def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        return as_tensor(a, dtype, dev)
 
     wdiag = t(module.wdiag)
     wdiag_inv = t(module.wdiag_inv)

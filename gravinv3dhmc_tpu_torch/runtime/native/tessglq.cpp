@@ -15,13 +15,13 @@
 // depth 100 semantics (we fall back to evaluating an undersized stack
 // remainder instead of raising).
 //
-// A copy of the JAX package's gravinv3dhmc_tpu/runtime/native/tessglq.cpp
-// reduced to the dense kernel matrix (its pair and subdivision-mask
-// entries serve the device builder, not ported yet); the functions kept
-// are unchanged, so with the same flags the matrix is the same bit for bit.
+// A copy of the JAX package's gravinv3dhmc_tpu/runtime/native/tessglq.cpp:
+// the dense kernel matrix, the explicit pair subset (the near-field values
+// of the device builder) and the two-pass subdivision mask. The code is
+// unchanged, so with the same flags its results are the same bit for bit.
 //
 // Build (gravinv3dhmc_tpu_torch/runtime/tessglq.py does it at first use):
-// g++ -O3 -march=native -fopenmp -std=c++17 -shared -fPIC tessglq.cpp -o libtessglq.so
+// Build: g++ -O3 -march=native -fopenmp -std=c++17 -shared -fPIC tessglq.cpp -o libtessglq.so
 
 #include <cmath>
 #include <cstdint>
@@ -217,9 +217,136 @@ void kernel_matrix(const double *lon_deg, const double *lat_deg,
     }
 }
 
+template <int FIELD>
+void kernel_pairs(const double *lon_deg, const double *lat_deg,
+                  const double *height, const int64_t *oi, const int64_t *ci,
+                  int64_t n_pairs, const double *cells, double ratio,
+                  double *out) {
+    // sparse (obs, cell) subset of the full matrix — used by the device
+    // kernel builder to evaluate only near-field pairs exactly while the
+    // accelerator handles the far field
+#ifdef _OPENMP
+#pragma omp parallel for schedule(dynamic, 64)
+#endif
+    for (int64_t p = 0; p < n_pairs; ++p) {
+        Obs o;
+        const int64_t l = oi[p];
+        o.lon = D2R * lon_deg[l];
+        const double lat = D2R * lat_deg[l];
+        o.sinlat = sin(lat);
+        o.coslat = cos(lat);
+        o.radius = MEAN_EARTH_RADIUS + height[l];
+        const double *cb = cells + ci[p] * 6;
+        Cell c;
+        c.w = cb[0];
+        c.e = cb[1];
+        c.s = cb[2];
+        c.n = cb[3];
+        c.top = cb[4];
+        c.bottom = cb[5];
+        out[p] = adaptive_cell<FIELD>(o, c, ratio);
+    }
+}
+
+// ---------------------------------------------------------------------
+// subdivision mask: which (obs, cell) ROOT pairs would the adaptive
+// engine split (distance <= ratio * size on any axis)? Two-pass: count
+// per observation, then fill at prefix-sum offsets — no synchronisation.
+// The per-cell terms (lont, sinlatt, coslatt, rt, thr=max (ratio*L)^2)
+// are precomputed by the caller (ops/tesseroid.py _mask_cell_terms) so
+// this test matches the python host path bit-for-bit in f64.
+void subdiv_mask_count(const double *lon_r, const double *sinlat,
+                       const double *coslat, const double *radius,
+                       int64_t n_obs, const double *lont,
+                       const double *sinlatt, const double *coslatt,
+                       const double *rt, const double *thr, int64_t n_cells,
+                       int64_t *counts) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(dynamic, 8)
+#endif
+    for (int64_t l = 0; l < n_obs; ++l) {
+        const double lo = lon_r[l], sl = sinlat[l], cl = coslat[l];
+        const double r = radius[l], r2 = r * r;
+        int64_t cnt = 0;
+        for (int64_t m = 0; m < n_cells; ++m) {
+            const double cospsi =
+                sl * sinlatt[m] + cl * coslatt[m] * cos(lo - lont[m]);
+            const double d2 = r2 + rt[m] * rt[m] - 2.0 * r * rt[m] * cospsi;
+            cnt += (d2 <= thr[m]);
+        }
+        counts[l] = cnt;
+    }
+}
+
+void subdiv_mask_fill(const double *lon_r, const double *sinlat,
+                      const double *coslat, const double *radius,
+                      int64_t n_obs, const double *lont,
+                      const double *sinlatt, const double *coslatt,
+                      const double *rt, const double *thr, int64_t n_cells,
+                      const int64_t *offsets, int32_t *oi, int32_t *ci) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(dynamic, 8)
+#endif
+    for (int64_t l = 0; l < n_obs; ++l) {
+        const double lo = lon_r[l], sl = sinlat[l], cl = coslat[l];
+        const double r = radius[l], r2 = r * r;
+        int64_t k = offsets[l];
+        for (int64_t m = 0; m < n_cells; ++m) {
+            const double cospsi =
+                sl * sinlatt[m] + cl * coslatt[m] * cos(lo - lont[m]);
+            const double d2 = r2 + rt[m] * rt[m] - 2.0 * r * rt[m] * cospsi;
+            if (d2 <= thr[m]) {
+                oi[k] = static_cast<int32_t>(l);
+                ci[k] = static_cast<int32_t>(m);
+                ++k;
+            }
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" {
+
+void tessglq_subdiv_count(const double *lon_r, const double *sinlat,
+                          const double *coslat, const double *radius,
+                          int64_t n_obs, const double *lont,
+                          const double *sinlatt, const double *coslatt,
+                          const double *rt, const double *thr,
+                          int64_t n_cells, int64_t *counts) {
+    subdiv_mask_count(lon_r, sinlat, coslat, radius, n_obs, lont, sinlatt,
+                      coslatt, rt, thr, n_cells, counts);
+}
+
+void tessglq_subdiv_fill(const double *lon_r, const double *sinlat,
+                         const double *coslat, const double *radius,
+                         int64_t n_obs, const double *lont,
+                         const double *sinlatt, const double *coslatt,
+                         const double *rt, const double *thr,
+                         int64_t n_cells, const int64_t *offsets,
+                         int32_t *oi, int32_t *ci) {
+    subdiv_mask_fill(lon_r, sinlat, coslat, radius, n_obs, lont, sinlatt,
+                     coslatt, rt, thr, n_cells, offsets, oi, ci);
+}
+
+void tessglq_kernel_pairs(int field, const double *lon, const double *lat,
+                          const double *height, const int64_t *oi,
+                          const int64_t *ci, int64_t n_pairs,
+                          const double *cells, double ratio, double *out) {
+    switch (field) {
+        case F_POT: kernel_pairs<F_POT>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GX:  kernel_pairs<F_GX>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GY:  kernel_pairs<F_GY>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GZ:  kernel_pairs<F_GZ>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GXX: kernel_pairs<F_GXX>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GXY: kernel_pairs<F_GXY>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GXZ: kernel_pairs<F_GXZ>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GYY: kernel_pairs<F_GYY>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GYZ: kernel_pairs<F_GYZ>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        case F_GZZ: kernel_pairs<F_GZZ>(lon, lat, height, oi, ci, n_pairs, cells, ratio, out); break;
+        default: break;
+    }
+}
 
 // field ids match the Field enum above
 void tessglq_kernel_matrix(int field, const double *lon, const double *lat,

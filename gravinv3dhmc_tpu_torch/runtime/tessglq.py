@@ -1,8 +1,10 @@
 """ctypes bindings for the native tesseroid GLQ engine
 (``native/tessglq.cpp``).
 
-A copy of ``gravinv3dhmc_tpu/runtime/tessglq.py`` for the dense kernel
-matrix. The engine is host C++ (OpenMP over observations), built with
+A copy of ``gravinv3dhmc_tpu/runtime/tessglq.py``: the dense kernel
+matrix, the values of an explicit (observation, cell) pair subset and the
+two-pass subdivision mask (the near field of the device builder,
+``ops/tesseroid.tesseroid_kernel_device``). The engine is host C++ (OpenMP over observations), built with
 ``g++`` at first use from the package's own source into the package's
 git-ignored ``_build/`` directory, the library named by a hash of the
 source, the flags and the host's CPU as ``-march=native`` resolves it (an
@@ -63,12 +65,27 @@ def get_lib():
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         dptr = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        i64ptr = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i32ptr = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         lib.tessglq_kernel_matrix.restype = None
         lib.tessglq_kernel_matrix.argtypes = [
             ctypes.c_int, dptr, dptr, dptr, ctypes.c_int64,
             dptr, ctypes.c_int64, ctypes.c_double, dptr]
+        lib.tessglq_kernel_pairs.restype = None
+        lib.tessglq_kernel_pairs.argtypes = [
+            ctypes.c_int, dptr, dptr, dptr, i64ptr, i64ptr, ctypes.c_int64,
+            dptr, ctypes.c_double, dptr]
         lib.tessglq_num_threads.restype = ctypes.c_int
         lib.tessglq_num_threads.argtypes = []
+        lib.tessglq_subdiv_count.restype = None
+        lib.tessglq_subdiv_count.argtypes = [
+            dptr, dptr, dptr, dptr, ctypes.c_int64,
+            dptr, dptr, dptr, dptr, dptr, ctypes.c_int64, i64ptr]
+        lib.tessglq_subdiv_fill.restype = None
+        lib.tessglq_subdiv_fill.argtypes = [
+            dptr, dptr, dptr, dptr, ctypes.c_int64,
+            dptr, dptr, dptr, dptr, dptr, ctypes.c_int64, i64ptr,
+            i32ptr, i32ptr]
         _lib = lib
         return _lib
 
@@ -86,3 +103,48 @@ def kernel_matrix(field, lon, lat, height, cells, ratio):
     lib.tessglq_kernel_matrix(FIELD_IDS[field], lon, lat, height, D,
                               cells, M, float(ratio), out)
     return out
+
+
+def kernel_pairs(field, lon, lat, height, oi, ci, cells, ratio):
+    """Unscaled kernel values of an explicit (obs, cell) pair subset: the
+    near-field values of the device builder."""
+    lib = get_lib()
+    lon = np.ascontiguousarray(lon, dtype=np.float64)
+    lat = np.ascontiguousarray(lat, dtype=np.float64)
+    height = np.ascontiguousarray(height, dtype=np.float64)
+    oi = np.ascontiguousarray(oi, dtype=np.int64)
+    ci = np.ascontiguousarray(ci, dtype=np.int64)
+    cells = np.ascontiguousarray(cells, dtype=np.float64)
+    if oi.shape != ci.shape:
+        raise ValueError(f"pair lists of shapes {oi.shape} and {ci.shape}")
+    if oi.size and (oi.min() < 0 or oi.max() >= lon.size or ci.min() < 0
+                    or ci.max() >= cells.shape[0]):
+        raise ValueError("a pair index lies outside the observations or "
+                         "the cells")
+    out = np.empty(oi.size, dtype=np.float64)
+    lib.tessglq_kernel_pairs(FIELD_IDS[field], lon, lat, height, oi, ci,
+                             oi.size, cells, float(ratio), out)
+    return out
+
+
+def subdivision_pairs(lon_r, sinlat, coslat, radius, lont, sinlatt,
+                      coslatt, rt, thr):
+    """(oi, ci) int32 near-field pairs by the native two-pass mask: the f64
+    pair test of ``ops/tesseroid.subdivision_mask``'s host path, OpenMP
+    over observations, with no D x M temporaries."""
+    lib = get_lib()
+    obs = [np.ascontiguousarray(a, np.float64)
+           for a in (lon_r, sinlat, coslat, radius)]
+    cell = [np.ascontiguousarray(a, np.float64)
+            for a in (lont, sinlatt, coslatt, rt, thr)]
+    D = obs[0].size
+    M = cell[0].size
+    counts = np.empty(D, dtype=np.int64)
+    lib.tessglq_subdiv_count(*obs, D, *cell, M, counts)
+    offsets = np.zeros(D, dtype=np.int64)
+    np.cumsum(counts[:-1], out=offsets[1:])
+    total = int(counts.sum())
+    oi = np.empty(total, dtype=np.int32)
+    ci = np.empty(total, dtype=np.int32)
+    lib.tessglq_subdiv_fill(*obs, D, *cell, M, offsets, oi, ci)
+    return oi, ci

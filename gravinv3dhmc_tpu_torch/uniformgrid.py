@@ -269,6 +269,9 @@ def profile_run(run_chunk, carry, seed, device, chunk_idx=1):
     return {
         "iterations": stats.shape[0], "chains": stats.shape[1],
         "steps": int(stats[:, 0, 4].sum().item()),
+        # potential evaluations of the chain batch: an iteration runs to
+        # its longest L (all of them equal under a shared L)
+        "batch_steps": int(stats[..., 4].max(dim=1).values.sum().item()),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": None if busy_ms is None else busy_ms / wall_ms,
         "device_ms_by_owner": owners if busy_ms else None,

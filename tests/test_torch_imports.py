@@ -50,6 +50,8 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.utils.packing\n"
             "import gravinv3dhmc_tpu_torch.runtime.sink\n"
             "import gravinv3dhmc_tpu_torch.runtime.sink_py\n"
+            "import gravinv3dhmc_tpu_torch.inversion.joint\n"
+            "import gravinv3dhmc_tpu_torch.global_tess\n"
             "from gravinv3dhmc_tpu_torch.mesher import PrismRelief\n"
             "from gravinv3dhmc_tpu_torch.inversion.hmc import HMCSample\n"
             "from gravinv3dhmc_tpu_torch.diagnostics import load_chains\n"

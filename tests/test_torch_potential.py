@@ -84,8 +84,9 @@ def test_bf16_storage_accumulates_in_f32(small_module):
 def test_unported_potentials_raise(small_module, kwargs):
     """Wavelet potentials are ported: on a module built without a wavelet
     kernel (``Awcp`` None) ``use_wavelet`` gives the dense potential, as
-    in the JAX package. The module option still unported
-    (``kernel_device``, item 12) raises."""
+    in the JAX package. The device tesseroid builder (``kernel_device``)
+    takes spherical gravity only: a cartesian module refuses it, as the
+    JAX package's does."""
     jm, tm = _modules(small_module, False)
     w = tm.wdiag
     args = (w * 0.001, w * 0.0, w * 1.0)
@@ -96,6 +97,6 @@ def test_unported_potentials_raise(small_module, kwargs):
         jnp.asarray(x, jnp.float32), 1.0)[1])
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     obs = (jm.lonobs, jm.latobs, jm.heightobs)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="spherical gravity"):
         GravMagModule(small_module[1], BOUNDS, SPACING, obs, verbose=False,
                       device="cpu", kernel_device=True)

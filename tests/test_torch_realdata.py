@@ -94,15 +94,21 @@ def test_build_problem_is_the_jax_benchs_geometry():
 
 
 def test_unported_module_options_raise(tmp_path):
-    """The device tesseroid builder is not ported (item 12; magnetics and
-    wavelets are: ``tests/test_torch_magnetic.py``,
-    ``tests/test_torch_wavelet.py``); the kernel cache is: the carved
+    """The device tesseroid builder takes spherical gravity only: the
+    magnetic field and a wavelet are refused with it, as in the JAX
+    package (both are ported on the host: ``tests/test_torch_magnetic.py``,
+    ``tests/test_torch_wavelet.py``; the builder itself:
+    ``tests/test_torch_tesseroid_device.py``); the kernel cache is: the carved
     spherical module built with a cache path loads back from it (no
     tesseroid build) to the same matrices bit for bit. A field neither
     package has is refused."""
     args, kw = _args()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GravMagModule(*args, **kw, kernel_device=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="spherical gravity"):
+        GravMagModule(*args, **{**kw, "field": "magnetic"},
+                      kernel_device=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="wavelet"):
+        GravMagModule(*args, **kw, wavelet="1D", kernel_device=True,
+                      device="cpu")
     path = str(tmp_path / "k.npy")
     built = GravMagModule(*args, **kw, kernel_cache=path, device="cpu")
     loaded = GravMagModule(*args, **kw, kernel_cache=path, device="cpu")
