@@ -138,8 +138,9 @@ Phases, one line each (the script stops at the first failure, non-zero):
              bf16, MS and Damping, with and without a diagonal inverse
              mass; its x' is the clip of the sampler's replayed drift bit
              for bit.
-11. bench  — ``gravinv3dhmc_tpu_torch.bench.run()`` at its defaults, the
-             dict it returns on one line: the uniformgrid stage (1024
+11. bench  — ``gravinv3dhmc_tpu_torch.bench.run()`` at its defaults with
+             ``BENCH_REALDATA_REFKERNEL=1``, the dict it returns on one
+             line: the uniformgrid stage (1024
              chains, the bf16 iteration op) and the realdata stage (the
              576 x 10,676 tesseroid matrix from the native host engine,
              256 chains, 12 warmup chunks of dual-averaged dt and a
@@ -161,6 +162,16 @@ Phases, one line each (the script stops at the first failure, non-zero):
              inverse mass; and the ``f32_gemm`` checks of phase 6b at 256
              and at a ragged 200 chains, which give the kernels line's
              ``residual_f32`` and ``kick_f32`` numbers.
+11b. refkernel — the bench's live f64 reference kernel
+             (``bench.reference_kernel_live``, after the realdata stage's
+             buffers are dropped: the reference's fixed dt 0.005, L in
+             [5, 40], Sigma 0.001, Damping at 0.05, 64 chains, 128
+             samples, shared L, the eager path, float64, on the stage's
+             576 x 10,676 stand-in), its line with its seconds: the state
+             and potential float64, accept at least
+             :data:`REFKERNEL_ACCEPT`, a finite ESS per sample above 0,
+             the problem's shape, and exactly its 128 ``draws`` launches
+             in the bench's run (the fused stages launch none).
 12. samplers — ``gravinv3dhmc_tpu_torch.samplers.run()``'s ``chees``,
              ``nuts`` and ``hmc`` on the 600 x 6000 uniformgrid problem at
              the tool's defaults (8 chains, 200 draws after 200 warmup;
@@ -273,6 +284,25 @@ Phases, one line each (the script stops at the first failure, non-zero):
              device operations, busy ms a step beside the step's bound:
              two reads of the matrix). Then ``draws`` at 32 x 72,000
              against its plain version.
+21. run    — ``gravinv3dhmc_tpu_torch.run.main(argv)`` (``python -m
+             gravinv3dhmc_tpu_torch.run``, the port of ``examples/run.py``)
+             for each of :data:`RUN_CASES`: uniformgrid, segmentgrid and
+             ratiogrid (HMC), uniformgrid ChEES, realdata HMC and ChEES
+             (its temperature from the bounded MAP), global (scale 0.25)
+             map-only and HMC, cg (model04_complex), bootstrap and
+             bootstrap-southchina, each at its full geometry with its
+             depth cut; each prints one JSON line with the JAX driver's
+             keys (:data:`RUN_KEYS`, held to the JAX lines by
+             ``tests/test_torch_run.py``), finite statistics inside
+             :data:`RUN_BOUNDS`, ``draws`` launched by every sampler run
+             and no kernel by the others, and no plain Philox call. Then
+             ``draws`` against its plain version at each distinct
+             (chains, cells) that the sampler runs gave it.
+22. profiling — one warm uniformgrid chunk (1024 chains, the bf16
+             iteration op), then one inside ``profiling.device_trace``:
+             the Chrome trace must name every iteration kernel
+             (:data:`TRACE_KERNELS`) and ``profiling.memory_report()``
+             report ``cuda:0`` with a non-zero peak.
 
 Before phase 13 its 576 x 10,676 realdata problem is built with a
 kernel cache and again from the cache (``state`` line ``kernel_cache``):
@@ -293,7 +323,9 @@ ChEES's and the honest HMC's) in phase 12, the deterministic stages' in
 phase 13 (their products are ``torch.matmul``, so none), the realdata
 ChEES's in phase 14, the magnetic stage's in phase 15, the wavelet
 runs' in phase 16, the magnetic demo's ChEES's in phase 17, the joint
-HMC's in phase 19 and the whole-Earth HMC's in phase 20: these
+HMC's in phase 19, the whole-Earth HMC's in phase 20, the command line's
+subcommands' in phase 21 and the profiled chunks' in phase 22 (the live
+reference run's ``draws`` are in phase 11's): these
 runs' counts make the
 ``launches`` of the kernels line. ``draws``
 and ``refresh`` are bounded by the issued
@@ -308,6 +340,7 @@ one JSON object with every kernel's numbers, and the result line
 printing any result.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1840,22 +1873,40 @@ REALDATA_KERNELS = ("refresh", "drift", "residual_f32", "kick_f32",
                     "traj_finish", "accept")
 
 
+#: the live f64 reference run's least accept ratio: the reference logs
+#: 100 % (example/realdata/logout_T1.txt), the JAX package's recorded f64
+#: run 1.0000 (``tools/refkernel_f64.json``)
+REFKERNEL_ACCEPT = 0.99
+
+
 def phase_bench(torch, tlf, dev, smi):
-    """The port's bench at its defaults (both stages), the dict on one
-    line; returns it and the launch counts of the run, set to 0 just
-    before it."""
+    """The port's bench at its defaults (both stages) with the live f64
+    reference kernel (``BENCH_REALDATA_REFKERNEL=1``), the dict on one
+    line and the reference run's on a ``refkernel`` line; returns the dict
+    and the launch counts of the run, set to 0 just before it."""
     from gravinv3dhmc_tpu_torch import bench, realdata
 
     sync(torch)
     tlf.reset_launch_counts()
     t0 = time.perf_counter()
-    res = bench.run(dev)
+    saved = os.environ.get("BENCH_REALDATA_REFKERNEL")
+    os.environ["BENCH_REALDATA_REFKERNEL"] = "1"
+    try:
+        res = bench.run(dev)
+    finally:
+        if saved is None:
+            del os.environ["BENCH_REALDATA_REFKERNEL"]
+        else:
+            os.environ["BENCH_REALDATA_REFKERNEL"] = saved
     sync(torch)
     counts = tlf.launch_counts()
     print(json.dumps({"phase": "bench", "seconds": time.perf_counter() - t0,
                       "card": smi, **res}), flush=True)
     d = res["detail"]
     r = d["realdata"]
+    ref = r["reference_kernel"]
+    line("refkernel", card=smi, seconds=ref["elapsed_s"], **ref,
+         draws_launches=counts["draws"])
     ug_path = tlf.path_kernels(tlf.ITERATION_KERNELS, torch.bfloat16)
     problems = {"detail": d["problem"], "realdata": r["problem"]}
     lo, hi = REALDATA_ACCEPT
@@ -1880,7 +1931,21 @@ def phase_bench(torch, tlf, dev, smi):
         "tess_backend": r["tess_backend"] == "native",
         "realdata launches": all(r["launches"].get(n, 0) > 0
                                  for n in REALDATA_KERNELS),
-        "no draws": counts["draws"] == 0,
+        # the fused stages draw in refresh and accept; the eager reference
+        # run launches draws once an iteration (shared L, no warmup)
+        "draws: the reference run's only": (
+            counts["draws"] == ref["nsamples"]),
+        "refkernel live": ref["source"] == "measured live (f64)",
+        "refkernel float64": ref["dtype"] == {"x": "float64",
+                                              "U": "float64"},
+        "refkernel eager": ref["fused_mode"] == "off",
+        f"refkernel accept >= {REFKERNEL_ACCEPT}":
+            ref["accept_ratio"] >= REFKERNEL_ACCEPT,
+        "refkernel ess": bool(np.isfinite(ref["ess_per_sample"])
+                              and ref["ess_per_sample"] > 0),
+        "refkernel problem": (ref["problem"] == [576, 10676]
+                              and ref["nchains"] == 64
+                              and ref["nsamples"] == 128),
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
@@ -2761,6 +2826,215 @@ def phase_global(torch, tlf, dev, smi):
     return counts, M
 
 
+#: the ``run`` phase: each subcommand of ``python -m
+#: gravinv3dhmc_tpu_torch.run`` at its full geometry, depth cut (the cut
+#: flags' defaults are 500 samples, 100 warmup draws, 200 CG iterations,
+#: 20 replicates), with its expected keys (``RUN_KEYS``, which
+#: ``tests/test_torch_run.py`` holds to the JAX driver's lines)
+RUN_CASES = {
+    "uniformgrid": ["uniformgrid", "--nsamples", "200"],
+    "segmentgrid": ["segmentgrid", "--nsamples", "200"],
+    "ratiogrid": ["ratiogrid", "--nsamples", "100"],
+    "uniformgrid-chees": ["uniformgrid", "--sampler", "chees", "--nsamples",
+                          "200"],
+    "realdata": ["realdata", "--nsamples", "16"],
+    "realdata-chees": ["realdata", "--sampler", "chees", "--nchains", "4",
+                       "--nsamples", "64", "--nwarmup", "64",
+                       "--chunk-size", "32"],
+    "global-map": ["global", "--scale", "0.25", "--map-only"],
+    "global-hmc": ["global", "--scale", "0.25", "--nchains", "4",
+                   "--nsamples", "32", "--chunk-size", "16"],
+    "cg": ["cg", "--model", "model04_complex"],
+    "bootstrap": ["bootstrap"],
+    "bootstrap-southchina": ["bootstrap-southchina"],
+}
+_SUMMARY_KEYS = frozenset((
+    "n_chains", "n_samples", "rhat_max", "ess_min", "ess_mean", "RMSD",
+    "sampler", "total_s", "grad_evals_per_s", "accept_ratio", "workload",
+    "problem"))
+_HMC_KEYS = _SUMMARY_KEYS | {"RMSM", "sampling_s", "ess_per_s_median"}
+_GLOBAL_BUILD = frozenset((
+    "kernel_build_device_s", "weighting_device_s", "nearfield_pairs",
+    "mask_backend", "pairs_backend", "build_seconds", "forward_s",
+    "forward_backend"))
+RUN_KEYS = {
+    "uniformgrid": _HMC_KEYS, "segmentgrid": _HMC_KEYS,
+    "ratiogrid": _HMC_KEYS, "uniformgrid-chees": _HMC_KEYS,
+    "realdata": _SUMMARY_KEYS,
+    "realdata-chees": _SUMMARY_KEYS | {"temperature"},
+    "global-map": frozenset((
+        "workload", "estimator", "problem", "RMSD", "RMSM",
+        "posterior_truth_corr", "noise_sigma", "n_iters", "total_s",
+        "solve_s")) | _GLOBAL_BUILD,
+    "global-hmc": frozenset((
+        "n_common", "RMSD", "mean_model_max", "std_model_max", "RMSM",
+        "posterior_truth_corr", "coverage_2std", "amplitude_ratio",
+        "ess_median", "ess_frozen_floor", "ess_degenerate", "sampler",
+        "total_s", "sampling_s", "grad_evals_per_s", "accept_ratio",
+        "step_size", "adapted_mass", "fused_mode", "cg",
+        "ess_per_s_median", "workload", "problem", "data_rms_centered",
+        "noise_sigma", "target", "variance_explained")) | _GLOBAL_BUILD,
+    "cg": frozenset(("iterations", "final_data_misfit", "RMSD", "RMSM",
+                     "corr", "workload")),
+    "bootstrap": frozenset(("workload", "samples", "mean_model_max",
+                            "std_model_max", "RMSM")),
+    "bootstrap-southchina": frozenset((
+        "workload", "mesh_shape", "carved_cells", "samples",
+        "model_std_max", "finite")),
+}
+#: the ``run`` phase's bounds on each line's numbers (a key: (low, high)),
+#: beside the finite statistics. Where a line has a truth, RMSD (raw, as
+#: the line gives it) and RMSM must lie on the JAX driver's side of the
+#: midpoint between the JAX driver's reading at the same arguments (the
+#: JAX command on the CPU, its own draws) and the value of the start every
+#: chain leaves (0.001 everywhere), so a chain that never moves fails:
+#: uniformgrid JAX RMSD 0.1132, RMSM 0.0676, start 0.7840, 0.1264;
+#: segmentgrid JAX 0.1051, 0.0669, start 1.0912, 0.1264; ratiogrid JAX
+#: RMSD 1.0002, start 3.6584 (its RMSM, JAX 0.1272 against the start's
+#: 0.1212, tells no moving chain from a frozen one and is not bounded);
+#: uniformgrid ChEES JAX 8.6313, 0.4553 (at most twice those). Accept: the
+#: HMC runs keep the reference's fixed dt 0.01 and Sigma 0.001 in float32
+#: (no adaptation); the JAX driver reads 1.0 for uniformgrid, segmentgrid
+#: and realdata (as the live f64 reference kernel does), 0.8516 for
+#: ratiogrid; ChEES adapts to its 0.75 target (0.4-0.95); the whole-Earth
+#: HMC adapts dt (0.2-1, as phase 20). Truth correlation: the bounded MAP
+#: above 0.3 (``tests/test_examples_cli.py``), CG above 0.5 (phase 13,
+#: ``tests/test_reginv.py``), and so the whole-Earth HMC from its CG start
+#: (the JAX driver reads 0.7123, its MAP-only line 0.5752)
+RUN_BOUNDS = {
+    "uniformgrid": {"accept_ratio": (0.9, 1.0), "RMSD": (0.0, 0.45),
+                    "RMSM": (0.0, 0.097)},
+    "segmentgrid": {"accept_ratio": (0.9, 1.0), "RMSD": (0.0, 0.6),
+                    "RMSM": (0.0, 0.097)},
+    "ratiogrid": {"accept_ratio": (0.5, 1.0), "RMSD": (0.0, 2.3)},
+    "uniformgrid-chees": {"accept_ratio": (0.4, 0.95),
+                          "RMSD": (4.7, 17.3), "RMSM": (0.29, 0.91)},
+    "realdata": {"accept_ratio": (0.9, 1.0)},
+    "realdata-chees": {"accept_ratio": (0.4, 0.95),
+                       "temperature": (1e-9, np.inf)},
+    "global-map": {"posterior_truth_corr": (0.3, 1.0)},
+    "global-hmc": {"accept_ratio": (0.2, 1.0),
+                   "posterior_truth_corr": (0.5, 1.0)},
+    "cg": {"corr": (0.5, 1.0)},
+    "bootstrap": {"std_model_max": (1e-12, np.inf)},
+    "bootstrap-southchina": {"model_std_max": (1e-12, np.inf)},
+}
+#: the runs that sample (a ``draws`` launch at least once an iteration)
+RUN_SAMPLERS = ("uniformgrid", "segmentgrid", "ratiogrid",
+                "uniformgrid-chees", "realdata", "realdata-chees",
+                "global-hmc")
+
+
+def phase_run(torch, tlf, dev, smi, plain):
+    """``gravinv3dhmc_tpu_torch.run.main(argv)`` for each of
+    :data:`RUN_CASES`, its launches counted from 0 just before it, its
+    line printed with the seconds, the card and the launches; each line
+    must hold :data:`RUN_KEYS`, finite statistics inside
+    :data:`RUN_BOUNDS`, a sampler's run launches ``draws`` and no plain
+    Philox is called. Returns the launch counts summed over the runs and
+    the distinct (cells, chains) of the sampler runs, the shapes their
+    ``draws`` launches had."""
+    import contextlib
+    import io
+
+    from gravinv3dhmc_tpu_torch import run
+
+    total = {name: 0 for name in tlf.KERNELS}
+    shapes = set()
+    for name, argv in RUN_CASES.items():
+        sync(torch)
+        tlf.reset_launch_counts()
+        calls = plain.calls
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            with plain:
+                out = run.main(argv + ["--quiet"])
+        sync(torch)
+        seconds = time.perf_counter() - t0
+        counts = tlf.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        printed = printed.getvalue().strip().splitlines()
+        line("run", case=name, argv=argv, seconds=seconds, card=smi,
+             launches={k: v for k, v in counts.items() if v}, **out)
+        stats = {k: v for k, v in out.items()
+                 if isinstance(v, float) and k not in ("total_s",)}
+        checks = {
+            "one JSON line": (len(printed) == 1
+                              and json.loads(printed[0]) == out),
+            "keys": set(out) == RUN_KEYS[name],
+            "finite": all(np.isfinite(v) for v in stats.values()),
+            "no plain Philox": plain.calls == calls,
+        }
+        for key, (lo, hi) in RUN_BOUNDS[name].items():
+            checks[f"{key} in [{lo}, {hi}]"] = lo <= out[key] <= hi
+        if name in RUN_SAMPLERS:
+            checks["draws launched"] = counts["draws"] > 0
+            shapes.add((out["problem"][1], run.parse_args(argv).nchains))
+        else:
+            checks["no kernel"] = not any(counts.values())
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"run {name}: {bad}")
+    return total, sorted(shapes)
+
+
+#: the CUDA functions of the bf16 iteration op that a profiled chunk's
+#: trace must name (the wrappers' kernels, ``csrc/leapfrog.cu``)
+TRACE_KERNELS = {"refresh": "refresh_kernel", "drift": "drift_kernel",
+                 "residual": "residual_partial_tc_kernel",
+                 "kick": "kick_tc_kernel",
+                 "traj_finish": "traj_finish_kernel",
+                 "accept": "accept_kernel"}
+
+
+def phase_profiling(torch, tlf, dev, smi):
+    """One warm chunk of the uniformgrid slice (1024 chains, the bf16
+    iteration op), then one chunk inside ``profiling.device_trace``: the
+    Chrome trace must name :data:`TRACE_KERNELS`, and
+    ``profiling.memory_report()`` report ``cuda:0`` with a non-zero peak.
+    Returns the launch counts of both chunks, set to 0 just before."""
+    import tempfile
+
+    from gravinv3dhmc_tpu_torch import profiling, uniformgrid
+
+    module, dobs = uniformgrid.build_problem(device=dev)
+    chain = uniformgrid.slice_sampler(module, dobs, dev)
+    run_chunk, carry = chain.prepare(uniformgrid.SLICE["nsamples"], 0)
+    sync(torch)
+    tlf.reset_launch_counts()
+    carry, _ = run_chunk(carry, chain.seed, 0)
+    sync(torch)
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    with profiling.timers("traced_chunk"):
+        with profiling.device_trace(tmp.name) as path:
+            carry, stats = run_chunk(carry, chain.seed, 1)
+    seconds = time.perf_counter() - t0
+    counts = tlf.launch_counts()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {w: sum(sym in k for k in kernels)
+             for w, sym in TRACE_KERNELS.items()}
+    mem = profiling.memory_report()
+    line("profiling", card=smi, seconds=seconds, trace_bytes=os.path.getsize(
+        path), kernel_events=len(kernels), trace_kernels=found,
+         memory=mem, timers=profiling.timers.summary(),
+         launches={k: v for k, v in counts.items() if v})
+    tmp.cleanup()
+    checks = {
+        "trace names the iteration kernels": all(found.values()),
+        "cuda:0 reported": "cuda:0" in mem,
+        "non-zero peak": mem.get("cuda:0", {}).get("peak_gb", 0) > 0,
+        "finite chunk": bool(torch.isfinite(stats).all()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"profiling: {bad}")
+    return counts
+
+
 def main():
     import torch
 
@@ -2903,6 +3177,11 @@ def main():
     phase_samplers_kernel(torch, tlf, dev, M_global,
                           (GLOBAL_HMC["nchains"],))
 
+    counts_run, run_shapes = phase_run(torch, tlf, dev, smi, plain)
+    for M_run, C_run in run_shapes:
+        phase_samplers_kernel(torch, tlf, dev, M_run, (C_run,))
+    counts_prof = phase_profiling(torch, tlf, dev, smi)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the main paths' runs, each counted from 0: both uniformgrid slices,
@@ -2913,11 +3192,14 @@ def main():
     # gz build, both ratiogrid slices, the bench's two stages, the
     # samplers, the realdata ChEES (the deterministic stages launch none),
     # the magnetic uniformgrid stage, the wavelet stages, the magnetic
-    # demo's ChEES, the joint HMC and the whole-Earth HMC
+    # demo's ChEES, the joint HMC, the whole-Earth HMC, the command line's
+    # subcommands and the profiled uniformgrid chunks (the bench's count
+    # holds the live f64 reference run's draws)
     runs = (counts, counts_f32, counts3, counts_state, counts_rd,
             *counts_rd_real, counts_gz, counts2, counts2_f32, counts_bench,
             counts_samplers, counts_rd_chees, counts_mag, counts_wav,
-            counts_mag_demo, counts_joint, counts_global)
+            counts_mag_demo, counts_joint, counts_global, counts_run,
+            counts_prof)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

@@ -27,7 +27,10 @@ sample files through a native sink (``runtime/sink.py``), checkpoints
 that resume a run exactly (``checkpoint.py``) and the kernel disk cache.
 ``inversion/joint.py`` inverts gravity and magnetics jointly, and
 ``global_tess.py`` runs the whole-Earth workload on a tesseroid matrix
-built on the card (``ops/tesseroid.tesseroid_kernel_device``).
+built on the card (``ops/tesseroid.tesseroid_kernel_device``). The user's
+front door is ``python -m gravinv3dhmc_tpu_torch.run <workload>``, the
+port of ``examples/run.py`` over ``workloads.py``; ``compat/``, ``vis/``
+and ``profiling.py`` complete the JAX package's surface.
 """
 
 __version__ = "0.1.0"

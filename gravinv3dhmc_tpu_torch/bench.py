@@ -19,7 +19,11 @@ the second stage's numbers. Progress goes to stderr.
   tesseroids, 256 chains, windowed warmup, the fused trajectory op on an
   f32 matrix), after the first stage's buffers are freed. Its
   reference-kernel ESS per sample is read from ``tools/refkernel_f64.json``
-  (a recorded f64 run of the reference's fixed-dt kernel).
+  (a recorded f64 run of the reference's fixed-dt kernel on the published
+  625 x 10,427 problem) or, with ``BENCH_REALDATA_REFKERNEL=1``, measured
+  live (:func:`reference_kernel_live`): the reference's kernel at float64,
+  64 chains, 128 samples, on the stage's own problem, after the stage's
+  sample buffers are dropped.
 
 Environment variables (the JAX bench's names): ``BENCH_NCHAINS``,
 ``BENCH_CHUNK``, ``BENCH_CHUNKS``, ``BENCH_NSAMPLES``,
@@ -29,8 +33,7 @@ path reads only for the first state's U and g), ``BENCH_REALDATA=0``
 (skip the second stage), ``BENCH_REALDATA_NCHAINS``, ``_CHUNK``,
 ``_NSAMPLES``, ``_ADAPT_CHUNKS``, ``_DT``, ``_LRANGE`` ("Lmin,Lmax"),
 ``_THIN``, ``_MATVEC_DTYPE``, ``_REFKERNEL`` ("file", the default; "0"
-off; "1", the live f64 re-measure, is not ported and raises) and
-``BENCH_VERBOSE``.
+off; "1", the live f64 measurement) and ``BENCH_VERBOSE``.
 
 Left out on purpose: the JAX bench's TPU-link workarounds (subprocess
 kernel probes, d2h watchdog threads, the compile cache, ``BENCH_RBG``)
@@ -54,6 +57,7 @@ import torch
 
 from . import _device, realdata, uniformgrid
 from .diagnostics import ess_torch, median
+from .inversion.hmc import HamiltonianMC
 from .ops import leapfrog
 
 METRIC = "uniformgrid leapfrog grad-evals/s/chip"
@@ -66,6 +70,22 @@ BASELINE_REALDATA_GRAD_EVALS_PER_S = 300.0  # 2 chains x ~150/s
 #: repository, read by path)
 REFKERNEL = (Path(__file__).resolve().parents[1] / "tools"
              / "refkernel_f64.json")
+#: the live measurement's sampler: the reference's fixed-dt kernel
+#: (example/realdata/main_real.py:43, logout_T1.txt) at float64, as the
+#: JAX bench sets it (``ref.<name> = ...``), and its stored samples
+REFKERNEL_SETTINGS = dict(dt=0.005, Lrange=[5, 40], Sigma=0.001, seed=100,
+                          RegulFactor=0.05, regularization="Damping",
+                          nchains=64, chunk_size=32, write_files=False,
+                          shared_L=True, use_fused=False, store_mode="chain",
+                          transfer_samples=False, dtype=torch.float64)
+REFKERNEL_SAMPLES = 128
+#: the published realdata problem the recorded run sampled; the live run
+#: samples the repository's synthetic stand-in
+PUBLISHED_REALDATA_PROBLEM = [625, 10427]
+
+# the JAX bench's problem builders, under its names
+build_problem = uniformgrid.build_problem
+build_realdata_problem = realdata.build_problem
 
 
 def _env_int(name, default):
@@ -174,17 +194,17 @@ def uniformgrid_stage(device, stage, problem=None):
 
 
 def reference_kernel():
-    """The reference kernel's ESS per sample and what it implies on the
-    reference's hardware, from ``BENCH_REALDATA_REFKERNEL`` ("file", "0",
-    or "1", which raises); None when off."""
+    """The recorded reference kernel's ESS per sample and what it implies
+    on the reference's hardware, from ``BENCH_REALDATA_REFKERNEL``: "file"
+    (the default) reads ``tools/refkernel_f64.json``; "0" and "1" return
+    None ("1" is measured live by :func:`realdata_stage`, after its
+    sampler has run)."""
     mode = os.environ.get("BENCH_REALDATA_REFKERNEL", "file")
-    if mode == "0":
+    if mode in ("0", "1"):
         return None
     if mode != "file":
-        raise NotImplementedError(
-            "BENCH_REALDATA_REFKERNEL=1, the live f64 re-measure of the "
-            "reference kernel, is not ported to PyTorch yet (ROADMAP.md "
-            "queue 1, item 15)")
+        raise ValueError(f"BENCH_REALDATA_REFKERNEL must be 'file', '0' or "
+                         f"'1', got {mode!r}")
     art = json.loads(REFKERNEL.read_text())
     e_per_sample = art["measured"]["ess_per_sample"]
     return {
@@ -192,6 +212,48 @@ def reference_kernel():
         "ess_per_sample": e_per_sample,
         "ref_hw_ess_per_s": BASELINE_REALDATA_SAMPLES_PER_S * e_per_sample,
         "source": "tools/refkernel_f64.json (recorded f64 measurement)",
+    }
+
+
+def reference_kernel_live(module, chain, device, nsamples=REFKERNEL_SAMPLES,
+                          draws=None):
+    """The reference's kernel measured on ``module`` (the JAX bench's
+    ``BENCH_REALDATA_REFKERNEL=1``): a :class:`HamiltonianMC` at
+    :data:`REFKERNEL_SETTINGS` (fixed dt 0.005, L in [5, 40], Sigma 0.001,
+    Damping at 0.05, 64 chains, shared L, the eager path, float64) with
+    the box, start, a priori model and data of ``chain`` (the stage's
+    sampler), ``nsamples`` stored in ``store_mode='chain'``. Returns its
+    accept ratio, ESS per sample (the median ESS over 64 x ``nsamples``)
+    and what that implies on the reference's hardware, with the problem's
+    shape (the stand-in's, not the published one the recorded run
+    sampled), the dtypes of the chains' state and potential and the run's
+    seconds. ``draws`` is a draw
+    source for :meth:`HamiltonianMC.sample` (the tests inject the JAX
+    sampler's). A failing run raises."""
+    ref = HamiltonianMC(module)
+    for name, value in REFKERNEL_SETTINGS.items():
+        setattr(ref, name, list(value) if name == "Lrange" else value)
+    ref.device = device
+    ref.verbose = chain.verbose
+    for name in ("low", "high", "initial_model", "aprior_model", "dobs"):
+        setattr(ref, name, getattr(chain, name))
+    out = ref.sample(nsamples, 0, draws=draws)
+    e_per_sample = out["ess_median"] / (ref.nchains * nsamples)
+    return {
+        "accept_ratio": round(out["accept_ratio"], 4),
+        "ess_per_sample": e_per_sample,
+        "ref_hw_ess_per_s": BASELINE_REALDATA_SAMPLES_PER_S * e_per_sample,
+        "source": "measured live (f64)",
+        "problem": [int(np.asarray(chain.dobs).size), int(module.n_active)],
+        "published_problem": PUBLISHED_REALDATA_PROBLEM,
+        "problem_note": "the repository's synthetic stand-in of the "
+                        "published problem, which the recorded run sampled",
+        "nchains": ref.nchains,
+        "nsamples": nsamples,
+        "dtype": {k: str(out[k].dtype).replace("torch.", "")
+                  for k in ("x", "U")},
+        "fused_mode": out["fused_mode"],
+        "elapsed_s": out["elapsed_s"],
     }
 
 
@@ -233,6 +295,16 @@ def realdata_stage(device, stage, problem=None):
     launches = _launches(before)
     stage(f"realdata adaptive run done ({out['elapsed_s']:.1f}s, "
           f"accept {out['accept_ratio']:.2f})")
+    if os.environ.get("BENCH_REALDATA_REFKERNEL", "file") == "1":
+        # the stage's sample buffers (8.4 GB at the defaults) go before the
+        # reference run allocates its own
+        out["samples"] = out["misfits"] = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ref_est = reference_kernel_live(module, chain, device)
+        stage(f"reference-kernel ESS measured ({ref_est['elapsed_s']:.1f}s, "
+              f"accept {ref_est['accept_ratio']:.4f}, ESS/sample "
+              f"{ref_est['ess_per_sample']:.2e})")
     ess_per_s = out["ess_per_s_median"] or float("nan")
     samples_per_s = nchains * nsamples / out["elapsed_s"]
     return {

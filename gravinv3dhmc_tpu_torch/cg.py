@@ -54,11 +54,10 @@ import time
 import numpy as np
 import torch
 
-from . import _device, mesher, realdata, utils
+from . import _device, realdata
 from .diagnostics import rmsd, rmsm
 from .inversion.reginv import BootStrap, ConjugateGradient, cg_device
-from .ops import prism
-from .uniformgrid import density_model
+from .workloads import forward_with_noise, singlecube, twodykes
 
 #: the stages' settings (``examples/run.py cg`` and ``bootstrap`` at their
 #: defaults, the samplers tool's bounded MAP); ``nz``, ``shape`` and
@@ -72,44 +71,6 @@ MAP = dict(step=0.5, regularization="Damping", alpha=0.05, maxk=400,
 SOUTHCHINA = dict(samples=20, beta=0.01, maxk=200, mratio=1.5,
                   wavelet="1D", boundary=(-1.0, 1.0), seed=2)
 STAGES = ("cg", "bootstrap", "bootstrap_southchina", "map")
-
-
-def twodykes(nz=10):
-    """The reference's CG model 03 (``examples/workloads.py`` cg_model
-    "model03_twodykes", reference: example/CG/model03_twodykes.py:51-57):
-    30 x 40 x ``nz`` prisms of 100 m (10 layers in the reference), two
-    dipping dykes of density 1 (cut at the mesh's bottom when ``nz`` is
-    smaller), observations over the mesh's columns at z = 0. Returns the
-    workload dict of ``workloads.py``."""
-    nx, ny, d = 30, 40, 100
-    mrange = (0, nx * d, 0, ny * d, 0, nz * d)
-    mesh = mesher.PrismMesh(mrange, (d, d, d))
-    rho3 = np.zeros(mesh.shape)
-    for iz in range(1, min(4, nz)):
-        rho3[iz, iz + 8: iz + 11, 14:17] = 1.0
-    for iz in range(2, min(8, nz)):
-        rho3[iz, -iz + 24: -iz + 33, 11:20] = 1.0
-    rho = rho3.ravel()
-    mesh.addprop("density", rho)
-    xo, yo, zo = utils.regular(mrange[:4], (nx, ny), z=0.0)
-    return dict(mrange=mrange, mspacing=(d, d, d), mesh=mesh, rho=rho,
-                obs=(xo, yo, zo), rhomin=0.0, rhomax=1.0)
-
-
-def singlecube(nx=20, ny=30, nz=10):
-    """The uniformgrid workload (``workloads.uniformgrid``, reference:
-    example/uniformgrid/model01_singlecube.py:24-40): a unit-density cube
-    in ``nx`` x ``ny`` x ``nz`` prisms of 100 m
-    (:func:`~.uniformgrid.density_model`), observations over the columns
-    at z = 0."""
-    d = 100
-    mrange = (0, nx * d, 0, ny * d, 0, nz * d)
-    mesh = mesher.PrismMesh(mrange, (d, d, d))
-    rho = density_model(nx, ny, nz).ravel()
-    mesh.addprop("density", rho)
-    xo, yo, zo = utils.regular(mrange[:4], (nx, ny), z=0.0)
-    return dict(mrange=mrange, mspacing=(d, d, d), mesh=mesh, rho=rho,
-                obs=(xo, yo, zo), rhomin=0.0, rhomax=1.0)
 
 
 def southchina(seed=2):
@@ -131,15 +92,6 @@ def southchina(seed=2):
     dobs = rng.normal(0, 15, xo.size)
     return dict(mrange=mrange, mspacing=mspacing, xo=xo, yo=yo, topo=topo,
                 obs=(xo, yo, -heights), dobs=dobs)
-
-
-def forward_with_noise(wl, noise=0.02, seed=1):
-    """The truth's data from the f64 host prism builder with ``noise``
-    times max|data| of seeded Gaussian noise (``workloads.py``
-    ``forward_with_noise``): ``(dpre, dobs)``."""
-    dpre, _ = prism.gz(*wl["obs"], wl["mesh"])
-    return dpre, utils.contaminate(dpre, noise * np.abs(dpre).max(),
-                                   seed=seed)
 
 
 def decay_iters(regul):

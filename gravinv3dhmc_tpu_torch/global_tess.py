@@ -1,10 +1,11 @@
 """The whole-Earth tesseroid inversion on the card.
 
 The port's counterpart of ``examples/run.py global`` (its ``cmd_global``)
-with copies of ``examples/workloads.py``'s :func:`global_tess`,
-:func:`forward_with_noise` and :func:`device_posterior_summary` (the
-JAX package cannot be imported here; ``tests/test_torch_global.py`` holds
-the copies against the originals). At ``--scale 1`` the problem is the
+on :mod:`.workloads`' :func:`~.workloads.global_tess`,
+:func:`~.workloads.forward_with_noise` and
+:func:`~.workloads.device_posterior_summary`
+(``tests/test_torch_global.py`` holds them against
+``examples/workloads.py``'s). At ``--scale 1`` the problem is the
 reference's: a 10 x 60 x 120 tesseroid mesh of 300 km shells and 3-degree
 cells (72,000 cells) under 121 x 61 = 7,381 observations at 5 km, five
 dense boxes in the truth.
@@ -46,145 +47,56 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
-from . import _device, mesher, utils
-from .diagnostics import ess_torch, median
+from . import _device
 from .inversion import hmc
 from .inversion.potential import GravMagModule, logistic_to_mw
 from .inversion.reginv import cg_device
-from .ops import tesseroid
+from . import workloads
+from .workloads import (device_posterior_summary, forward_with_noise,
+                        global_tess, mean_removed_rms)
 
 
-def global_tess(scale=1.0):
-    """Whole-Earth tesseroid inversion, the workload that OOM-killed the
-    reference (reference: example/global/model_global.py:47-82,
-    example/global/logout_T1.txt). ``scale`` < 1 coarsens the mesh for
-    quick runs; scale=1 is the full 120x60x10 = 72000-cell problem.
-    """
-    dlon = dlat = 3 / scale
-    nlon, nlat, nr = int(120 * scale), int(60 * scale), 10
-    dr = -300000
-    mrange = (-180, 180, -90, 90, 0, nr * dr)
-    mesh = mesher.TesseroidMesh(mrange, (dr, dlat, dlon))
-    assert mesh.shape == (nr, nlat, nlon)
-    rho3 = np.zeros(mesh.shape)
-
-    def sbox(iz, iy, ix, value):
-        s = scale
-        rho3[iz[0]: iz[1] + 1,
-             int(iy[0] * s): int(iy[1] * s) + 1,
-             int(ix[0] * s): int(ix[1] * s) + 1] = value
-
-    sbox((2, 6), (25, 40), (25, 40), 0.8)
-    sbox((2, 6), (10, 20), (60, 70), 0.4)
-    sbox((2, 5), (45, 50), (60, 90), 0.6)
-    sbox((2, 4), (30, 35), (70, 80), 0.5)
-    sbox((2, 4), (25, 30), (90, 100), 0.5)
-    rho = rho3.ravel()
-    mesh.addprop("density", rho)
-    lons, lats, heights = utils.regular((-180, 180, -90, 90),
-                                        (nlon + 1, nlat + 1), z=5000.0)
-    return dict(mrange=mrange, mspacing=(dr, dlat, dlon), mesh=mesh,
-                rho=rho, obs=(lons, lats, heights),
-                mesh_kwargs=dict(coordinate="spherical"),
-                rhomin=0.0, rhomax=0.8)
-
-
-def forward_with_noise(wl, noise=0.02, seed=1):
-    """The synthetic truth's gz plus seeded noise: ``(dpre, dobs)``. The
-    native engine builds the f64 columns of the truth's nonzero cells
-    only; ``wl["forward_s"]`` is the build and product's wall time and
-    ``wl["forward_backend"]`` the builder that ran."""
-    t0 = time.perf_counter()
-    mesh = wl["mesh"]
-    rho = np.asarray(wl["rho"], np.float64)[mesh.active]
-    nz = np.flatnonzero(rho)
-    cells = np.asarray(mesh.cell_bounds(only_active=True), np.float64)
-    info = {}
-    K = tesseroid.tesseroid_kernel_matrix("gz", *wl["obs"], cells[nz],
-                                          info=info)
-    dpre = K @ rho[nz]
-    wl["forward_s"] = time.perf_counter() - t0
-    wl["forward_backend"] = info["tess_backend"]
-    dobs = utils.contaminate(dpre, noise * np.abs(dpre).max(), seed=seed)
-    return dpre, dobs
-
-
-def device_posterior_summary(module, stats, dobs, truth=None, sub=128):
-    """Posterior statistics from the sampler's buffers on the card
-    (``stats["samples"]``, (C, nsamples, M) in reference units): mean and
-    std, RMSD (mean-removed, the misfit convention the inversion targets),
-    RMSM, correlation, 2-std coverage and amplitude ratio against
-    ``truth``, the median ESS over ``sub`` cells and the estimator's
-    degenerate floor at this (C, N) (``ess_frozen_floor``: bitwise-frozen
-    chains give it; ``ess_degenerate`` flags an ESS below 1.25 times
-    it). Returns ``(out, mean)``; only scalars reach the host."""
-    buf = stats["samples"]
-    n_common = int(min(stats["n_stored"].min(), buf.shape[1]))
-    out = {"n_common": n_common}
-    if n_common == 0:
-        out.update(RMSD=float("nan"), mean_model_max=float("nan"),
-                   std_model_max=float("nan"))
-        if truth is not None:
-            out.update(RMSM=float("nan"),
-                       posterior_truth_corr=float("nan"))
-        return out, None
-    sl = buf[:, :n_common]
-    mean_m = sl.mean(dim=(0, 1))
-    std_m = sl.std(dim=(0, 1), correction=0)
-    dtype, dev = mean_m.dtype, mean_m.device
-    wdiag = torch.as_tensor(module.wdiag, dtype=dtype, device=dev)
-    dpre = module.predict(mean_m * wdiag)
-    dobs_d = torch.as_tensor(dobs, dtype=dtype, device=dev)
-    r = (dpre - dpre.mean()) - (dobs_d - dobs_d.mean())
-    out["RMSD"] = float(torch.sqrt((r ** 2).mean()))
-    out["mean_model_max"] = float(mean_m.max())
-    out["std_model_max"] = float(std_m.max())
-    if truth is not None:
-        t_d = torch.as_tensor(truth, dtype=dtype, device=dev)
-        out["RMSM"] = float(torch.sqrt(((mean_m - t_d) ** 2).mean()))
-        out["posterior_truth_corr"] = float(
-            torch.corrcoef(torch.stack([mean_m, t_d]))[0, 1])
-        out["coverage_2std"] = float(
-            ((mean_m - t_d).abs() <= 2.0 * std_m).to(dtype).mean())
-        out["amplitude_ratio"] = float(
-            torch.sqrt((mean_m ** 2).mean() / (t_d ** 2).mean()))
-    if n_common >= 8:
-        idx = np.random.RandomState(0).choice(
-            buf.shape[2], size=min(buf.shape[2], sub), replace=False)
-        ess = ess_torch(sl[:, :, torch.as_tensor(idx, device=dev)])
-        out["ess_median"] = float(median(ess))
-        C = buf.shape[0]
-        frozen = torch.linspace(0.0, 1.0, C, dtype=torch.float32,
-                                device=dev)[:, None, None].expand(
-                                    C, n_common, 4)
-        floor = float(median(ess_torch(frozen)))
-        out["ess_frozen_floor"] = floor
-        out["ess_degenerate"] = bool(out["ess_median"] < 1.25 * floor)
-    return out, mean_m
-
-
-def build(scale=1.0, seed_noise=1, device=None, verbose=False):
+def build(scale=1.0, seed_noise=1, device=None, verbose=False,
+          kernel_cache=None, host_kernel=False):
     """``(wl, dpre, dobs, module)``: the workload, its synthetic data and
-    the module whose matrix is built and weighted on ``device``."""
+    the module whose matrix is built and weighted on ``device``
+    (``host_kernel``: built on the host and moved there). A
+    ``kernel_cache`` path seeds the data (:func:`~.workloads.
+    forward_with_noise`: the whole f64 host matrix, built and saved there
+    when missing); the device build stands on its own and is not given
+    it, as in the JAX command."""
     wl = global_tess(scale=scale)
-    dpre, dobs = forward_with_noise(wl, seed=seed_noise)
+    dpre, dobs = forward_with_noise(wl, seed=seed_noise,
+                                    kernel_cache=kernel_cache)
     module = GravMagModule(dobs, wl["mrange"], wl["mspacing"], wl["obs"],
-                           kernel_device=True, verbose=verbose,
+                           kernel_device=not host_kernel, verbose=verbose,
+                           kernel_cache=kernel_cache if host_kernel else None,
                            device=device, **wl["mesh_kwargs"])
     return wl, dpre, dobs, module
 
 
-def _fit(module, mw, dobs):
-    """The mean-removed RMS residual of ``predict(mw)`` against ``dobs``."""
-    dp = module.predict(mw)
-    dobs_d = torch.as_tensor(dobs, dtype=dp.dtype, device=dp.device)
-    r = (dp - dp.mean()) - (dobs_d - dobs_d.mean())
-    return float(torch.sqrt((r ** 2).mean()))
+def device_vs_host(module, kernel_cache, n=2000):
+    """The largest gap of ``n`` sampled entries of the device-built
+    weighted matrix against the f64 host cache's, relative to the
+    largest host entry (``examples/run.py global``'s independent check)."""
+    K_host = np.load(kernel_cache, mmap_mode="r")
+    rng = np.random.RandomState(0)
+    si = rng.randint(0, K_host.shape[0], n)
+    sj = rng.randint(0, K_host.shape[1], n)
+    Aw = module.device_arrays()["Aw"]
+    dev_vals = Aw[torch.as_tensor(si, device=Aw.device),
+                  torch.as_tensor(sj, device=Aw.device)]
+    dev_vals = dev_vals.cpu().numpy().astype(np.float64)
+    wdiag_inv = torch.as_tensor(module.wdiag_inv).cpu().numpy()
+    host_vals = np.asarray(K_host[si, sj], np.float64) * wdiag_inv[sj]
+    return float(np.abs(dev_vals - host_vals).max()
+                 / max(np.abs(host_vals).max(), 1e-30))
 
 
 def bounded_map(wl, dobs, module, alpha=5.0, maxk=1600, beta=0.001):
@@ -205,7 +117,7 @@ def bounded_map(wl, dobs, module, alpha=5.0, maxk=1600, beta=0.001):
         "estimator": f"bounded MAP (projected CG, alpha={alpha}, "
                      f"maxk={maxk}, best-objective iterate)",
         "problem": [int(dobs.size), int(module.n_active)],
-        "RMSD": _fit(module, cg["mw"], dobs),
+        "RMSD": mean_removed_rms(module, cg["mw"], dobs),
         "RMSM": float(torch.sqrt(((m - truth) ** 2).mean())),
         "posterior_truth_corr": float(
             torch.corrcoef(torch.stack([m, truth]))[0, 1]),
@@ -241,23 +153,9 @@ def sample(wl, dobs, module, nsamples=500, ndraws=0, nchains=2,
     if warm_start is not None:
         initial = warm_start["m"]
     elif cg_warm_start:
-        t_cg = time.perf_counter()
-        cg = cg_device(module, dobs, (wl["rhomin"], wl["rhomax"]),
-                       regularization="Damping", beta=0.01, q=0.7,
-                       maxk=cg_maxk, dtype=torch.float32, alpha=cg_alpha)
-        d_h = [round(float(v), 3) for v in cg["data_hist"]]
-        cg_info = {
-            "n_iters": cg["n_iters"],
-            "elapsed_s": time.perf_counter() - t_cg,
-            "RMSD": _fit(module, cg["mw"], dobs),
-            "alpha": cg_alpha,
-            "data_hist_head": d_h[:5],
-            "data_hist_min": min(d_h),
-            "data_hist_last": d_h[-1],
-            "diverged": d_h[-1] > 2.0 * min(d_h),
-            "regul_hist_last": float(cg["regul_hist"][-1]),
-        }
-        initial = cg["m"]   # (M,) on the card, and stays there
+        # (M,) on the card, and it stays there
+        initial, cg_info = workloads.cg_start(
+            module, wl, dobs, "Damping", 0.01, cg_maxk, cg_alpha)
     kw = dict(constraint="logarithmic", jacobian=True,
               temperature=2.0 * noise_sigma ** 2) if honest else dict(
                   constraint="mandatory")
@@ -336,17 +234,22 @@ def run(args, device=None):
     """``examples/run.py global``'s ``cmd_global`` on the card: the line
     it prints, with the port's build stages."""
     t0 = time.perf_counter()
+    kernel_cache, host_kernel = args.kernel_cache, args.host_kernel
     wl, dpre, dobs, module = build(args.scale, args.seed_noise, device,
-                                   verbose=not args.quiet)
+                                   verbose=not args.quiet,
+                                   kernel_cache=kernel_cache,
+                                   host_kernel=host_kernel)
     noise_sigma = float(0.02 * np.abs(dpre).max())
     build_keys = dict(
         kernel_build_device_s=module.kernel_build_s,
-        weighting_device_s=module.weighting_s,
-        nearfield_pairs=module.nearfield_pairs,
-        mask_backend=module.mask_backend,
-        pairs_backend=module.pairs_backend,
-        build_seconds=module.build_seconds,
-        forward_s=wl["forward_s"], forward_backend=wl["forward_backend"])
+        weighting_device_s=getattr(module, "weighting_s", None),
+        nearfield_pairs=getattr(module, "nearfield_pairs", None),
+        mask_backend=getattr(module, "mask_backend", None),
+        pairs_backend=getattr(module, "pairs_backend", None),
+        build_seconds=module.build_seconds)
+    build_keys.update({k: wl[k] for k in ("forward_s", "forward_backend",
+                                          "kernel_build_host_s")
+                       if k in wl})
     if args.map_only:
         alpha = args.cg_alpha if args.cg_alpha is not None else 5.0
         out, _ = bounded_map(wl, dobs, module, alpha=alpha,
@@ -376,6 +279,9 @@ def run(args, device=None):
     out["variance_explained"] = float(
         1.0 - (out["RMSD"] / out["data_rms_centered"]) ** 2) \
         if np.isfinite(out.get("RMSD", np.nan)) else None
+    if not host_kernel and kernel_cache and os.path.exists(kernel_cache):
+        out["device_vs_host_max_rel_err"] = device_vs_host(module,
+                                                           kernel_cache)
     out.update(build_keys)
     return out
 
@@ -404,6 +310,8 @@ def parse_args(argv=None):
     ap.add_argument("--store-thin", dest="store_thin", type=int, default=1)
     ap.add_argument("--adapt-chunks", dest="adapt_chunks", type=int,
                     default=10)
+    ap.add_argument("--kernel-cache", dest="kernel_cache", default=None)
+    ap.add_argument("--host-kernel", dest="host_kernel", action="store_true")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     if args.RegulFactor is None:

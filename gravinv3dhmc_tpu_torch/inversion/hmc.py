@@ -127,10 +127,16 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     per_chain = not shared_L and all(f is None for f in fused)
     device = resolve(device)
     dt_default = float(dt)
-    sigma = float(np.float32(Sigma))
+
+    def rounded(v):
+        # a scalar in the sampler's dtype, as the JAX sampler casts its
+        # dt, Sigma and alpha (float32 rounds them, float64 keeps them)
+        return float(torch.tensor(float(v), dtype=dtype))
+
+    sigma = rounded(Sigma)
     low_t = as_tensor(low, dtype, device)
     high_t = as_tensor(high, dtype, device)
-    alpha_c = float(np.float32(alpha))
+    alpha_c = rounded(alpha)
     wdiag_inv = as_tensor(wdiag_inv, dtype, device)
     total = nsamples + ndraws
     pot_raw = potential_fn.fn
@@ -309,7 +315,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     def run_chunk(carry, seed, chunk_idx, params=None, dt=dt_default,
                   inv_mass=None, store_base=0):
         params = potential_fn.params if params is None else params
-        dt = float(np.float32(dt))
+        dt = rounded(dt)
         if inv_mass is not None:
             inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=device)
         salt = philox.salt_from_seed(seed)
@@ -833,6 +839,7 @@ class HamiltonianMC:
             "samples": carry[6],
             "misfits": carry[7],
             "x": carry[0],
+            "U": carry[1],
             "n_stored": n_stored,
             "folders": folders,
             "accepted": accepted.tolist(),

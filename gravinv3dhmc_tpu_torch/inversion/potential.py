@@ -252,6 +252,9 @@ class GravMagModule:
         self.wavelet = wavelet_mode if wavelet_mode is not None else wavelet
         self.dtype = dtype
         self.device = resolve(device)
+        #: :meth:`misfit_and_grad`'s potentials, one a (regularization,
+        #: constraint, beta, log_factor)
+        self._potential_cache = {}
         self.lonobs = np.asarray(obsurface[0], dtype=np.float64)
         self.latobs = np.asarray(obsurface[1], dtype=np.float64)
         self.heightobs = np.asarray(obsurface[2], dtype=np.float64)
@@ -594,3 +597,50 @@ class GravMagModule:
             return U, g, (dpre, u_data, u_model)
 
         return Potential(fn, params)
+
+    # --------------------------------------------- reference-compatible API
+    def misfit_and_grad(self, x, mwapr, low, high, constraint, log_fator,
+                        alpha, regulization="Damping", beta=0.01):
+        """Drop-in for the reference's duck-typed sampler interface
+        (reference: inversion/potential.py:812-845), as the JAX module's:
+        ``(misfit, grad, dpre, data_value, model_value)``, floats and
+        numpy arrays, from the potential in the module's dtype on its
+        device. The potential is made once a (regularization, constraint,
+        beta, log_factor), as in the JAX module: a later call with other
+        ``mwapr``, ``low`` or ``high`` and the same key reuses the first's."""
+        key = (regulization, constraint, float(beta), float(log_fator))
+        if key not in self._potential_cache:
+            self._potential_cache[key] = self.make_potential(
+                mwapr, low, high, constraint=constraint, log_factor=log_fator,
+                regularization=regulization, beta=beta)
+        u, g, (dpre, u_data, u_model) = self._potential_cache[key](
+            as_tensor(np.asarray(x), self.dtype, self.device), float(alpha))
+        return (float(u), g.cpu().numpy(), dpre.cpu().numpy(),
+                float(u_data), float(u_model))
+
+    def data(self, x, low, high, constraint, log_fator):
+        """The data term alone, ``|r|^2`` of the mean-removed residual
+        (adaptive-alpha helper, reference: inversion/potential.py:591-609):
+        with the wavelet kernel ``Awcp W mw``, else ``Aw mw``. The JAX
+        module computes it in float64 on the host; here it runs on the
+        module's device, in float64 when the module has a host matrix (a
+        matrix built on the card is used in its own dtype)."""
+        if constraint == "logarithmic":
+            mw = logistic_to_mw(np.asarray(x), np.asarray(low),
+                                np.asarray(high), log_fator, xp=np)
+        elif constraint == "mandatory":
+            mw = np.asarray(x)
+        else:
+            raise ValueError(
+                "Please choose right boundary constraint(mandatory, "
+                "logarithmic)!")
+        dtype = torch.float64 if self.Aw is not None else self.dtype
+        arrs = self.device_arrays(dtype)
+        mw = as_tensor(mw, dtype, self.device)
+        if self.wavelet in ("1D", "3D") and self.Awcp is not None:
+            dpre = spmm(arrs["Awcp"], self._model_transform(mw))
+        else:
+            dpre = mw @ arrs["Aw"].T
+        dobs = arrs["dobs"]
+        r = (dpre - dpre.mean()) - (dobs - dobs.mean())
+        return float(r @ r)

@@ -57,24 +57,33 @@ SLICE = dict(nchains=256, chunk=64, nsamples=768, adapt_chunks=12,
              matvec=torch.float32, seed=100)
 
 
-def build_problem(device=None, step=0.5, kernel_cache=None):
-    """``(module, dobs)``: the JAX bench's synthetic South China problem,
-    observations and mesh columns ``step`` degrees apart (0.5, the
-    default, is the bench's 576 x 10,676 problem; a coarser step is a
-    smaller problem of the same geometry), the module's tensors on
-    ``device`` (``cuda:0`` when None); ``kernel_cache`` is the module's
-    (a path the tesseroid matrix is loaded from, or saved to)."""
-    spacing = (DZ, step, step)
+def standin(step=0.5):
+    """The JAX bench's synthetic stand-in of the published data, ``step``
+    degrees apart (``examples/workloads.py`` ``realdata_southchina``
+    without the reference's files): ``(lons, lats, heights, dobs,
+    grav_sea, topo)``, observations at the cells' centres at height 0,
+    data N(0, 20) mGal and topography U(-2000, 2000) m from
+    ``RandomState(0)``, no frozen-cell field."""
     lons, lats = np.meshgrid(np.arange(MRANGE[0] + step / 2, MRANGE[1], step),
                              np.arange(MRANGE[2] + step / 2, MRANGE[3], step))
     lons, lats = lons.ravel(), lats.ravel()
-    heights = np.full(lons.size, 0.0)
     rng = np.random.RandomState(0)
     dobs = rng.normal(0, 20, lons.size)
-    grav_sea = np.zeros(lons.size)
     topo = rng.uniform(-2000, 2000, lons.size)
+    return (lons, lats, np.full(lons.size, 0.0), dobs, np.zeros(lons.size),
+            topo)
+
+
+def build_problem(device=None, step=0.5, kernel_cache=None):
+    """``(module, dobs)``: the JAX bench's synthetic South China problem
+    (:func:`standin`), observations and mesh columns ``step`` degrees
+    apart (0.5, the default, is the bench's 576 x 10,676 problem; a
+    coarser step is a smaller problem of the same geometry), the module's
+    tensors on ``device`` (``cuda:0`` when None); ``kernel_cache`` is the
+    module's (a path the tesseroid matrix is loaded from, or saved to)."""
+    lons, lats, heights, dobs, grav_sea, topo = standin(step)
     module = GravMagModule(
-        dobs, MRANGE, spacing, (lons, lats, heights), fixed=True,
+        dobs, MRANGE, (DZ, step, step), (lons, lats, heights), fixed=True,
         grav_fix=grav_sea, mseg=True, mdivisionsection=DIVISION,
         coordinate="spherical", field="gravity", verbose=False,
         device=device, kernel_cache=kernel_cache, mtopo=(lons, lats, topo))

@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -118,14 +119,143 @@ def test_realdata_can_be_skipped(tiny, monkeypatch):
     assert "realdata" not in res["detail"]
 
 
-@pytest.mark.parametrize("mode,raises", [("1", True), ("0", False)])
+@pytest.mark.parametrize("mode,raises", [("1", False), ("0", False),
+                                         ("2", True)])
 def test_reference_kernel_modes(monkeypatch, mode, raises):
+    """"1" is measured live after the stage's sampler (so the recorded
+    file is not read), "0" is off, anything else is refused."""
     monkeypatch.setenv("BENCH_REALDATA_REFKERNEL", mode)
     if raises:
-        with pytest.raises(NotImplementedError, match="live f64"):
+        with pytest.raises(ValueError, match="BENCH_REALDATA_REFKERNEL"):
             bench.reference_kernel()
     else:
         assert bench.reference_kernel() is None
+
+
+def jax_reference_assignments():
+    """The JAX bench's ``ref.<name> = <expr>`` assignments of its live
+    reference run and its stored samples (``rS = <n>``), as AST nodes."""
+    with open(os.path.join(REPO, "gravinv3dhmc_tpu", "bench.py")) as f:
+        tree = ast.parse(f.read())
+    stage = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name == "realdata_stage")
+    refs, samples = {}, None
+    for n in ast.walk(stage):
+        if not isinstance(n, ast.Assign):
+            continue
+        t = n.targets[0]
+        if (isinstance(t, ast.Attribute) and isinstance(t.value, ast.Name)
+                and t.value.id == "ref"):
+            refs[t.attr] = n.value
+        elif isinstance(t, ast.Name) and t.id == "rS":
+            samples = ast.literal_eval(n.value)
+    return refs, samples
+
+
+def test_reference_settings_equal_the_jax_benchs():
+    """Every literal setting of the JAX bench's live reference run is the
+    port's (:data:`bench.REFKERNEL_SETTINGS`), its dtype is float64, and
+    what it takes from the stage's sampler (``chain.<name>``) is what
+    :func:`bench.reference_kernel_live` copies."""
+    refs, samples = jax_reference_assignments()
+    assert samples == bench.REFKERNEL_SAMPLES == 128
+    from_chain = set()
+    for name, node in refs.items():
+        if isinstance(node, ast.Attribute) and getattr(
+                node.value, "id", None) == "chain":
+            from_chain.add(name)
+            assert node.attr == name
+        elif isinstance(node, ast.Attribute):   # jnp.float64
+            assert name == "dtype" and node.attr == "float64"
+            assert bench.REFKERNEL_SETTINGS[name] is torch.float64
+        else:
+            assert bench.REFKERNEL_SETTINGS[name] == ast.literal_eval(node), \
+                name
+    assert from_chain == {"verbose", "low", "high", "initial_model",
+                          "aprior_model", "dobs"}
+    assert set(refs) - from_chain == set(bench.REFKERNEL_SETTINGS)
+
+
+def _f64_draws(seed, chunk_size, C, M, Lmin, Lmax):
+    """The JAX sampler's own draws at float64 (shared L): for each
+    iteration ``kL, kp, ku = split(key, 3)`` of ``split(fold_in(base_key,
+    chunk), chunk_size)`` (``gravinv3dhmc_tpu/inversion/hmc.py``)."""
+    from jax import random
+    import jax.numpy as jnp
+
+    base_key = random.fold_in(random.PRNGKey(seed), 0)
+    cache = {}
+
+    def draws(chunk_idx, i):
+        if chunk_idx not in cache:
+            rows = []
+            for k in random.split(random.fold_in(base_key, chunk_idx),
+                                  chunk_size):
+                kL, kp, ku = random.split(k, 3)
+                rows.append((int(random.randint(kL, (), Lmin, Lmax + 1)),
+                             np.asarray(random.normal(kp, (C, M),
+                                                      jnp.float64)),
+                             np.asarray(random.uniform(ku, (C,),
+                                                       jnp.float64))))
+            cache[chunk_idx] = rows
+        return cache[chunk_idx][i]
+
+    return draws
+
+
+def test_reference_kernel_live_matches_jax():
+    """The live f64 reference run on a small spherical problem (the
+    realdata stand-in at 2 degrees) equals the JAX bench's, set by its own
+    ``ref.<name> = ...`` lines, with the JAX draws injected: identical
+    accept flags, samples within 1e-10 of max|sample| (float64 sums in
+    other orders), the same ESS per sample within 1e-8."""
+    from gravinv3dhmc_tpu.inversion import hmc as jhmc
+    from gravinv3dhmc_tpu.inversion.potential import GravMagModule as JModule
+    import jax.numpy as jnp
+
+    from test_torch_realdata import _args
+
+    nsamples = 64
+    args, kw = _args(step=2.0)
+    tmod = realdata.GravMagModule(*args, **kw, device="cpu")
+    jmod = JModule(*args, **kw)
+    chain = realdata.slice_sampler(tmod, args[0], "cpu")
+    got = bench.reference_kernel_live(
+        tmod, chain, torch.device("cpu"), nsamples=nsamples,
+        draws=_f64_draws(100, 32, 64, tmod.n_active, 5, 40))
+    assert got["source"] == "measured live (f64)"
+    assert got["dtype"] == {"x": "float64", "U": "float64"}
+    assert got["fused_mode"] == "off"
+    assert got["problem"] == [36, tmod.n_active]
+    assert got["published_problem"] == [625, 10427]
+
+    refs, _ = jax_reference_assignments()
+    ref = jhmc.HamiltonianMC(jmod)
+    for name, node in refs.items():
+        value = eval(compile(ast.Expression(node), "bench.py", "eval"),
+                     {"jnp": jnp, "chain": chain})
+        setattr(ref, name, value)
+    ref.transfer_samples = True       # the samples to the host here
+    want = ref.sample(nsamples, 0)
+    assert got["accept_ratio"] == round(want["accept_ratio"], 4)
+
+    # the run again to read its samples (the function returns scalars)
+    tref = bench.HamiltonianMC(tmod)
+    for name, value in bench.REFKERNEL_SETTINGS.items():
+        setattr(tref, name, value)
+    tref.device = "cpu"
+    for name in ("low", "high", "initial_model", "aprior_model", "dobs"):
+        setattr(tref, name, getattr(chain, name))
+    res = tref.sample(nsamples, 0, draws=_f64_draws(
+        100, 32, 64, tmod.n_active, 5, 40))
+    assert res["accepted"] == [int(v) for v in want["accepted"]]
+    assert res["samples"].dtype == torch.float64
+    w = np.asarray(want["samples"])
+    np.testing.assert_allclose(res["samples"].numpy(), w, rtol=0,
+                               atol=1e-10 * np.abs(w).max())
+    ess_j = want["ess_per_s_median"] * want["elapsed_s"]
+    assert got["ess_per_sample"] == pytest.approx(ess_j / (64 * nsamples),
+                                                  rel=1e-8)
 
 
 def test_main_without_a_card_exits_nonzero():

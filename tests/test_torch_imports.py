@@ -52,6 +52,14 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.runtime.sink_py\n"
             "import gravinv3dhmc_tpu_torch.inversion.joint\n"
             "import gravinv3dhmc_tpu_torch.global_tess\n"
+            "import gravinv3dhmc_tpu_torch.workloads\n"
+            "import gravinv3dhmc_tpu_torch.run\n"
+            "import gravinv3dhmc_tpu_torch.profiling\n"
+            "import gravinv3dhmc_tpu_torch.vis\n"
+            "import gravinv3dhmc_tpu_torch.vis.geodata\n"
+            "import gravinv3dhmc_tpu_torch.compat\n"
+            "import gravinv3dhmc_tpu_torch.compat.gravmag.tesseroidforward\n"
+            "from gravinv3dhmc_tpu_torch.compat.mesher import PrismMesh\n"
             "from gravinv3dhmc_tpu_torch.mesher import PrismRelief\n"
             "from gravinv3dhmc_tpu_torch.inversion.hmc import HMCSample\n"
             "from gravinv3dhmc_tpu_torch.diagnostics import load_chains\n"
@@ -60,6 +68,27 @@ def test_port_imports_no_jax():
             "or m == 'gravinv3dhmc_tpu']\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_vis_and_compat_import_without_matplotlib():
+    """The card's machine has no matplotlib: ``vis`` and ``compat`` import
+    without it (and without contourpy), as the JAX package's do; it is
+    needed only when a plot is drawn."""
+    code = ("import sys\n"
+            "for m in ('matplotlib', 'contourpy', 'mpl_toolkits'):\n"
+            "    sys.modules[m] = None\n"
+            "import gravinv3dhmc_tpu_torch.vis\n"
+            "import gravinv3dhmc_tpu_torch.compat\n"
+            "from gravinv3dhmc_tpu_torch.compat.vis import mpl, myv\n"
+            "try:\n"
+            "    mpl.contour([0], [0], [0], (1, 1), 1)\n"
+            "except ImportError:\n"
+            "    sys.exit(0)\n"
+            "sys.exit(1)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

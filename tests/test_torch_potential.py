@@ -100,3 +100,79 @@ def test_unported_potentials_raise(small_module, kwargs):
     with pytest.raises(NotImplementedError, match="spherical gravity"):
         GravMagModule(small_module[1], BOUNDS, SPACING, obs, verbose=False,
                       device="cpu", kernel_device=True)
+
+
+def _wavelet_modules(small_module, wavelet):
+    jmod, dobs, _ = small_module
+    obs = (jmod.lonobs, jmod.latobs, jmod.heightobs)
+    return (JModule(dobs, BOUNDS, SPACING, obs, verbose=False,
+                    wavelet=wavelet),
+            GravMagModule(dobs, BOUNDS, SPACING, obs, verbose=False,
+                          wavelet=wavelet, device="cpu"))
+
+
+def _reference_point(jm, constraint, log_factor):
+    """The box, a priori model and a point inside the box in the sampler's
+    variable (mw, or the logistic x)."""
+    w = np.asarray(jm.wdiag)
+    low, high, apr = w * 0.0, w * 1.0, w * 0.001
+    mw = np.random.RandomState(3).uniform(0.1, 0.6, jm.n_active) * w
+    if constraint == "logarithmic":
+        x = (1.0 / log_factor) * np.log((mw - low) / (high - mw))
+    else:
+        x = mw
+    return x, apr, low, high
+
+
+@pytest.mark.parametrize("wavelet", [False, "1D", "3D"])
+@pytest.mark.parametrize("reg", ["MS", "Damping", "Smoothness"])
+@pytest.mark.parametrize("constraint", ["mandatory", "logarithmic"])
+def test_misfit_and_grad_and_data_match_jax(small_module, constraint, reg,
+                                            wavelet):
+    """The reference-compatible duck-typed API: ``misfit_and_grad``
+    (float32 potential: U, the data and model terms and dpre to rtol
+    1e-5, the gradient to 1e-5 of max|g|) and ``data`` (float64: rtol
+    1e-10) equal the JAX module's, with the dense kernel and both
+    wavelet kernels; numpy arrays and floats come back."""
+    if wavelet:
+        jm, tm = _wavelet_modules(small_module, wavelet)
+    else:
+        jm, tm = _modules(small_module, False)
+    log_factor = 100.0
+    x, apr, low, high = _reference_point(jm, constraint, log_factor)
+    args = (x, apr, low, high, constraint, log_factor, 0.7)
+    got = tm.misfit_and_grad(*args, regulization=reg, beta=0.001)
+    want = jm.misfit_and_grad(*args, regulization=reg, beta=0.001)
+    assert isinstance(got[0], float) and isinstance(got[1], np.ndarray)
+    for i in (0, 3, 4):
+        assert got[i] == pytest.approx(want[i], rel=1e-5), i
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5,
+                               atol=1e-5 * np.abs(want[2]).max())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5,
+                               atol=1e-5 * np.abs(want[1]).max())
+    d_t = tm.data(x, low, high, constraint, log_factor)
+    d_j = jm.data(x, low, high, constraint, log_factor)
+    assert isinstance(d_t, float)
+    assert d_t == pytest.approx(d_j, rel=1e-10)
+
+
+def test_misfit_and_grad_caches_one_potential_a_key(small_module):
+    """As in the JAX module, the potential is made once a (regularization,
+    constraint, beta, log_factor): a later call with another a priori
+    model and the same key reuses the first call's; another beta makes a
+    new one. An unknown constraint is refused by ``data``."""
+    jm, tm = _modules(small_module, False)
+    x, apr, low, high = _reference_point(jm, "mandatory", 1000.0)
+    first = tm.misfit_and_grad(x, apr, low, high, "mandatory", 1000.0, 1.0)
+    again = tm.misfit_and_grad(x, 2 * apr, low, high, "mandatory", 1000.0,
+                               1.0)
+    assert again[0] == first[0] and len(tm._potential_cache) == 1
+    want = jm.misfit_and_grad(x, apr, low, high, "mandatory", 1000.0, 1.0)
+    jm.misfit_and_grad(x, 2 * apr, low, high, "mandatory", 1000.0, 1.0)
+    assert len(jm._potential_cache) == 1
+    assert first[0] == pytest.approx(want[0], rel=1e-5)
+    tm.misfit_and_grad(x, apr, low, high, "mandatory", 1000.0, 1.0,
+                       beta=0.5)
+    assert len(tm._potential_cache) == 2
+    with pytest.raises(ValueError, match="constraint"):
+        tm.data(x, low, high, "reflective", 1000.0)
