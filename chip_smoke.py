@@ -303,6 +303,36 @@ Phases, one line each (the script stops at the first failure, non-zero):
              the Chrome trace must name every iteration kernel
              (:data:`TRACE_KERNELS`) and ``profiling.memory_report()``
              report ``cuda:0`` with a non-zero peak.
+23. multichip — the multi-device sampler (``parallel/``). ``draws`` at a
+             shard's offsets: a 512 x 3,000 block at (c0, j0) = (512,
+             750) equals the same block of one 1024 x 6,016 launch bit for
+             bit, its uniforms the plain version's at those offsets bit
+             for bit and its normals within ``KERNEL_RTOL``; at the blocks
+             the ranks launch (1024 and 512 x 3,000 at element offset
+             3,000) against its plain version and timed beside its bound
+             and ``torch.randn`` + ``torch.rand`` (``multichip_kernel``
+             lines). Then groups
+             of ranks started by ``python -m torch.distributed.run
+             --standalone`` (``gravinv3dhmc_tpu_torch.multichip_check``),
+             all at once, while this process runs their unsharded
+             counterparts on the card: ``run.py uniformgrid --multichip``
+             at world size 1 over NCCL (the flagship, 1024 chains) equals
+             the same command without ``--multichip`` bit for bit (every
+             number of the line but the timings, and every chain's accept
+             count); over gloo with 2 ranks (1, 2) and 4 ranks (2, 2), all
+             on ``cuda:0``, the float64 runs of
+             ``multichip_check.RUNS`` at full width (1024 x 6,000; a
+             fixed-dt run, the windowed warmup, and at (1, 2) Smoothness
+             through the z-halo branch) take the unsharded runs' accept
+             counts and end within :data:`MULTICHIP_RTOL` of their state,
+             step size and inverse mass; the float32 command line under
+             (2, 2) lands within :data:`MULTICHIP_F32` of the unsharded
+             line (accept ratio, RMSD, RMSM), with the number of chains
+             whose accept count differs printed. Ranks that share one card
+             go through gloo, which stages every collective through the
+             host: these are checks of numbers, not of speed. The ranks'
+             ``draws`` launches (summed over each group) and this
+             process's go into the kernels line.
 
 Before phase 13 its 576 x 10,676 realdata problem is built with a
 kernel cache and again from the cache (``state`` line ``kernel_cache``):
@@ -324,7 +354,9 @@ phase 13 (their products are ``torch.matmul``, so none), the realdata
 ChEES's in phase 14, the magnetic stage's in phase 15, the wavelet
 runs' in phase 16, the magnetic demo's ChEES's in phase 17, the joint
 HMC's in phase 19, the whole-Earth HMC's in phase 20, the command line's
-subcommands' in phase 21 and the profiled chunks' in phase 22 (the live
+subcommands' in phase 21, the profiled chunks' in phase 22 and the
+multi-device runs' (their ranks' and their unsharded counterparts') in
+phase 23 (the live
 reference run's ``draws`` are in phase 11's): these
 runs' counts make the
 ``launches`` of the kernels line. ``draws``
@@ -3035,6 +3067,222 @@ def phase_profiling(torch, tlf, dev, smi):
     return counts
 
 
+#: the multichip phase's command line (``run.py uniformgrid`` at the
+#: flagship's full width, depth cut) and its groups: name -> (ranks,
+#: ``multichip_check`` arguments); the gloo groups share ``cuda:0``
+MULTICHIP_CLI = ["uniformgrid", "--nchains", "1024", "--nsamples", "16",
+                 "--chunk-size", "16", "--quiet"]
+_GLOO = ["--device", "cuda:0", "--backend", "gloo"]
+MULTICHIP_GROUPS = {
+    "nccl1": (1, ["cli", "--", *MULTICHIP_CLI, "--multichip"]),
+    "gloo2": (2, ["runs", *_GLOO, "--runs", "fixed,adapt,smooth"]),
+    "gloo4": (4, ["runs", *_GLOO, "--runs", "fixed,adapt"]),
+    "gloo4_cli": (4, ["cli", *_GLOO, "--", *MULTICHIP_CLI, "--multichip",
+                      "--device", "cuda:0", "--dist-backend", "gloo"]),
+}
+#: float64 sharded runs against the unsharded: the state's largest
+#: difference over its largest value, and the step size's and inverse
+#: mass's relative gaps (partial sums over the model shards round apart
+#: by about 1e-16)
+MULTICHIP_RTOL = 1e-9
+#: the float32 command line under (2, 2) against the unsharded one: the
+#: accept ratio's gap and RMSD's and RMSM's relative gaps (the partial
+#: sums round apart by about 1e-7, so an accept near log u can flip)
+MULTICHIP_F32 = {"accept_ratio": 0.005, "RMSD": 0.01, "RMSM": 0.01}
+#: the seconds the groups get, started together
+MULTICHIP_TIMEOUT_S = 240
+#: the line's numbers that are timings (not held bit for bit)
+_TIMINGS = ("total_s", "sampling_s", "grad_evals_per_s", "ess_per_s_median")
+
+
+def start_group(name, ranks, args, workdir):
+    """``torchrun --standalone`` of ``multichip_check`` with ``args``
+    (``runs`` writes its states to ``workdir/name`` and reads the
+    flagship's matrix from ``workdir/kernel.npy``), in a session of its
+    own so that the group can be ended with its ranks. Returns the Popen
+    and its output directory."""
+    out = os.path.join(workdir, name)
+    os.makedirs(out)
+    if args[0] == "runs":
+        args = [*args, "--out", out, "--kernel-cache",
+                os.path.join(workdir, "kernel.npy")]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    stdout = open(os.path.join(out, "stdout.txt"), "w")
+    log = open(os.path.join(out, "log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(ranks), "-m",
+         "gravinv3dhmc_tpu_torch.multichip_check", *args],
+        stdout=stdout, stderr=log, env=env, start_new_session=True)
+    return proc, out
+
+
+def end_groups(procs):
+    """Stop every group still running (its whole session)."""
+    import signal
+
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
+def group_lines(name, proc, out):
+    """Rank 0's ``multichip_check`` lines of a finished group; a group
+    that failed fails the phase with its log's tail."""
+    with open(os.path.join(out, "stdout.txt")) as f:
+        lines = [json.loads(ln) for ln in f
+                 if ln.startswith('{"multichip_check"')]
+    if proc.returncode != 0 or not lines:
+        with open(os.path.join(out, "log.txt")) as f:
+            tail = f.read()[-4000:]
+        fail(f"multichip {name}: rc {proc.returncode}, {len(lines)} lines:"
+             f"\n{tail}")
+    return {ln["multichip_check"]: ln for ln in lines}
+
+
+def phase_multichip(torch, tlf, philox, dev, smi):
+    """Phase 23 (see the module docstring). Returns the ``draws`` launches
+    of the groups' ranks and of this process's unsharded runs."""
+    import tempfile
+
+    from gravinv3dhmc_tpu_torch import multichip_check as mc
+
+    t_phase = time.perf_counter()
+    # draws at a shard's offsets: the block of one full launch
+    salt = philox.salt_from_seed(15)
+    draws = tlf.KERNELS["draws"]
+    full_n = torch.empty((1024, 6016), device=dev)
+    full_u = torch.empty(1024, device=dev)
+    draws(full_n, full_u, salt, 7)
+    n_k, u_k = torch.empty((512, 3000), device=dev), torch.empty(512,
+                                                                  device=dev)
+    n_p, u_p = torch.empty_like(n_k), torch.empty_like(u_k)
+    draws(n_k, u_k, salt, 7, 512, 750)
+    draws.plain(n_p, u_p, salt, 7, 512, 750)
+    sync(torch)
+    block = {"normals_bit_equal": torch.equal(n_k,
+                                              full_n[512:, 3000:6000]),
+             "uniforms_bit_equal": torch.equal(u_k, full_u[512:]),
+             "uniforms_plain_bit_equal": torch.equal(u_k, u_p)}
+    block_err = rel_err(n_k, n_p)[1]
+    line("multichip", check="draws_offsets", shape=[512, 3000],
+         offsets=[512, 750], normals_rel_err=block_err, **block)
+    if not all(block.values()) or block_err > KERNEL_RTOL:
+        fail(f"multichip: draws at offsets {block}, rel err {block_err}")
+    # against the plain version and timed at the blocks the ranks launch:
+    # (1, 2)'s second rank and (2, 2)'s last
+    for C, c0 in ((1024, 0), (512, 512)):
+        def make(C=C, c0=c0):
+            return (torch.empty((C, 3000), device=dev),
+                    torch.empty(C, device=dev), salt, 7, c0, 750)
+        run_kernel_cases(torch, tlf, {"draws": (
+            make, lambda a: {"n01": a[0], "u": a[1]})}, [C, 3000],
+            "multichip_kernel")
+
+    workdir = tempfile.mkdtemp(prefix="multichip_")
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        # the flagship's matrix built once, for this process and the
+        # ranks of the ``runs`` groups (each would build it twice)
+        module, dobs = mc.problem(dev, os.path.join(workdir, "kernel.npy"))
+        for name, (ranks, args) in MULTICHIP_GROUPS.items():
+            procs[name] = start_group(name, ranks, args, workdir)
+        # the unsharded counterparts, on the card meanwhile
+        counts = {name: 0 for name in tlf.KERNELS}
+        ref = {}
+        for run in mc.RUNS:
+            tlf.reset_launch_counts()
+            t1 = time.perf_counter()
+            res = mc.sample(module, dobs, run, dev)
+            sync(torch)
+            ref[run] = (mc.summary(res, time.perf_counter() - t1),
+                        res["x"].cpu().numpy())
+            counts["draws"] += tlf.KERNELS["draws"].launches
+        del module
+        # the command line unsharded (float32, run.py's default)
+        line_ref, acc_ref, n_ref = mc.run_cli(MULTICHIP_CLI)
+        counts["draws"] += n_ref
+        ref_seconds = time.perf_counter() - t0
+        deadline = t0 + MULTICHIP_TIMEOUT_S
+        for name, (proc, out) in procs.items():
+            try:
+                proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                with open(os.path.join(out, "stdout.txt")) as f:
+                    done = f.read()[-3000:]
+                fail(f"multichip {name}: no end within "
+                     f"{MULTICHIP_TIMEOUT_S} s; its lines:\n{done}")
+        group_seconds = time.perf_counter() - t0
+        got = {name: group_lines(name, *procs[name]) for name in procs}
+    finally:
+        end_groups(procs)
+
+    # NCCL at world size 1: the unsharded command's line bit for bit
+    nccl = got["nccl1"]["cli"]
+    same = {k: nccl["line"][k] == v for k, v in line_ref.items()
+            if k not in _TIMINGS}
+    checks = {"nccl1 line bit for bit": all(same.values()),
+              "nccl1 accept counts": nccl["accepted"] == acc_ref}
+    line("multichip", check="nccl_world_1", card=smi, argv=MULTICHIP_CLI,
+         differing=[k for k, ok in same.items() if not ok],
+         draws_launches=nccl["draws_launches"], line_sharded=nccl["line"],
+         line_unsharded=line_ref)
+    counts["draws"] += nccl["draws_launches"]
+    # gloo at 2 and 4 ranks on one card: the float64 runs
+    for name in ("gloo2", "gloo4"):
+        for run, got_run in got[name].items():
+            want, x_ref = ref[run]
+            x = np.load(os.path.join(procs[name][1], f"{run}_x.npy"))
+            x_err = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+            differ = int(sum(a != b for a, b in zip(got_run["accepted"],
+                                                    want["accepted"])))
+            gaps = {k: abs(got_run[k] - want[k]) / abs(want[k])
+                    for k in ("step_size", "inv_mass_sum", "inv_mass_min")
+                    if want[k] is not None}
+            line("multichip", check=f"{name}_{run}", card=smi,
+                 mesh=got_run["mesh"], backend=got_run["backend"],
+                 chains_differing=differ, x_rel_err=x_err, gaps=gaps,
+                 seconds=got_run["seconds"],
+                 unsharded_seconds=want["seconds"],
+                 draws_launches=got_run["draws_launches"],
+                 accept_ratio=sum(got_run["accepted"]) / max(
+                     got_run["attempted"], 1))
+            checks[f"{name} {run} accepts"] = differ == 0
+            checks[f"{name} {run} state"] = x_err < MULTICHIP_RTOL
+            checks[f"{name} {run} kernel"] = all(
+                g < MULTICHIP_RTOL for g in gaps.values())
+            checks[f"{name} {run} draws"] = got_run["draws_launches"] > 0
+            counts["draws"] += got_run["draws_launches"]
+    # the float32 command line under (2, 2)
+    cli = got["gloo4_cli"]["cli"]
+    differ = int(sum(a != b for a, b in zip(cli["accepted"], acc_ref)))
+    gaps = {"accept_ratio": abs(cli["line"]["accept_ratio"]
+                                - line_ref["accept_ratio"]),
+            **{k: abs(cli["line"][k] - line_ref[k]) / abs(line_ref[k])
+               for k in ("RMSD", "RMSM")}}
+    line("multichip", check="gloo4_cli_f32", card=smi,
+         chains_differing=differ, gaps=gaps, line_sharded=cli["line"],
+         draws_launches=cli["draws_launches"])
+    counts["draws"] += cli["draws_launches"]
+    for k, bound in MULTICHIP_F32.items():
+        checks[f"gloo4 cli {k}"] = gaps[k] <= bound
+    checks["gloo4 cli keys"] = set(cli["line"]) == set(line_ref)
+    seconds = time.perf_counter() - t_phase
+    line("multichip", check="phase", seconds=seconds,
+         groups_seconds=group_seconds, unsharded_seconds=ref_seconds,
+         card=smi, draws_launches=counts["draws"])
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"multichip: {bad}")
+    return counts
+
+
 def main():
     import torch
 
@@ -3181,6 +3429,7 @@ def main():
     for M_run, C_run in run_shapes:
         phase_samplers_kernel(torch, tlf, dev, M_run, (C_run,))
     counts_prof = phase_profiling(torch, tlf, dev, smi)
+    counts_multi = phase_multichip(torch, tlf, philox, dev, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3193,13 +3442,14 @@ def main():
     # samplers, the realdata ChEES (the deterministic stages launch none),
     # the magnetic uniformgrid stage, the wavelet stages, the magnetic
     # demo's ChEES, the joint HMC, the whole-Earth HMC, the command line's
-    # subcommands and the profiled uniformgrid chunks (the bench's count
-    # holds the live f64 reference run's draws)
+    # subcommands, the profiled uniformgrid chunks and the multi-device
+    # runs with their unsharded counterparts (the bench's count holds the
+    # live f64 reference run's draws)
     runs = (counts, counts_f32, counts3, counts_state, counts_rd,
             *counts_rd_real, counts_gz, counts2, counts2_f32, counts_bench,
             counts_samplers, counts_rd_chees, counts_mag, counts_wav,
             counts_mag_demo, counts_joint, counts_global, counts_run,
-            counts_prof)
+            counts_prof, counts_multi)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

@@ -30,7 +30,9 @@ that resume a run exactly (``checkpoint.py``) and the kernel disk cache.
 built on the card (``ops/tesseroid.tesseroid_kernel_device``). The user's
 front door is ``python -m gravinv3dhmc_tpu_torch.run <workload>``, the
 port of ``examples/run.py`` over ``workloads.py``; ``compat/``, ``vis/``
-and ``profiling.py`` complete the JAX package's surface.
+and ``profiling.py`` complete the JAX package's surface, and
+``parallel/`` runs the HMC sampler SPMD over a (chains, model) mesh of
+``torch.distributed`` ranks (``run.py --multichip``).
 """
 
 __version__ = "0.1.0"

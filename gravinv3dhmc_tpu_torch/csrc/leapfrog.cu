@@ -40,7 +40,9 @@
 //   step_misfit  one block per chain: um and U = ud + alpha um      (_step)
 //   draws        elementwise: the momentum normals and accept uniforms
 //                that refresh and accept draw, as inputs for the eager
-//                shared-L sampler                   (_iter's on-chip PRNG)
+//                sampler; at a shard's offsets (first chain c0, first
+//                element group j0) the block of the whole batch's draws
+//                                                   (_iter's on-chip PRNG)
 // The per-step op reuses drift and kick as they are; the kick epilogue
 // already applies p -= s_data gdata + s_mod gm, the full kick of _step.
 //
@@ -1155,25 +1157,29 @@ accept_kernel(float* __restrict__ x, float* __restrict__ g,
 // A 2-D grid, chain by column tile, so a thread finds its chain and
 // element group without a division; DRAWS_UNROLL independent float4
 // groups a thread in flight, stored with streaming stores (the draws are
-// read once, by the sampler).
+// read once, by the sampler). A rank of a (chains, model) mesh draws its
+// block of the whole batch's draws: row c of n01 is chain c0 + c, group j
+// is element group j0 + j (elements 4 (j0 + j) .. 4 (j0 + j) + 3), so its
+// cells start at a multiple of 4; the uniform depends on c0 only, and
+// every rank of one chain group draws the same u.
 __global__ void __launch_bounds__(DRAWS_THREADS)
 draws_kernel(float* __restrict__ n01, float* __restrict__ u, int groups,
-             uint32_t k0, uint32_t k1, uint32_t iteration) {
+             int c0, int j0, uint32_t k0, uint32_t k1, uint32_t iteration) {
   const int c = blockIdx.y;
-  const int j0 = blockIdx.x * (DRAWS_THREADS * DRAWS_UNROLL) + threadIdx.x;
+  const int jt = blockIdx.x * (DRAWS_THREADS * DRAWS_UNROLL) + threadIdx.x;
   float4* row = reinterpret_cast<float4*>(n01) + (size_t)c * groups;
   float4 v[DRAWS_UNROLL];
 #pragma unroll
   for (int q = 0; q < DRAWS_UNROLL; ++q) {
-    const int j = j0 + q * DRAWS_THREADS;
-    if (j < groups) v[q] = momentum4(j, c, iteration, k0, k1);
+    const int j = jt + q * DRAWS_THREADS;
+    if (j < groups) v[q] = momentum4(j0 + j, c0 + c, iteration, k0, k1);
   }
 #pragma unroll
   for (int q = 0; q < DRAWS_UNROLL; ++q) {
-    const int j = j0 + q * DRAWS_THREADS;
+    const int j = jt + q * DRAWS_THREADS;
     if (j < groups) __stcs(row + j, v[q]);
   }
-  if (j0 == 0) u[c] = accept_uniform(c, iteration, k0, k1);
+  if (jt == 0) u[c] = accept_uniform(c0 + c, iteration, k0, k1);
 }
 
 // raw Philox words of the momentum stream (for checking the plain version)
@@ -1494,14 +1500,16 @@ int lf_accept(float* x, float* g, float* U, float* ud, float* um,
   return (int)cudaGetLastError();
 }
 
-int lf_draws(float* n01, float* u, int C, int width, uint32_t k0,
-             uint32_t k1, uint32_t iteration, cudaStream_t stream) {
-  if (width % 4 || C > 65535) return (int)cudaErrorInvalidValue;
+int lf_draws(float* n01, float* u, int C, int width, int c0, int j0,
+             uint32_t k0, uint32_t k1, uint32_t iteration,
+             cudaStream_t stream) {
+  if (width % 4 || C > 65535 || c0 < 0 || j0 < 0)
+    return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const int groups = width / 4, tile = DRAWS_THREADS * DRAWS_UNROLL;
   const dim3 grid(groups ? (groups + tile - 1) / tile : 1, C);
-  draws_kernel<<<grid, DRAWS_THREADS, 0, stream>>>(n01, u, groups, k0, k1,
-                                                   iteration);
+  draws_kernel<<<grid, DRAWS_THREADS, 0, stream>>>(n01, u, groups, c0, j0,
+                                                   k0, k1, iteration);
   return (int)cudaGetLastError();
 }
 

@@ -46,8 +46,15 @@ layout (``checkpoint.py``) and resumes from it bit for bit. One
 deliberate difference: a snapshot taken under warmup adaptation also
 stores the frozen kernel (step size, flag, inverse mass), which the JAX
 package's lacks, so that its resumed run keeps the frozen kernel (see
-:meth:`HamiltonianMC.sample`). SPMD meshes are not ported yet: setting
-``spmd_mesh`` raises ``NotImplementedError``.
+:meth:`HamiltonianMC.sample`).
+
+Multi-device runs: ``HamiltonianMC.spmd_mesh`` (a (chains, model) mesh of
+``torch.distributed`` ranks, :func:`..parallel.sharded.make_mesh`) runs
+the eager sampler SPMD, each rank on its block of the chains and cells
+(:mod:`..parallel.sharded`), with the JAX package's restrictions (the
+'mandatory' constraint, no Jacobian, temperature 1, a materialised
+``Aw``, no fused kernels). Its draws are the unsharded run's: L is drawn
+for the whole batch and cut, and ``draws`` runs at the block's offsets.
 """
 from __future__ import annotations
 
@@ -70,11 +77,6 @@ from .nuts import (dual_averaging_init, dual_averaging_update, shrink,
 from .potential import CONSTRAINTS, logistic_to_mw, mw_to_logistic
 
 
-def _unported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, {item})")
-
-
 def _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax, C=None):
     """The chunk's trajectory lengths from a CPU generator keyed by
     (seed, chunk): one an iteration, or ``C`` (one a chain) with ``C``."""
@@ -91,7 +93,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                        fused_trajectory=None, fused_iteration=None,
                        store_mode="accepted",
                        store_thin=1, draws=None, device=None,
-                       log_factor=1000.0):
+                       log_factor=1000.0, mesh=None, global_shape=None):
     """Build ``run_chunk(carry, seed, chunk_idx, params=None, dt=...,
     inv_mass=None, store_base=0) -> (carry, stats)``.
 
@@ -114,6 +116,18 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
     the 'reflective' folds (four, then a clip) and the 'logarithmic'
     transform (no bound in x; ``log_factor`` k). ``device`` is ``cuda:0``
     when None.
+
+    ``mesh`` (a :class:`..parallel.sharded.Mesh`, with ``global_shape =
+    (C, M)`` the whole batch's) runs this rank's block of the batch on the
+    eager path (:func:`..parallel.sharded.make_sharded_chunk_sampler`
+    builds it): ``potential_fn`` is the sharded potential, ``low``,
+    ``high`` and ``wdiag_inv`` are this rank's cells; the kinetic energies
+    are summed over the ``model`` group before the Metropolis test, the
+    stats rows divide by the global M, one L a chain is drawn for the
+    whole batch and cut to the rank's chains, ``draws`` runs at the
+    block's offsets, an injected draw source gives global draws cut to the
+    block, and after each chunk one ``all_reduce`` checks that the ranks of
+    a chain group counted the same accepts.
     """
     if store_mode not in ("accepted", "chain", "none"):
         raise ValueError(f"unknown store_mode {store_mode!r}")
@@ -126,6 +140,13 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                          "boundary constraint only")
     per_chain = not shared_L and all(f is None for f in fused)
     device = resolve(device)
+    if mesh is not None:
+        if any(f is not None for f in fused):
+            raise ValueError("a mesh runs the eager path only: the fused "
+                             "kernels would gather the sharded matrix")
+        C_glob, M_glob = (int(v) for v in global_shape)
+        c0, c1 = mesh.chain_range(C_glob)
+        m0, m1 = mesh.col_range(M_glob)
     dt_default = float(dt)
 
     def rounded(v):
@@ -159,7 +180,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         return x, p
 
     def make_rows(x, U, u_data, u_model):
-        model_size = x.shape[-1]
+        model_size = x.shape[-1] if mesh is None else M_glob
         if constraint == "logarithmic":
             x = logistic_to_mw(x, low_t, high_t, log_factor)
         m_rows = x * wdiag_inv  # unweighted model, reference units
@@ -252,11 +273,16 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         C, M = x.shape
         if n01 is None or u is None:
             # the Philox normals at the lane-padded width (the words
-            # ``refresh`` draws for this state) and uniforms, one launch
-            n01_d = torch.empty((C, -(-M // LANE) * LANE),
-                                dtype=torch.float32, device=x.device)
+            # ``refresh`` draws for this state) and uniforms, one launch;
+            # a mesh's rank draws its block at its offsets (its first cell
+            # is a multiple of 4, each counter's four normals)
+            width, offsets = -(-M // LANE) * LANE, ()
+            if mesh is not None:
+                width, offsets = -(-M // 4) * 4, (c0, m0 // 4)
+            n01_d = torch.empty((C, width), dtype=torch.float32,
+                                device=x.device)
             u_d = torch.empty(C, dtype=torch.float32, device=x.device)
-            KERNELS["draws"](n01_d, u_d, salt, git)
+            KERNELS["draws"](n01_d, u_d, salt, git, *offsets)
             n01 = n01_d[:, :M] if n01 is None else n01
             u = u_d if u is None else u
         n01 = torch.as_tensor(n01, dtype=dtype, device=x.device)
@@ -268,7 +294,6 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         else:
             p0 = n01 / torch.sqrt(inv_mass)
             K0 = 0.5 * (inv_mass * p0 * p0).sum(-1)
-        H0 = K0 + U
         xs, ps, U_new, g_new = x, p0 - (0.5 * dt) * g, U, g
         ud_new, um_new = u_data, u_model
         if torch.is_tensor(L):
@@ -302,6 +327,12 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
             K_new = 0.5 * (p_new * p_new).sum(-1)
         else:
             K_new = 0.5 * (inv_mass * p_new * p_new).sum(-1)
+        if mesh is not None:
+            # the kinetic energies are sums over cells: both partials in
+            # one collective, so every rank of a chain group tests the
+            # same Hamiltonians
+            K0, K_new = mesh.all_reduce(torch.stack([K0, K_new]), "model")
+        H0 = K0 + U
         H_new = K_new + U_new
         accept = (H_new < H0) | (u < torch.exp(-(H_new - H0)))
         acc_col = accept[:, None]
@@ -319,9 +350,16 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         if inv_mass is not None:
             inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=device)
         salt = philox.salt_from_seed(seed)
+        if inv_mass is not None and mesh is not None \
+                and inv_mass.shape[-1] == M_glob:
+            inv_mass = inv_mass[..., m0:m1]
         Ls = (None if draws is not None else
               _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax,
-                             carry[0].shape[0] if per_chain else None))
+                             (carry[0].shape[0] if mesh is None else C_glob)
+                             if per_chain else None))
+        if mesh is not None and per_chain and Ls is not None:
+            # the whole batch's lengths, cut to this rank's chains
+            Ls = [row[c0:c1] for row in Ls]
         M = carry[0].shape[1]
         op = fused_iteration or fused_trajectory or fused_step
         if op is not None:
@@ -334,6 +372,12 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         for i in range(chunk_size):
             if draws is not None:
                 L, n01, u = draws(chunk_idx, i)
+                if mesh is not None:
+                    # the whole batch's draws, cut to this rank's block
+                    n01 = np.asarray(n01)[c0:c1, m0:m1]
+                    u = np.asarray(u)[c0:c1]
+                    if per_chain:
+                        L = np.asarray(L)[c0:c1]
             else:
                 L, n01, u = Ls[i], None, None
             if n01 is not None:
@@ -349,9 +393,30 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
             stats.append(st)
         if op is not None:
             carry = (carry[0][:, :M], carry[1], carry[2][:, :M], *carry[3:])
+        if mesh is not None:
+            _check_lockstep(mesh, carry[5], chunk_idx)
         return carry, torch.stack(stats)
 
     return run_chunk
+
+
+def _check_lockstep(mesh, nacc, chunk_idx):
+    """``RuntimeError`` unless every rank of this rank's ``model`` group
+    holds the same accept counts: one ``all_reduce`` (max) of a checksum
+    and its negation. An accept decision that differs between the ranks
+    of a chain group desynchronises their collectives; this fails the run
+    at the chunk's end instead."""
+    w = torch.arange(1, nacc.shape[0] + 1, dtype=torch.float64,
+                     device=nacc.device)
+    s = (nacc.to(torch.float64) * w).sum()
+    both = mesh.all_reduce(torch.stack([s, -s]), "model", op="max")
+    hi, lo = both.tolist()
+    if hi != -lo:
+        raise RuntimeError(
+            f"chunk {chunk_idx}: the ranks of chain group "
+            f"{mesh.coords[0]} took different accept decisions (accept "
+            f"checksums {-lo} .. {hi}); a sum over cells missed its "
+            "all_reduce over 'model'")
 
 
 #: ``store_base`` during warmup: ``rel`` stays below ``ndraws``, so
@@ -417,7 +482,9 @@ class HamiltonianMC:
     on the device whatever ``transfer_samples`` says. ``write_files``
     (False by default, True in :func:`HMCSample`, as the JAX class's
     default) writes the stored rows to ``<save_folder><myrank + c>/``
-    after sampling.
+    after sampling. ``spmd_mesh`` (a :class:`..parallel.sharded.Mesh`)
+    runs :meth:`sample` SPMD over its ranks (see there); the chains live
+    on the mesh's device (or this rank's, or ``device``).
     """
 
     def __init__(self, model):
@@ -515,7 +582,7 @@ class HamiltonianMC:
         ``adapt_mass``). Timing or profiling single chunks starts here
         too."""
         if self.spmd_mesh is not None:
-            raise _unported("SPMD meshes", "item 13")
+            return self._prepare_sharded(nsamples, ndraws, draws)
         C = self.nchains
         M = self.initial_model.shape[-1]
         dtype = self.dtype
@@ -571,6 +638,53 @@ class HamiltonianMC:
             carry = carry + _zero_moments(C, M, dtype, device)
         return run_chunk, carry
 
+    def _prepare_sharded(self, nsamples, ndraws, draws):
+        """:meth:`prepare` under ``spmd_mesh``: the JAX package's routing
+        (its restrictions, the sharded potential from ``module.Aw`` and
+        this rank's slices, the eager sampler told the mesh) with this
+        rank's block of the carry."""
+        from ..parallel.sharded import (make_sharded_chunk_sampler,
+                                        make_sharded_potential, mesh_device)
+        if self.constraint != "mandatory":
+            raise ValueError("spmd_mesh supports the 'mandatory' "
+                             "boundary constraint only")
+        if self.jacobian or float(self.temperature) != 1.0:
+            raise ValueError("spmd_mesh does not support "
+                             "temperature/jacobian potentials yet")
+        mod = self.model
+        if getattr(mod, "Aw", None) is None:
+            raise ValueError("spmd_mesh needs a materialised kernel "
+                             "matrix (module.Aw)")
+        mesh = self.spmd_mesh
+        device = mesh_device(mesh, self.device)
+        C, M = self.nchains, self.initial_model.shape[-1]
+        self._fused_mode = "off"
+        potential_fn, _ = make_sharded_potential(
+            mesh, mod.Aw, self.dobs, self.aprior_model, self.low, self.high,
+            grav_fix=(np.asarray(mod.grav_fix)
+                      if getattr(mod, "fixed", False) else None),
+            regularization=self.regularization, beta=self.beta,
+            wm_sq=np.asarray(mod.wdiag) ** 2,
+            mshape=getattr(mod, "mshape", None),
+            active=getattr(getattr(mod, "mesh", None), "active", None),
+            dtype=self.dtype, device=device)
+        run_chunk, init_carry = make_sharded_chunk_sampler(
+            mesh, potential_fn, low=self.low, high=self.high, M=M,
+            nchains=C, nsamples=nsamples, ndraws=ndraws,
+            wdiag_inv=self.model.wdiag_inv, data_size=self.dobs.shape[0],
+            dt=self.dt, Lmin=self.Lrange[0], Lmax=self.Lrange[1],
+            Sigma=self.Sigma, constraint=self.constraint,
+            alpha=self.RegulFactor, chunk_size=self.chunk_size,
+            dtype=self.dtype, shared_L=self.shared_L,
+            welford=self.adapt_mass, store_mode=self.store_mode,
+            store_thin=self.store_thin, draws=draws, device=device)
+        if torch.is_tensor(self.initial_model):
+            x0 = self.initial_model.to(torch.float64).expand(C, M)
+        else:
+            x0 = np.broadcast_to(np.asarray(self.initial_model, np.float64),
+                                 (C, M))
+        return run_chunk, init_carry(x0)
+
     def sample(self, nsamples, ndraws, max_chunks=None, callback=None,
                checkpoint_path=None, checkpoint_every=20, resume=True,
                draws=None):
@@ -620,12 +734,33 @@ class HamiltonianMC:
         chain c's ``n_stored[c]`` rows written to
         ``<save_folder><myrank + c>/`` (``folders``).
         ``draws`` is an optional draw source (see the module docstring).
+
+        Under ``spmd_mesh`` every rank runs this loop on its block of the
+        chains and cells, and every number that steers it is global and
+        equal on every rank: each chunk's read (finite flags, accepts, grad
+        evals, the accept counts' minimum and sum, global chain 0's
+        misfits) is reduced over the ``chains`` group, the metric switch
+        pools ``m2`` over all chains and takes the median over all M cells,
+        the ESS reads the same 128 global cells; so dual averaging gives
+        every rank the same dt. ``write_files`` and ``checkpoint_path``
+        write the global layout from rank 0 (an unsharded run's files),
+        and a snapshot resumes sharded or not, either way. ``accepted``,
+        ``n_stored``, ``accept_ratio``, ``attempted``, ``grad_evals``,
+        ``step_size``, ``inv_mass`` and ``ess_median`` are global;
+        ``samples``, ``misfits``, ``x`` and ``U`` are this rank's blocks,
+        whose chain and cell ranges ``shard`` gives (``{"chains": [c0,
+        c1], "cells": [m0, m1]}``): one deliberate difference from the JAX
+        package, whose arrays are global. ``callback`` gets this rank's
+        counts and block; ``folders`` is rank 0's.
         """
         run_chunk, carry = self.prepare(nsamples, ndraws, draws=draws)
         C = self.nchains
         M = self.initial_model.shape[-1]
         total = nsamples + ndraws
-        device = resolve(self.device)
+        mesh = self.spmd_mesh
+        lay = _Layout(mesh, C, M, self.adapt_mass)
+        device = carry[0].device
+        talk = self.verbose and lay.lead
         chain_mode = self.store_mode == "chain"
         chain_span = ndraws + nsamples * self.store_thin
         data_size = self.dobs.shape[0]
@@ -648,8 +783,7 @@ class HamiltonianMC:
         inv_mass = None
         frozen = not adapting
         if checkpoint_path and resume and os.path.exists(checkpoint_path):
-            carry, n_chunks, _, meta = load_state(checkpoint_path,
-                                                  like_carry=carry)
+            carry, n_chunks, _, meta = lay.load(checkpoint_path, carry)
             meta = dict(meta)
             store_iters = int(meta.pop("store_iters", 0))
             meta.setdefault("store_mode", "accepted")
@@ -660,29 +794,33 @@ class HamiltonianMC:
                 dt_cur, inv_mass = _frozen_kernel(
                     checkpoint_path, n_chunks, self.adapt_mass, self.dtype,
                     device)
+                inv_mass = lay.cells(inv_mass)
                 frozen = True
                 carry = carry[:8]
-            if self.verbose:
+            if talk:
                 print(f"resumed from {checkpoint_path} at chunk "
                       f"{n_chunks}", flush=True)
 
         def snapshot():
             leaves = carry
             if self.adapt_mass and len(leaves) == 8:
-                leaves = leaves + _zero_moments(C, M, self.dtype, device)
+                leaves = leaves + lay.zero_moments(self.dtype, device)
             extra = {"step_size": np.float64(dt_cur),
                      "frozen": np.bool_(frozen)}
             if inv_mass is not None:
-                extra["inv_mass"] = inv_mass.cpu().numpy()
-            save_state(checkpoint_path, leaves, n_chunks,
-                       philox.salt_from_seed(seed),
-                       meta=dict(ckpt_meta, store_iters=store_iters),
-                       extra=extra)
+                extra["inv_mass"] = lay.full_cells(inv_mass).cpu().numpy()
+            # under a mesh every rank gathers the global leaves and rank 0
+            # writes the unsharded layout
+            leaves = lay.full_carry(leaves)
+            if lay.lead:
+                save_state(checkpoint_path, leaves, n_chunks,
+                           philox.salt_from_seed(seed),
+                           meta=dict(ckpt_meta, store_iters=store_iters),
+                           extra=extra)
 
         t0 = time.time()
         attempted = grad_evals = 0
-        acc_min = int(carry[5].min())
-        acc_sum = int(carry[5].sum())
+        acc_min, acc_sum = lay.counts(carry[5])
         da = None
         if adapting and not frozen:
             da = dual_averaging_init(dt_cur, target=self.adapt_target)
@@ -693,28 +831,31 @@ class HamiltonianMC:
 
         while not (storage_done() and frozen):
             if n_chunks >= max_chunks:
-                print(f"WARNING: stopping after {n_chunks} chunks with "
-                      f"min accepted count {acc_min}")
+                if lay.lead:
+                    print(f"WARNING: stopping after {n_chunks} chunks with "
+                          f"min accepted count {acc_min}")
                 break
             counted = frozen  # this chunk runs with storage active
             carry, stats = run_chunk(
                 carry, seed, n_chunks, dt=dt_cur, inv_mass=inv_mass,
                 store_base=store_iters if frozen else STORE_OFF)
-            # one host read a chunk: a stacked reduction
-            reduced = torch.stack([
+            # one host read a chunk: a stacked reduction (under a mesh
+            # made global over the chains group first)
+            reduced = lay.chunk_read(torch.stack([
                 torch.isfinite(stats).all().to(torch.float64),
                 stats[..., 4].sum(dtype=torch.float64),
                 stats[..., 0].sum(dtype=torch.float64),
                 carry[5].min().to(torch.float64),
                 carry[5].sum(dtype=torch.float64),
                 stats[-1, 0, 2].to(torch.float64),
-                stats[-1, 0, 3].to(torch.float64)]).tolist()
+                stats[-1, 0, 3].to(torch.float64)])).tolist()
             finite, ge, acc_chunk, amin, asum, ud_l, um_l = reduced
             if not finite:
                 bad = torch.nonzero(
                     ~torch.isfinite(stats[..., 1]).all(dim=0)).flatten()
+                bad = (bad + lay.c0).tolist()
                 raise FloatingPointError(
-                    f"non-finite potential in chains {bad.tolist()} at "
+                    f"non-finite potential in chains {bad} at "
                     f"chunk {n_chunks} (dt={self.dt}, Sigma={self.Sigma}); "
                     "reduce the step size or check the kernel matrix. "
                     + (f"Last good state: {checkpoint_path}"
@@ -722,14 +863,14 @@ class HamiltonianMC:
                        "Set checkpoint_path to make such runs resumable."))
             # the chunk's mean accept as the JAX package's f32 mean
             acc_rate = float(np.float32(acc_chunk)
-                             / np.float32(stats.shape[0] * stats.shape[1]))
+                             / np.float32(stats.shape[0] * C))
             acc_min, acc_sum = int(amin), int(asum)
             n_chunks += 1
             attempted += self.chunk_size * C
             grad_evals += int(ge)
             if counted:
                 store_iters += self.chunk_size
-            if self.verbose:
+            if talk:
                 frac = (min(store_iters / chain_span, 1.0) if chain_mode
                         else min(acc_min / total, 1.0))
                 print("chain {}: {:.2%}, misfit(total, data, alpha, model)="
@@ -745,17 +886,18 @@ class HamiltonianMC:
                 if self.adapt_mass and n_chunks == w1:
                     # open the first Welford window: discard the initial
                     # transient's moments
-                    carry = carry[:8] + _zero_moments(C, M, self.dtype,
-                                                      device)
+                    carry = carry[:8] + lay.zero_moments(self.dtype, device)
                 if self.adapt_mass and n_chunks in metric_switches:
                     # inverse mass = pooled per-chain variance of THIS
                     # window with Stan's shrinkage toward unity
                     cnt = carry[10]
-                    pooled = dict(m2=carry[9].sum(0) / C, count=cnt)
+                    m2 = lay.chain_sum(carry[9].sum(0))
+                    pooled = dict(m2=m2 / C, count=cnt)
                     var = shrink(welford_variance(pooled, regularize=False),
                                  cnt * C)
                     new_inv_mass = torch.clamp(var, min=1e-12)
-                    med_std = float(median(torch.sqrt(new_inv_mass)))
+                    med_std = float(median(torch.sqrt(
+                        lay.full_cells(new_inv_mass))))
                     if inv_mass is None:
                         # first switch: the kinetic changes from the
                         # Sigma-scaled identity to the diagonal metric;
@@ -768,9 +910,8 @@ class HamiltonianMC:
                     da = dual_averaging_init(dt_cur,
                                              target=self.adapt_target)
                     # fresh Welford window for the next (longer) estimate
-                    carry = carry[:8] + _zero_moments(C, M, self.dtype,
-                                                      device)
-                    if self.verbose:
+                    carry = carry[:8] + lay.zero_moments(self.dtype, device)
+                    if talk:
                         print(f"adapted diagonal mass at chunk {n_chunks} "
                               f"(median std {med_std:.4g}); re-tuning dt "
                               f"from {dt_cur:.5g}", flush=True)
@@ -783,7 +924,7 @@ class HamiltonianMC:
                     carry = _restart_counts(carry)[:8]
                     acc_min, acc_sum, attempted = 0, 0, 0
                     store_iters = 0
-                    if self.verbose:
+                    if talk:
                         print(f"warmup done at chunk {n_chunks}: frozen "
                               f"dt={dt_cur:.5g}; sample storage reset",
                               flush=True)
@@ -797,7 +938,7 @@ class HamiltonianMC:
                 carry = _restart_counts(carry)
                 attempted, acc_sum = 0, 0
                 store_iters = 0
-                if self.verbose:
+                if talk:
                     print(f"post-freeze accept {acc_rate:.2%} -- halving "
                           f"dt to {dt_cur:.5g}", flush=True)
             if callback is not None:
@@ -809,7 +950,7 @@ class HamiltonianMC:
             snapshot()
         elapsed = time.time() - t0
 
-        accepted = carry[5].cpu().numpy().astype(np.int64)
+        accepted = lay.full_chains(carry[5]).cpu().numpy().astype(np.int64)
         if chain_mode:
             done_iters = max(store_iters - ndraws, 0)
             n_stored = np.full(
@@ -824,18 +965,21 @@ class HamiltonianMC:
             from ..diagnostics import ess_torch
             sub = np.random.RandomState(0).choice(M, size=min(M, 128),
                                                   replace=False)
-            ess = ess_torch(carry[6][:, :n_common,
-                                     torch.as_tensor(sub, device=device)])
+            ess = ess_torch(lay.sampled_cells(carry[6], n_common, sub))
             ess_median = float(median(ess))
             ess_per_s = ess_median / max(elapsed, 1e-9)
         folders = []
         if self.write_files:
-            # one copy of each buffer to the host
-            folders = write_chains(
-                self.save_folder, self.myrank,
-                carry[6].cpu().numpy().astype(np.float64),
-                carry[7].cpu().numpy().astype(np.float64), n_stored)
-        return {
+            # one copy of each buffer to the host (under a mesh the global
+            # buffers, written by rank 0)
+            models = lay.full(carry[6], "buf_m")
+            misfits = lay.full(carry[7], "buf_k")
+            if lay.lead:
+                folders = write_chains(
+                    self.save_folder, self.myrank,
+                    models.cpu().numpy().astype(np.float64),
+                    misfits.cpu().numpy().astype(np.float64), n_stored)
+        out = {
             "samples": carry[6],
             "misfits": carry[7],
             "x": carry[0],
@@ -850,11 +994,16 @@ class HamiltonianMC:
             "grad_evals_per_s": grad_evals / max(elapsed, 1e-9),
             "step_size": dt_cur,
             "adapted_mass": inv_mass is not None,
-            "inv_mass": inv_mass,
+            "inv_mass": (lay.full_cells(inv_mass) if inv_mass is not None
+                         else None),
             "ess_median": ess_median,
             "ess_per_s_median": ess_per_s,
             "fused_mode": self._fused_mode,
         }
+        if mesh is not None:
+            out["shard"] = {"chains": [lay.c0, lay.c1],
+                            "cells": [lay.m0, lay.m1]}
+        return out
 
 
 def _frozen_kernel(path, n_chunks, adapt_mass, dtype, device):
@@ -878,6 +1027,119 @@ def _frozen_kernel(path, n_chunks, adapt_mass, dtype, device):
     inv_mass = (torch.as_tensor(extra["inv_mass"], dtype=dtype,
                                 device=device) if adapt_mass else None)
     return float(extra["step_size"]), inv_mass
+
+
+class _Layout:
+    """Where :meth:`HamiltonianMC.sample`'s state lives: the whole batch
+    (``mesh`` None: every method is the identity or the plain reduction)
+    or this rank's block of a (chains, model) mesh, whose methods make the
+    global numbers every rank needs, each with the collectives of
+    :mod:`..parallel.sharded`."""
+
+    def __init__(self, mesh, C, M, welford):
+        self.mesh, self.C, self.M = mesh, C, M
+        self.c0, self.c1, self.m0, self.m1 = 0, C, 0, M
+        self.lead = True
+        if mesh is not None:
+            from ..parallel import sharded
+            self.sh = sharded
+            self.c0, self.c1 = mesh.chain_range(C)
+            self.m0, self.m1 = mesh.col_range(M)
+            self.lead = mesh.rank == 0
+            self.specs = sharded.carry_shardings(mesh, welford=welford)
+
+    def zero_moments(self, dtype, device):
+        return _zero_moments(self.c1 - self.c0, self.m1 - self.m0, dtype,
+                             device)
+
+    def counts(self, nacc):
+        """The global ``(min, sum)`` of the accept counts."""
+        if self.mesh is None:
+            return int(nacc.min()), int(nacc.sum())
+        mn = self.mesh.all_reduce(nacc.min().to(torch.float64).reshape(1),
+                                  "chains", op="min")
+        sm = self.mesh.all_reduce(nacc.sum(dtype=torch.float64).reshape(1),
+                                  "chains")
+        return int(mn), int(sm)
+
+    def chunk_read(self, r):
+        """A chunk's ``[finite, grad evals, accepts, min count, sum count,
+        ud, um]`` over all chains (ud and um of global chain 0): the sums
+        in one ``all_reduce`` over ``chains``, the minimum in another."""
+        if self.mesh is None:
+            return r
+        mesh = self.mesh
+        first = 1.0 if mesh.coords[0] == 0 else 0.0
+        sums = torch.stack([r[0], r[1], r[2], r[4], r[5] * first,
+                            r[6] * first])
+        mesh.all_reduce(sums, "chains")
+        amin = mesh.all_reduce(r[3].reshape(1).clone(), "chains", op="min")
+        finite = (sums[0] == mesh.shape["chains"]).to(sums.dtype)
+        return torch.stack([finite, sums[1], sums[2], amin[0], sums[3],
+                            sums[4], sums[5]])
+
+    def chain_sum(self, t):
+        """``t`` (a sum over this rank's chains) summed over all chains."""
+        return t if self.mesh is None else self.mesh.all_reduce(t, "chains")
+
+    def cells(self, v):
+        """This rank's cells of a global (M,) vector."""
+        return v if self.mesh is None else v[self.m0:self.m1]
+
+    def full_cells(self, v):
+        """The global (M,) vector of this rank's cells ``v``."""
+        if self.mesh is None:
+            return v
+        return self.sh.gather(self.mesh, v, ("model",), self.M)
+
+    def full_chains(self, v):
+        """The global (C,) vector of this rank's chains' ``v``."""
+        if self.mesh is None:
+            return v
+        return self.sh.gather(self.mesh, v, ("chains",))
+
+    def full(self, t, leaf):
+        """The global ``buf_m`` (C, N, M) or ``buf_k`` (C, N, 7)."""
+        if self.mesh is None:
+            return t
+        spec = self.sh.BUF_M_SPEC if leaf == "buf_m" else self.sh.BUF_K_SPEC
+        return self.sh.gather(self.mesh, t, spec, self.M)
+
+    def full_carry(self, carry):
+        """The global carry (the unsharded run's leaves)."""
+        if self.mesh is None:
+            return carry
+        return tuple(self.sh.gather(self.mesh, leaf, spec, self.M)
+                     for leaf, spec in zip(carry, self.specs))
+
+    def load(self, path, carry):
+        """``load_state`` of a snapshot of the global carry, each leaf cut
+        to this rank's block on ``carry``'s devices and types."""
+        if self.mesh is None:
+            return load_state(path, like_carry=carry)
+        leaves, n_chunks, key, meta = load_state(path)
+        if len(leaves) != len(carry):
+            raise ValueError(
+                f"checkpoint has {len(leaves)} leaves, expected "
+                f"{len(carry)} — config mismatch?")
+        out = tuple(self.sh.shard(self.mesh, leaf, spec).to(
+            device=r.device, dtype=r.dtype).contiguous()
+            for leaf, spec, r in zip(leaves, self.specs, carry))
+        return out, n_chunks, key, meta
+
+    def sampled_cells(self, buf_m, n, sub):
+        """``buf_m[:, :n, sub]`` of the global buffer, on every rank: each
+        rank writes its chains' rows of the sampled cells it holds into a
+        zero-filled (C, n, len(sub)) buffer, one ``all_reduce`` over all
+        ranks."""
+        if self.mesh is None:
+            return buf_m[:, :n, torch.as_tensor(sub, device=buf_m.device)]
+        pos = np.flatnonzero((sub >= self.m0) & (sub < self.m1))
+        out = buf_m.new_zeros((self.C, n, len(sub)))
+        cols = torch.as_tensor(sub[pos] - self.m0, device=buf_m.device)
+        out[self.c0:self.c1, :, torch.as_tensor(pos, device=buf_m.device)] \
+            = buf_m[:, :n, cols]
+        return self.mesh.all_reduce(out, ("chains", "model"))
 
 
 def _zero_moments(C, M, dtype, device):

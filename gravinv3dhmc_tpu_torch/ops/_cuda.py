@@ -63,7 +63,7 @@ _SIGNATURES = {
         "lf_accept": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _I, _I, _U, _U, _U, _P],
         "lf_kick_occupancy": [_I, _P],
-        "lf_draws": [_P, _P, _I, _I, _U, _U, _U, _P],
+        "lf_draws": [_P, _P, _I, _I, _I, _I, _U, _U, _U, _P],
         "lf_philox_bits": [_P, _I, _I, _U, _U, _U, _P],
         "lf_draw_units": [_P, _P, _P, _I, _U, _U, _U, _P],
     },

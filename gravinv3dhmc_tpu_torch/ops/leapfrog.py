@@ -117,12 +117,15 @@ def refresh_plain(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
         pk.copy_(pv)
 
 
-def draws_plain(n01, u, salt, iteration):
+def draws_plain(n01, u, salt, iteration, c0=0, j0=0):
     """One iteration's Philox draws into ``n01`` (C, width), the momentum
-    normals, and ``u`` (C,), the accept uniforms."""
+    normals, and ``u`` (C,), the accept uniforms: for chains c0 .. c0 + C
+    - 1 and elements 4 j0 .. 4 j0 + width - 1, the block of the whole
+    batch's draws that a shard of a (chains, model) mesh holds."""
     C, width = n01.shape
-    n01.copy_(philox.momentum_normals(salt, iteration, C, width, n01.device))
-    u.copy_(philox.accept_uniforms(salt, iteration, C, u.device))
+    n01.copy_(philox.momentum_normals(salt, iteration, C, width, n01.device,
+                                      c0, j0))
+    u.copy_(philox.accept_uniforms(salt, iteration, C, u.device, c0))
 
 
 def drift_plain(x, p, pk, im, low, high, eps):
@@ -254,12 +257,12 @@ def _refresh_cuda(g, U, pscale, im, half_eps, salt, iteration, n01, p, pk,
         _cuda.stream(g))
 
 
-def _draws_cuda(n01, u, salt, iteration):
+def _draws_cuda(n01, u, salt, iteration, c0=0, j0=0):
     C, width = n01.shape
     P = _cuda.ptr
     _cuda.library().call(
         "lf_draws", P(n01, _F32, (C, width)), P(u, _F32, (C,)), C, width,
-        *_salt_words(salt, iteration), _cuda.stream(n01))
+        int(c0), int(j0), *_salt_words(salt, iteration), _cuda.stream(n01))
 
 
 def _drift_cuda(x, p, pk, im, low, high, eps):

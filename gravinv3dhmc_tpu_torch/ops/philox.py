@@ -77,8 +77,9 @@ def philox4x32(c0, c1, c2, c3, key):
     return c0, c1, c2, c3
 
 
-def _counters(n_groups, chains, iteration, stream, device):
-    c0 = torch.arange(n_groups, dtype=torch.int64, device=device)[None, :]
+def _counters(n_groups, chains, iteration, stream, device, j0=0):
+    c0 = torch.arange(j0, j0 + n_groups, dtype=torch.int64,
+                      device=device)[None, :]
     c1 = torch.as_tensor(chains, dtype=torch.int64, device=device)[:, None]
     c2 = torch.full((1, 1), int(iteration) & MASK32, dtype=torch.int64,
                     device=device)
@@ -91,13 +92,16 @@ def u24(word):
     return (word >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def momentum_bits(key, iteration, n_chains, width, device="cpu"):
+def momentum_bits(key, iteration, n_chains, width, device="cpu", c0=0,
+                  j0=0):
     """(C, width) int64 tensor of the raw u32 words behind the momentum
-    normals of one iteration (``width`` a multiple of 4)."""
+    normals of one iteration (``width`` a multiple of 4): chains c0 ..
+    c0 + C - 1 and element groups j0 .. j0 + width/4 - 1, the block of a
+    wider draw that starts at chain ``c0`` and element ``4 j0``."""
     if width % 4:
         raise ValueError(f"width {width} must be a multiple of 4")
-    c = _counters(width // 4, torch.arange(n_chains), iteration,
-                  STREAM_MOMENTUM, device)
+    c = _counters(width // 4, torch.arange(c0, c0 + n_chains), iteration,
+                  STREAM_MOMENTUM, device, j0)
     words = philox4x32(*c, key)
     return torch.stack(words, dim=-1).reshape(n_chains, width)
 
@@ -116,16 +120,19 @@ def normals_from_bits(bits):
     return out.reshape(bits.shape)
 
 
-def momentum_normals(key, iteration, n_chains, width, device="cpu"):
+def momentum_normals(key, iteration, n_chains, width, device="cpu", c0=0,
+                     j0=0):
     """(C, width) float32 standard normals of one iteration's momentum
-    refresh: what ``refresh`` in ``csrc/leapfrog.cu`` draws."""
+    refresh: what ``refresh`` in ``csrc/leapfrog.cu`` draws; with offsets,
+    the block of chains c0.. and elements 4 j0.. of a wider draw."""
     return normals_from_bits(
-        momentum_bits(key, iteration, n_chains, width, device))
+        momentum_bits(key, iteration, n_chains, width, device, c0, j0))
 
 
-def accept_uniforms(key, iteration, n_chains, device="cpu"):
+def accept_uniforms(key, iteration, n_chains, device="cpu", c0=0):
     """(C,) float32 uniforms in [0, 1) for the Metropolis test of one
-    iteration: word 0 of counter (0, chain, iteration, 1)."""
-    c = _counters(1, torch.arange(n_chains), iteration, STREAM_ACCEPT,
-                  device)
+    iteration: word 0 of counter (0, chain, iteration, 1), chains c0 ..
+    c0 + C - 1."""
+    c = _counters(1, torch.arange(c0, c0 + n_chains), iteration,
+                  STREAM_ACCEPT, device)
     return u24(philox4x32(*c, key)[0][:, 0])

@@ -20,9 +20,23 @@ build's stages, :data:`GLOBAL_ADDED`, and the synthetic data's forward
 over the truth's cells replaces the whole host matrix's build unless
 ``--kernel-cache`` is given, :data:`GLOBAL_DROPPED`); ``bootstrap`` and
 ``bootstrap-southchina`` are :mod:`.cg`'s stages, printed under the JAX
-command's keys. ``--multichip`` is not ported yet
-and raises ``NotImplementedError``; ``--no-transfer`` keeps the realdata
-ChEES samples on the device and computes the summary there.
+command's keys. ``--no-transfer`` keeps the realdata ChEES samples on
+the device and computes the summary there.
+
+``--multichip [N]`` runs the HMC sampler of uniformgrid, segmentgrid or
+ratiogrid SPMD over the ranks of a ``torch.distributed`` group, one
+process a rank, started by ``torchrun``::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m gravinv3dhmc_tpu_torch.run uniformgrid --multichip
+
+(:func:`.parallel.multihost.initialize` on torchrun's environment; the
+mesh is :func:`.parallel.make_mesh` of the world; a bare flag means the
+world size, another N exits). Each rank runs on ``--device`` or, without
+it, ``cuda:{LOCAL_RANK}``. ``--dist-backend`` is ``nccl`` for one card a
+rank (the default on CUDA) and ``gloo`` for ranks that share a card or run
+on the CPU (``--device cpu``). Rank 0 prints the line, which has the
+unsharded line's keys; the group is destroyed at exit.
 
 :func:`main` takes an argument list, prints the line and returns its
 dict, so the tests and ``chip_smoke.py`` run it in-process.
@@ -39,7 +53,6 @@ from . import _device, cg, diagnostics, global_tess, utils
 from . import workloads as W
 from .config import load_setpmts
 from .inversion import hmc
-from .inversion.hmc import _unported
 from .inversion.potential import GravMagModule
 from .inversion.reginv import cg_device
 
@@ -62,7 +75,30 @@ SOUTHCHINA_KEYS = ("workload", "mesh_shape", "carved_cells", "samples",
                    "model_std_max", "finite")
 
 
-def cmd_hmc(args, builder, device):
+def spmd_mesh(args, device):
+    """The (chains, model) mesh of a ``--multichip`` run over the process
+    group's ranks (reference analogue: the mpiexec launcher,
+    run_main.sh:16-20, but sharing one kernel matrix column-sharded
+    instead of every rank rebuilding its own copy)."""
+    from .parallel import make_mesh, multihost
+
+    world = multihost.world_size()
+    n = world if args.multichip < 0 else args.multichip
+    if n != world:
+        raise SystemExit(f"--multichip {n}: the process group has {world} "
+                         "ranks (start one process a rank with torchrun)")
+    mesh = make_mesh(n, devices=[device] * n)
+    if not args.quiet and mesh.rank == 0:
+        print(f"multichip: mesh {mesh.shape} over {n} ranks on "
+              f"{device.type} ({multihost.backend_name()})", flush=True)
+    if args.nchains % mesh.shape["chains"] != 0:
+        raise SystemExit(
+            f"--nchains {args.nchains} must tile the 'chains' mesh axis "
+            f"({mesh.shape['chains']})")
+    return mesh
+
+
+def cmd_hmc(args, builder, device, mesh=None):
     wl = builder()
     dpre, dobs = W.forward_with_noise(wl, seed=args.seed_noise)
     module, stats, mean, std, out = W.run_hmc(
@@ -75,7 +111,7 @@ def cmd_hmc(args, builder, device):
         sampler=args.sampler, nwarmup=args.nwarmup,
         temperature=args.temperature,
         adapt_step_size=args.adapt_step_size, adapt_mass=args.adapt_mass,
-        adapt_chunks=args.adapt_chunks, device=device)
+        adapt_chunks=args.adapt_chunks, spmd_mesh=mesh, device=device)
     out["workload"] = args.workload
     out["problem"] = [int(dobs.size), int(module.n_active)]
     return out
@@ -299,7 +335,16 @@ def parse_args(argv=None):
                     help="global: chain-store thinning stride")
     ap.add_argument("--multichip", type=int, nargs="?", const=-1,
                     default=0, metavar="N",
-                    help="SPMD over N devices: not ported yet (raises)")
+                    help="run the HMC sampler SPMD over the N ranks of a "
+                         "torch.distributed group (bare flag = the world "
+                         "size; start the ranks with torchrun): kernel "
+                         "columns shard over 'model', the chain batch "
+                         "over 'chains'")
+    ap.add_argument("--dist-backend", dest="dist_backend",
+                    choices=["nccl", "gloo"], default=None,
+                    help="--multichip's torch.distributed backend (default "
+                         "nccl on CUDA, gloo on the CPU; gloo when ranks "
+                         "share one card)")
     ap.add_argument("--no-transfer", dest="no_transfer",
                     action="store_true",
                     help="realdata: keep the ChEES samples on the device "
@@ -346,13 +391,18 @@ def run(argv=None):
     """Parse ``argv``, run the subcommand on its device and return the
     dict its JSON line holds."""
     args = parse_args(argv)
+    builders = {"uniformgrid": W.uniformgrid, "segmentgrid": W.segmentgrid,
+                "ratiogrid": W.ratiogrid}
     if args.multichip:
-        raise _unported("--multichip (SPMD over several devices)", "item 13")
+        if args.workload not in builders:
+            raise SystemExit("--multichip drives the Cartesian HMC "
+                             "workloads (uniformgrid/segmentgrid/"
+                             "ratiogrid); the global workload's kernel is "
+                             "device-built per chip")
+        return run_multichip(args, builders[args.workload])
     device = _device.resolve(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    builders = {"uniformgrid": W.uniformgrid, "segmentgrid": W.segmentgrid,
-                "ratiogrid": W.ratiogrid}
     if args.workload in builders:
         return cmd_hmc(args, builders[args.workload], device)
     return {"global": cmd_global, "realdata": cmd_realdata, "cg": cmd_cg,
@@ -361,11 +411,36 @@ def run(argv=None):
                 args.workload](args, device)
 
 
+def run_multichip(args, builder):
+    """A ``--multichip`` run: join (or keep) the process group, build the
+    mesh, run the HMC subcommand SPMD; rank 0's line, None on the other
+    ranks. The group this call made is destroyed at its end."""
+    import torch.distributed as dist
+
+    from .parallel import multihost
+
+    made = not dist.is_initialized()
+    info = multihost.initialize(backend=args.dist_backend,
+                                device=args.device)
+    try:
+        device = torch.device(info["device"])
+        if device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = spmd_mesh(args, device)
+        out = cmd_hmc(args, builder, device, mesh)
+        return out if mesh.rank == 0 else None
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def main(argv=None):
     """Run ``argv`` (the command line when None), print its JSON line and
-    return its dict."""
+    return its dict (under ``--multichip``, on rank 0 only: the other
+    ranks print nothing and return None)."""
     out = run(argv)
-    print(json.dumps(out), flush=True)
+    if out is not None:
+        print(json.dumps(out), flush=True)
     return out
 
 

@@ -34,7 +34,6 @@ from . import diagnostics, mesher, realdata, utils
 from . import ratiogrid as ratiogrid_mod
 from .diagnostics import ess_torch, median
 from .inversion import hmc
-from .inversion.hmc import _unported
 from .inversion.potential import GravMagModule
 from .inversion.reginv import ConjugateGradient, cg_device
 from .ops import prism, tesseroid
@@ -431,11 +430,15 @@ def run_hmc(wl, dobs, nsamples=500, ndraws=0, nchains=2, delta=0.01,
     host (``mean`` and ``std`` numpy). ``cg_warm_start=True`` starts every
     chain at the projected-CG solution (:func:`.inversion.reginv.cg_device`
     in float32, ``cg_alpha`` a fixed regularization weight or None for the
-    reference's adaptive schedule). ``spmd_mesh`` (multi-device) is not
-    ported yet and raises ``NotImplementedError``.
+    reference's adaptive schedule). ``spmd_mesh`` (a
+    :func:`.parallel.make_mesh` (chains, model) mesh) runs the fixed-L HMC
+    sampler SPMD over its ranks (``HamiltonianMC.spmd_mesh``: kernel
+    columns sharded over 'model', the chain batch over 'chains'; the
+    reference's analogue is mpiexec ranks, run_main.sh:16-20); the stored
+    chains are then gathered over 'chains' and 'model' (``stats
+    ["samples"]`` becomes the global buffer), so every rank's summary is
+    the unsharded run's.
     """
-    if spmd_mesh is not None:
-        raise _unported("SPMD meshes (--multichip)", "item 13")
     mesh_kwargs = dict(wl.get("mesh_kwargs", {}))
     t0 = time.time()
     module = GravMagModule(dobs, wl["mrange"], wl["mspacing"], wl["obs"],
@@ -458,6 +461,10 @@ def run_hmc(wl, dobs, nsamples=500, ndraws=0, nchains=2, delta=0.01,
             print(f"CG warm start: {cg_info['n_iters']} iters, "
                   f"RMSD {cg_info['RMSD']:.2f}, "
                   f"{cg_info['elapsed_s']:.1f}s", flush=True)
+    if spmd_mesh is not None and sampler != "hmc":
+        raise ValueError("--multichip currently drives the fixed-L HMC "
+                         "sampler only (nuts/chees batch chains on one "
+                         "device)")
     if sampler == "hmc":
         if temperature is not None:
             raise ValueError(
@@ -474,7 +481,12 @@ def run_hmc(wl, dobs, nsamples=500, ndraws=0, nchains=2, delta=0.01,
             adapt_step_size=adapt_step_size, adapt_mass=adapt_mass,
             adapt_chunks=adapt_chunks, transfer_samples=transfer_samples,
             store_mode=store_mode, store_thin=store_thin,
-            jacobian=jacobian, temperature=hmc_temperature, device=device)
+            spmd_mesh=spmd_mesh, jacobian=jacobian,
+            temperature=hmc_temperature, device=device)
+        if spmd_mesh is not None:
+            from .parallel.sharded import BUF_M_SPEC, gather
+            stats["samples"] = gather(spmd_mesh, stats["samples"],
+                                      BUF_M_SPEC, M)
         if not transfer_samples:
             out, _ = device_posterior_summary(module, stats, dobs,
                                               truth=wl.get("rho"))

@@ -230,12 +230,3 @@ def test_fd_regularizers_match_jax_sampler(small_module, torch_module,
     assert res_t["grad_evals"] == res_j["grad_evals"]
     np.testing.assert_allclose(res_t["samples"].numpy(), res_j["samples"],
                                rtol=5e-3, atol=5e-4)
-
-
-@pytest.mark.parametrize("attr,value", [("spmd_mesh", object())])
-def test_unported_options_raise(torch_module, small_module, attr, value):
-    _, dobs, _ = small_module
-    tc = _configure(thmc.HamiltonianMC(torch_module), torch_module, dobs)
-    setattr(tc, attr, value)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.sample(4, 0)

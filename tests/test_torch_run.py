@@ -20,7 +20,7 @@ workload library (``gravinv3dhmc_tpu_torch/workloads.py``) against
   10 and 10 x 10 columns and the
   whole-Earth mesh to scale 0.1 (91 x 720), so the runs stay short; the
   code paths are the full ones.
-* ``--multichip`` raises ``NotImplementedError`` (queue 1 item 13).
+* ``--multichip`` is held in ``tests/test_torch_parallel.py``.
 """
 import json
 import os
@@ -399,11 +399,6 @@ def test_hmc_line_with_the_jax_draws_matches_jax(name, monkeypatch):
         if key in want:
             assert got[key] == pytest.approx(want[key], rel=HMC_RTOL), key
     assert ("RMSM" in got) == (name == "uniformgrid")
-
-
-def test_multichip_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trun.run(["uniformgrid", "--multichip", "--device", "cpu"])
 
 
 def test_default_device_needs_a_card(monkeypatch):

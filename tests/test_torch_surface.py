@@ -7,7 +7,7 @@
   under ``gravinv3dhmc_tpu_torch``, and each public function, class and
   class method defined there (read from the source with ``ast``) exists
   in it, except the entries of :data:`EXCLUDED`, each with its reason or
-  its counterpart. Only ``parallel/`` is left for not being ported yet.
+  its counterpart. No module is left for not being ported yet.
 """
 import ast
 import importlib
@@ -32,9 +32,6 @@ EXCLUDED = {
                                 "ported)",
     "bench.py:run_with_fallback": "TPU-link workaround (ROADMAP.md: not "
                                   "ported; a failing stage fails the run)",
-    "parallel/__init__.py": "not yet ported: queue 1 item 13",
-    "parallel/sharded.py": "not yet ported: queue 1 item 13",
-    "parallel/multihost.py": "not yet ported: queue 1 item 13",
 }
 
 
@@ -119,7 +116,7 @@ def test_tesseroidforward_is_forward_only():
 @pytest.mark.parametrize("rel", _modules())
 def test_every_public_name_has_a_counterpart(rel):
     if rel in EXCLUDED:
-        assert rel.startswith(("ops/", "runtime/", "parallel/"))
+        assert rel.startswith(("ops/", "runtime/"))
         return
     port = importlib.import_module(_port_module(rel))
     missing = []
@@ -149,4 +146,4 @@ def test_exclusions_are_needed():
             with pytest.raises(ModuleNotFoundError):
                 importlib.import_module(_port_module(rel))
     not_yet = [k for k, why in EXCLUDED.items() if why.startswith("not yet")]
-    assert {k.split("/")[0] for k in not_yet} == {"parallel"}
+    assert not not_yet
