@@ -333,6 +333,28 @@ Phases, one line each (the script stops at the first failure, non-zero):
              host: these are checks of numbers, not of speed. The ranks'
              ``draws`` launches (summed over each group) and this
              process's go into the kernels line.
+24. studies — right after phase 20, on its scale-1 module and matrix
+             (no second build), the whole-Earth studies and the sampler's
+             roofline (:data:`STUDIES`), one line each, printed before its
+             checks: ``bounded_map.run`` uncut (the anchor, then the ladder
+             of ``maxk`` 400 each): every number finite, the ladder's
+             alphas the rule's from ``alpha_ref`` (printed beside the JAX
+             record's), each ``n_iters`` at most ``maxk``;
+             ``global_chees.run`` cut in depth only (16 chains, 32 warmup
+             and 32 samples, ``max_steps`` 64, blocks of 16): the (32, 16,
+             72,000) buffer on the card, accept in (0, 1], one ``draws``
+             launch an iteration and no plain Philox; ``roofline.run``
+             uncut (1024 chains x 600 x 6,000, ``reps`` 200): the
+             matmul pair at most 1.05 x 989 TFLOP/s on both clocks, every
+             trajectory time positive, a positive slope of both t(L) fits,
+             and launches of the trajectory op's kernels, ``refresh``,
+             ``accept`` and ``draws``. The quality numbers of the JAX
+             package's ``GLOBAL_r05.json`` records (corr, RMSM, coverage,
+             accept, saturation) are printed beside the card's: statistics
+             to compare, not checks. The studies' launches, each counted
+             from 0 around its run, go into the kernels line. Then
+             ``draws`` at 16 x 72,000 and 1024 x 6,000 against its plain
+             version.
 
 Before phase 13 its 576 x 10,676 realdata problem is built with a
 kernel cache and again from the cache (``state`` line ``kernel_cache``):
@@ -356,7 +378,7 @@ runs' in phase 16, the magnetic demo's ChEES's in phase 17, the joint
 HMC's in phase 19, the whole-Earth HMC's in phase 20, the command line's
 subcommands' in phase 21, the profiled chunks' in phase 22 and the
 multi-device runs' (their ranks' and their unsharded counterparts') in
-phase 23 (the live
+phase 23, the studies' in phase 24 (the live
 reference run's ``draws`` are in phase 11's): these
 runs' counts make the
 ``launches`` of the kernels line. ``draws``
@@ -2855,7 +2877,151 @@ def phase_global(torch, tlf, dev, smi):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"global hmc: {bad}")
-    return counts, M
+    return counts, M, (wl, dpre, dobs, module)
+
+
+#: phase 24's runs: the bounded-MAP ladder and the roofline uncut (the
+#: tools' defaults), the whole-Earth ChEES cut in depth only (the tool
+#: runs 16 chains, 300 warmup and 512 samples with max_steps 1024)
+STUDIES = {"bounded_map": dict(maxk=400, decades=3, chunk=800),
+           "global_chees": dict(nchains=16, nwarmup=32, nsamples=32,
+                                max_steps=64, chunk=16),
+           "roofline": dict(nchains=1024, reps=200)}
+
+
+def finite_numbers(v):
+    """Every float in a JSON-like value is finite."""
+    if isinstance(v, dict):
+        return all(finite_numbers(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return all(finite_numbers(x) for x in v)
+    return not isinstance(v, float) or bool(np.isfinite(v))
+
+
+def counted(torch, tlf, fn):
+    """``(fn(), launch counts)``: the launches of ``fn``'s run alone."""
+    sync(torch)
+    tlf.reset_launch_counts()
+    out = fn()
+    sync(torch)
+    return out, tlf.launch_counts()
+
+
+def phase_studies(torch, tlf, dev, smi, problem):
+    """Phase 24: the bounded-MAP ladder and the whole-Earth ChEES on phase
+    20's ``problem`` (``(wl, dpre, dobs, module)``), then the roofline on
+    the uniformgrid flagship (:data:`STUDIES`). Returns the three runs'
+    launch counts and the (cells, chains) of each ``draws`` shape."""
+    import os
+
+    from gravinv3dhmc_tpu_torch import bounded_map, global_chees, roofline
+    from gravinv3dhmc_tpu_torch import uniformgrid
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "GLOBAL_r05.json")) as f:
+        records = json.load(f)
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in tlf.KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # the bounded-MAP ladder
+    cfg = STUDIES["bounded_map"]
+    t0 = time.perf_counter()
+    bm, counts = counted(torch, tlf, lambda: bounded_map.run(
+        device=dev, problem=problem, **cfg))
+    add(counts)
+    jax_bm = records["bounded_map_ladder_maxk400"]
+    alphas = [e["alpha"] for e in bm["ladder"]]
+    line("studies_bounded_map", card=smi, seconds=time.perf_counter() - t0,
+         **bm, n_iters=[e["n_iters"] for e in bm["ladder"]],
+         jax_tpu_statistics={
+             k: jax_bm[k] for k in ("alpha_ref", "best_alpha", "best_corr",
+                                    "best_RMSM")} | {
+             "n_iters": [e["n_iters"] for e in jax_bm["ladder"]],
+             "source": "GLOBAL_r05.json bounded_map_ladder_maxk400"},
+         launches={k: v for k, v in counts.items() if v})
+    checks = {
+        "finite": finite_numbers(bm) and bm["alpha_ref"] is not None,
+        "the ladder's rule": alphas == bounded_map.ladder(bm["alpha_ref"],
+                                                          cfg["decades"]),
+        "n_iters <= maxk": all(0 < e["n_iters"] <= cfg["maxk"]
+                               for e in bm["ladder"]),
+        "on the card": bm["device"] == smi,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"studies bounded_map: {bad}")
+
+    # the whole-Earth ChEES, cut in depth
+    cfg = STUDIES["global_chees"]
+    t0 = time.perf_counter()
+    (gc, xs), counts = counted(torch, tlf, lambda: global_chees.run(
+        device=dev, problem=problem, **cfg))
+    add(counts)
+    jax_gc = records["chees_fullscale_chunked"]
+    M = problem[3].n_active
+    line("studies_global_chees", card=smi,
+         seconds=time.perf_counter() - t0, **gc,
+         buffer=list(xs.shape), buffer_on_card=xs.is_cuda,
+         reduced={k: [v, cfg[k]] for k, v in (
+             ("nwarmup", 300), ("nsamples", 512), ("max_steps", 512))},
+         jax_tpu_statistics={
+             k: jax_gc[k] for k in ("posterior_truth_corr", "RMSM",
+                                    "coverage_2std", "accept_mean",
+                                    "max_steps_saturated", "step_size",
+                                    "mean_L")} | {
+             "source": "GLOBAL_r05.json chees_fullscale_chunked"},
+         launches={k: v for k, v in counts.items() if v})
+    n_iters = gc["nwarmup"] + gc["nsamples"]
+    checks = {
+        "finite": finite_numbers(gc) and bool(torch.isfinite(xs).all()),
+        "buffer (32, 16, 72000) on the card": (
+            list(xs.shape) == [cfg["nsamples"], cfg["nchains"], M]
+            and xs.is_cuda),
+        "accept in (0, 1]": 0.0 < gc["accept_mean"] <= 1.0,
+        "one draws launch an iteration": counts["draws"] == n_iters,
+        "no other kernel": all(v == 0 for k, v in counts.items()
+                               if k != "draws"),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"studies global_chees: {bad}")
+    del xs
+
+    # the roofline on the uniformgrid flagship
+    cfg = STUDIES["roofline"]
+    t0 = time.perf_counter()
+    rl, counts = counted(torch, tlf, lambda: roofline.run(
+        device=dev, problem=uniformgrid.build_problem(device=dev), **cfg))
+    add(counts)
+    line("studies_roofline", card=smi, seconds=time.perf_counter() - t0,
+         **rl, launches={k: v for k, v in counts.items() if v})
+    peak = 1.05 * roofline.PEAK_BF16_TFLOPS
+    flops = rl["nchains"] * 4.0 * rl["padded"][0] * rl["padded"][1]
+    times = [t for kind in ("device", "wall")
+             for t in rl[f"traj_by_L_{kind}_s"].values()]
+    checks = {
+        "finite": finite_numbers(rl),
+        "matmul TFLOP/s <= 1.05 x 989": (
+            rl["matmul_tflops_sane"]
+            and flops / rl["matmul_pair_wall_s"] / 1e12 <= peak),
+        "trajectory times positive": all(t > 0 for t in times),
+        "t(L) slopes positive": (rl["traj_per_step_device_s"] > 0
+                                 and rl["traj_per_step_wall_s"] > 0),
+        "the kernels launched": all(
+            counts[k] > 0 for k in ("drift", "residual", "kick",
+                                    "traj_finish", "refresh", "accept",
+                                    "draws")),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"studies roofline: {bad}")
+    line("studies", card=smi, seconds=time.perf_counter() - t_phase)
+    return total, ((M, STUDIES["global_chees"]["nchains"]),
+                   (rl["problem"][1], rl["nchains"]))
 
 
 #: the ``run`` phase: each subcommand of ``python -m
@@ -3417,13 +3583,19 @@ def main():
 
     with plain:
         counts_joint, M_joint = phase_joint(torch, tlf, dev, smi)
-        counts_global, M_global = phase_global(torch, tlf, dev, smi)
+        counts_global, M_global, global_problem = phase_global(
+            torch, tlf, dev, smi)
+        counts_studies, studies_shapes = phase_studies(
+            torch, tlf, dev, smi, global_problem)
+    del global_problem
     if plain.calls:
-        fail(f"the joint and global samplers called the plain Philox "
-             f"{plain.calls} times")
+        fail(f"the joint and global samplers and the studies called the "
+             f"plain Philox {plain.calls} times")
     phase_samplers_kernel(torch, tlf, dev, M_joint, (JOINT["nchains"],))
     phase_samplers_kernel(torch, tlf, dev, M_global,
                           (GLOBAL_HMC["nchains"],))
+    for M_s, C_s in studies_shapes:
+        phase_samplers_kernel(torch, tlf, dev, M_s, (C_s,))
 
     counts_run, run_shapes = phase_run(torch, tlf, dev, smi, plain)
     for M_run, C_run in run_shapes:
@@ -3441,15 +3613,16 @@ def main():
     # gz build, both ratiogrid slices, the bench's two stages, the
     # samplers, the realdata ChEES (the deterministic stages launch none),
     # the magnetic uniformgrid stage, the wavelet stages, the magnetic
-    # demo's ChEES, the joint HMC, the whole-Earth HMC, the command line's
+    # demo's ChEES, the joint HMC, the whole-Earth HMC, the studies (the
+    # ladder, the whole-Earth ChEES and the roofline), the command line's
     # subcommands, the profiled uniformgrid chunks and the multi-device
     # runs with their unsharded counterparts (the bench's count holds the
     # live f64 reference run's draws)
     runs = (counts, counts_f32, counts3, counts_state, counts_rd,
             *counts_rd_real, counts_gz, counts2, counts2_f32, counts_bench,
             counts_samplers, counts_rd_chees, counts_mag, counts_wav,
-            counts_mag_demo, counts_joint, counts_global, counts_run,
-            counts_prof, counts_multi)
+            counts_mag_demo, counts_joint, counts_global, counts_studies,
+            counts_run, counts_prof, counts_multi)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,

@@ -19,17 +19,19 @@ import torch
 SPIN_CYCLES_PER_CALL = 200_000
 
 
-def device_ms(fn, reps=20, warmup=3):
+def device_ms(fn, reps=20, warmup=3, cycles_per_call=SPIN_CYCLES_PER_CALL):
     """Mean device time of one call of ``fn``: CUDA events around ``reps``
-    calls queued behind a spin, after ``warmup`` calls. If the card
-    reached the start event before the last call was issued, the run is
-    repeated behind a spin twice as long, up to 16 times the first (a
+    calls queued behind a spin of ``cycles_per_call`` clock cycles a call
+    (more for a ``fn`` of many launches), after ``warmup`` calls. If the
+    card reached the start event before the last call was issued, the run
+    is repeated behind a spin twice as long, up to 16 times the first (a
     ``fn`` that waits for the card itself is then timed as it runs)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    cycles = reps * SPIN_CYCLES_PER_CALL
+    first = reps * int(cycles_per_call)
+    cycles = first
     while True:
         torch.cuda._sleep(cycles)
         start.record()
@@ -38,6 +40,6 @@ def device_ms(fn, reps=20, warmup=3):
         end.record()
         ahead = not start.query()
         end.synchronize()
-        if ahead or cycles >= 16 * reps * SPIN_CYCLES_PER_CALL:
+        if ahead or cycles >= 16 * first:
             return start.elapsed_time(end) / reps
         cycles *= 2

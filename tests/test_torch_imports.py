@@ -52,6 +52,9 @@ def test_port_imports_no_jax():
             "import gravinv3dhmc_tpu_torch.runtime.sink_py\n"
             "import gravinv3dhmc_tpu_torch.inversion.joint\n"
             "import gravinv3dhmc_tpu_torch.global_tess\n"
+            "import gravinv3dhmc_tpu_torch.bounded_map\n"
+            "import gravinv3dhmc_tpu_torch.global_chees\n"
+            "import gravinv3dhmc_tpu_torch.roofline\n"
             "import gravinv3dhmc_tpu_torch.workloads\n"
             "import gravinv3dhmc_tpu_torch.run\n"
             "import gravinv3dhmc_tpu_torch.profiling\n"
