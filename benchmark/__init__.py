@@ -1,0 +1,6 @@
+"""The benchmark of ``gravinv3dhmc_tpu_torch`` on one NVIDIA H100.
+
+``python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once (see
+``README.md`` beside this file).
+"""
