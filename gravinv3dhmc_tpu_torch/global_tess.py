@@ -194,8 +194,8 @@ def sample(wl, dobs, module, nsamples=500, ndraws=0, nchains=2,
 def profile_post_freeze(module, dobs, stats, chain_args, chunk_idx=1):
     """One chunk of the frozen kernel (``stats``' step size and metric)
     from the chains' final state, under ``torch.profiler`` after a warm
-    chunk (:func:`~.uniformgrid.profile_run`): ``(summary, profiler)``."""
-    from .uniformgrid import profile_run
+    chunk (:func:`~.profiling.profile_run`): ``(summary, profiler)``."""
+    from .profiling import profile_run
 
     a = chain_args
     chain = hmc.HamiltonianMC(module)

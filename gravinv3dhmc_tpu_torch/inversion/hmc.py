@@ -65,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from .._device import as_tensor, resolve
 from ..checkpoint import load_extra, load_state, save_state
 from ..diagnostics import median
@@ -195,38 +196,39 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                buf_k, wstate):
         """Sample storage, accept counting, the stats row and the Welford
         moments (x may carry lane pads past the model's width)."""
-        xm = x[:, :buf_m.shape[-1]]
-        if store_mode == "accepted":
-            # reference parity: each chain writes its own accepted-count
-            # row; a gather/select/scatter keeps the host out of it
-            store = accept & (nacc >= ndraws) & (nacc < total)
-            idx = torch.clamp(nacc - ndraws, 0, nsamples - 1).long()
-            chain_ix = torch.arange(x.shape[0], device=x.device)
-            m_rows, k_rows = make_rows(xm, U, u_data, u_model)
-            buf_m[chain_ix, idx] = torch.where(store[:, None], m_rows,
-                                               buf_m[chain_ix, idx])
-            buf_k[chain_ix, idx] = torch.where(store[:, None], k_rows,
-                                               buf_k[chain_ix, idx])
-        elif store_mode == "chain":
-            # every store_thin-th post-accept state at a shared slot
-            span = ndraws + nsamples * store_thin
-            if ndraws <= rel < span and (rel - ndraws) % store_thin == 0:
-                slot = min((rel - ndraws) // store_thin, nsamples - 1)
+        with profiling.span("hmc.store"):
+            xm = x[:, :buf_m.shape[-1]]
+            if store_mode == "accepted":
+                # reference parity: each chain writes its own accepted-count
+                # row; a gather/select/scatter keeps the host out of it
+                store = accept & (nacc >= ndraws) & (nacc < total)
+                idx = torch.clamp(nacc - ndraws, 0, nsamples - 1).long()
+                chain_ix = torch.arange(x.shape[0], device=x.device)
                 m_rows, k_rows = make_rows(xm, U, u_data, u_model)
-                buf_m[:, slot] = m_rows
-                buf_k[:, slot] = k_rows
-        nacc = nacc + accept.to(nacc.dtype)
-        L_col = (L.to(U.device, dtype) if torch.is_tensor(L)
-                 else torch.full_like(U, float(L)))
-        stats = torch.stack([accept.to(dtype), U, u_data, u_model, L_col],
-                            dim=-1)
-        carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)
-        if wstate is not None:
-            # per-chain running moments of the post-accept position
-            w = welford_update(dict(zip(("mean", "m2", "count"), wstate)),
-                               xm)
-            carry = carry + (w["mean"], w["m2"], w["count"])
-        return carry, stats
+                buf_m[chain_ix, idx] = torch.where(store[:, None], m_rows,
+                                                   buf_m[chain_ix, idx])
+                buf_k[chain_ix, idx] = torch.where(store[:, None], k_rows,
+                                                   buf_k[chain_ix, idx])
+            elif store_mode == "chain":
+                # every store_thin-th post-accept state at a shared slot
+                span = ndraws + nsamples * store_thin
+                if ndraws <= rel < span and (rel - ndraws) % store_thin == 0:
+                    slot = min((rel - ndraws) // store_thin, nsamples - 1)
+                    m_rows, k_rows = make_rows(xm, U, u_data, u_model)
+                    buf_m[:, slot] = m_rows
+                    buf_k[:, slot] = k_rows
+            nacc = nacc + accept.to(nacc.dtype)
+            L_col = (L.to(U.device, dtype) if torch.is_tensor(L)
+                     else torch.full_like(U, float(L)))
+            stats = torch.stack([accept.to(dtype), U, u_data, u_model, L_col],
+                                dim=-1)
+            carry = (x, U, g, u_data, u_model, nacc, buf_m, buf_k)
+            if wstate is not None:
+                # per-chain running moments of the post-accept position
+                w = welford_update(dict(zip(("mean", "m2", "count"), wstate)),
+                                   xm)
+                carry = carry + (w["mean"], w["m2"], w["count"])
+            return carry, stats
 
     def one_iteration(carry, L, n01, u, salt, git, dt, inv_mass, params,
                       rel):
@@ -345,57 +347,69 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
 
     def run_chunk(carry, seed, chunk_idx, params=None, dt=dt_default,
                   inv_mass=None, store_base=0):
-        params = potential_fn.params if params is None else params
-        dt = rounded(dt)
-        if inv_mass is not None:
-            inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=device)
-        salt = philox.salt_from_seed(seed)
-        if inv_mass is not None and mesh is not None \
-                and inv_mass.shape[-1] == M_glob:
-            inv_mass = inv_mass[..., m0:m1]
-        Ls = (None if draws is not None else
-              _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax,
-                             (carry[0].shape[0] if mesh is None else C_glob)
-                             if per_chain else None))
-        if mesh is not None and per_chain and Ls is not None:
-            # the whole batch's lengths, cut to this rank's chains
-            Ls = [row[c0:c1] for row in Ls]
-        M = carry[0].shape[1]
-        op = fused_iteration or fused_trajectory or fused_step
-        if op is not None:
-            # a fused path's carry stays lane-padded (zero pads) for the
-            # whole chunk: no padding or slicing per iteration
-            pad = (0, op.Mp - M)
-            carry = (F.pad(carry[0], pad), carry[1], F.pad(carry[2], pad),
-                     *carry[3:])
-        stats = []
-        for i in range(chunk_size):
-            if draws is not None:
-                L, n01, u = draws(chunk_idx, i)
-                if mesh is not None:
-                    # the whole batch's draws, cut to this rank's block
-                    n01 = np.asarray(n01)[c0:c1, m0:m1]
-                    u = np.asarray(u)[c0:c1]
-                    if per_chain:
-                        L = np.asarray(L)[c0:c1]
-            else:
-                L, n01, u = Ls[i], None, None
-            if n01 is not None:
-                # injected draws, made (C, M) tensors once an iteration
-                n01 = torch.as_tensor(np.array(n01), dtype=dtype,
-                                      device=device)
-                u = torch.as_tensor(np.array(u), dtype=dtype, device=device)
-            L = (torch.as_tensor(np.asarray(L), dtype=torch.int64)
-                 if per_chain else int(L))
-            carry, st = one_iteration(
-                carry, L, n01, u, salt, chunk_idx * chunk_size + i, dt,
-                inv_mass, params, store_base + i)
-            stats.append(st)
-        if op is not None:
-            carry = (carry[0][:, :M], carry[1], carry[2][:, :M], *carry[3:])
-        if mesh is not None:
-            _check_lockstep(mesh, carry[5], chunk_idx)
-        return carry, torch.stack(stats)
+        # spans (profiling.py): hmc.chunk around the chunk, hmc.lengths
+        # around the host draw of L, hmc.iteration around each iteration
+        # (its batch steps, and a marker on the card where it starts)
+        with profiling.chunk(chunk_idx):
+            params = potential_fn.params if params is None else params
+            dt = rounded(dt)
+            if inv_mass is not None:
+                inv_mass = torch.as_tensor(inv_mass, dtype=dtype,
+                                           device=device)
+            salt = philox.salt_from_seed(seed)
+            if inv_mass is not None and mesh is not None \
+                    and inv_mass.shape[-1] == M_glob:
+                inv_mass = inv_mass[..., m0:m1]
+            with profiling.span("hmc.lengths"):
+                Ls = (None if draws is not None else
+                      _chunk_lengths(seed, chunk_idx, chunk_size, Lmin, Lmax,
+                                     (carry[0].shape[0] if mesh is None
+                                      else C_glob) if per_chain else None))
+            if mesh is not None and per_chain and Ls is not None:
+                # the whole batch's lengths, cut to this rank's chains
+                Ls = [row[c0:c1] for row in Ls]
+            M = carry[0].shape[1]
+            op = fused_iteration or fused_trajectory or fused_step
+            if op is not None:
+                # a fused path's carry stays lane-padded (zero pads) for
+                # the whole chunk: no padding or slicing per iteration
+                pad = (0, op.Mp - M)
+                carry = (F.pad(carry[0], pad), carry[1],
+                         F.pad(carry[2], pad), *carry[3:])
+            stats = []
+            for i in range(chunk_size):
+                if draws is not None:
+                    L, n01, u = draws(chunk_idx, i)
+                    if mesh is not None:
+                        # the whole batch's draws, cut to this rank's block
+                        n01 = np.asarray(n01)[c0:c1, m0:m1]
+                        u = np.asarray(u)[c0:c1]
+                        if per_chain:
+                            L = np.asarray(L)[c0:c1]
+                else:
+                    L, n01, u = Ls[i], None, None
+                if n01 is not None:
+                    # injected draws, made (C, M) tensors once an iteration
+                    n01 = torch.as_tensor(np.array(n01), dtype=dtype,
+                                          device=device)
+                    u = torch.as_tensor(np.array(u), dtype=dtype,
+                                        device=device)
+                L = (torch.as_tensor(np.asarray(L), dtype=torch.int64)
+                     if per_chain else int(L))
+                with profiling.span("hmc.iteration") as it:
+                    if it is not None:
+                        profiling.mark(it, device, steps=int(L.max())
+                                       if per_chain else L)
+                    carry, st = one_iteration(
+                        carry, L, n01, u, salt, chunk_idx * chunk_size + i,
+                        dt, inv_mass, params, store_base + i)
+                stats.append(st)
+            if op is not None:
+                carry = (carry[0][:, :M], carry[1], carry[2][:, :M],
+                         *carry[3:])
+            if mesh is not None:
+                _check_lockstep(mesh, carry[5], chunk_idx)
+            return carry, torch.stack(stats)
 
     return run_chunk
 

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from .. import profiling
+
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -186,7 +188,10 @@ class Kernel:
 
     Calling it launches the kernel when the first tensor argument lies on
     a CUDA device (and adds one to ``launches``), or runs ``plain`` when it
-    lies on the CPU; either way it returns what they return. ``replaces``
+    lies on the CPU; either way it returns what they return. While tracing
+    is on (:mod:`..profiling`) each call is a span ``kernel.<name>``: on
+    the card the kernel's issue, from the pointer checks through the C
+    entry's return; on the CPU the plain version's run. ``replaces``
     names the TPU kernel it stands for; ``lib_name`` is the key in
     :data:`SOURCES` of the CUDA file its kernel is written in, whose repo
     path is ``source``.
@@ -200,16 +205,22 @@ class Kernel:
                        + SOURCES[lib_name][1].name)
         self.launches = 0
         self._launch = launch
+        self.span_name = "kernel." + name
 
     def __call__(self, *args):
-        device = args[0].device
-        if device.type == "cpu":
-            return self.plain(*args)
-        if device.type != "cuda":
-            raise ValueError(f"{self.name}: no kernel for {device}")
-        out = self._launch(*args)
-        self.launches += 1
-        return out
+        index = profiling.begin(self.span_name) if profiling.ON else None
+        try:
+            device = args[0].device
+            if device.type == "cpu":
+                return self.plain(*args)
+            if device.type != "cuda":
+                raise ValueError(f"{self.name}: no kernel for {device}")
+            out = self._launch(*args)
+            self.launches += 1
+            return out
+        finally:
+            if index is not None:
+                profiling.end(index)
 
 
 #: every kernel of the port by name (filled as ``ops.leapfrog`` and

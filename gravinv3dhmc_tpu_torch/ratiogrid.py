@@ -25,7 +25,7 @@ from . import _device, mesher, utils
 from .inversion.hmc import make_chunk_sampler
 from .inversion.potential import GravMagModule
 from .ops import leapfrog, prism
-from .uniformgrid import profile_run
+from .profiling import profile_run
 
 #: the bench's per-step sampler settings at full width: MS, alpha 1,
 #: bf16 matrix, store_mode 'chain'

@@ -42,9 +42,9 @@ import numpy as np
 import torch
 
 from . import _device
+from .profiling import profile_run
 from .inversion.hmc import HamiltonianMC
 from .inversion.potential import GravMagModule
-from .uniformgrid import profile_run
 
 #: the model region (w, e, s, n, top, bottom) and its depth segments
 MRANGE = (106.5, 118.5, 16, 28, 2000, -60000)
@@ -141,7 +141,7 @@ def trajectory_op(module, dobs, device):
 def profile_frozen_chunk(chain, step_size, inv_mass):
     """One chunk of ``chain`` at the frozen kernel (``step_size`` and the
     adapted ``inv_mass``) under ``torch.profiler``, after a warm chunk:
-    :func:`~.uniformgrid.profile_run`'s summary and profiler. The carry
+    :func:`~.profiling.profile_run`'s summary and profiler. The carry
     is the frozen sampler's: without the warmup's Welford moments."""
     run_chunk, carry = chain.prepare(nsamples=chain.chunk_size, ndraws=0)
     carry = carry[:8]

@@ -55,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from . import _device, realdata, uniformgrid
+from . import _device, profiling, realdata, uniformgrid
 from .diagnostics import ess_torch, median, split_rhat
 from .inversion.chees import run_chees
 from .inversion.hmc import HamiltonianMC
@@ -344,18 +344,12 @@ def profile_chees_iteration(problem, device, step_size, trajectory_time,
         _, st = run_chees(potential, x, **kw)
         _device.sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = uniformgrid._device_intervals(prof)
-    busy_ms = uniformgrid._union_us(spans) / 1e3
-    by_kernel = {}
-    for name, a, b in spans:
-        ms, n = by_kernel.get(name, (0.0, 0))
-        by_kernel[name] = (ms + (b - a) / 1e3, n + 1)
+    spans = profiling.device_intervals(prof)
+    busy_ms = profiling.union_us(spans) / 1e3
     return {"L": int(st["L"][0]), "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
             "kernels_launched": len(spans),
-            "top_kernels": sorted(([k, ms, n] for k, (ms, n)
-                                   in by_kernel.items()),
-                                  key=lambda r: -r[1])[:8]}
+            "top_kernels": profiling.ms_by_name(spans)[:8]}
 
 
 def main(argv=None):

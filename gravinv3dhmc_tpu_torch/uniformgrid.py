@@ -32,15 +32,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
 
-from . import _device, mesher, utils
+from . import _device, mesher, profiling, utils
 from .inversion.hmc import HamiltonianMC
 from .inversion.potential import GravMagModule
-from .ops import leapfrog
 from .ops import prism
 
 #: the bench's uniformgrid sampler settings at full width
@@ -208,79 +206,13 @@ def run_wavelet(device, mode, problem=None, seed=0, nsamples=None,
     return line, res
 
 
-def _device_intervals(prof):
-    """(name, start_us, end_us) of every kernel or copy the profiler saw
-    on a GPU."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == cuda]
-
-
-def _union_us(intervals):
-    busy, end = 0.0, -np.inf
-    for _, a, b in sorted(intervals, key=lambda t: t[1]):
-        if b <= end:
-            continue
-        busy += b - max(a, end)
-        end = b
-    return busy
-
-
 def profile_chunk(chain, chunk_idx=1):
-    """One chunk of ``chain`` under ``torch.profiler`` after a warm chunk:
-    host wall time, device busy time and device time by kernel."""
+    """One chunk of ``chain`` under ``torch.profiler`` after a warm chunk
+    (:func:`.profiling.profile_run`): host wall time, device busy time,
+    device time by kernel, host time and device idle by program span."""
     run_chunk, carry = chain.prepare(nsamples=chain.chunk_size, ndraws=0)
-    return profile_run(run_chunk, carry, chain.seed,
+    return profiling.profile_run(run_chunk, carry, chain.seed,
                        _device.resolve(chain.device), chunk_idx)
-
-
-def profile_run(run_chunk, carry, seed, device, chunk_idx=1):
-    """Chunk ``chunk_idx`` of ``run_chunk`` under ``torch.profiler`` after
-    a warm chunk 0: ``(summary, profiler)`` with the host wall time, the
-    device busy time, device time by kernel and the wrappers' launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    device = torch.device(device)
-    carry, _ = run_chunk(carry, seed, 0)
-    _device.sync(device)
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    leapfrog.reset_launch_counts()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        carry, stats = run_chunk(carry, seed, chunk_idx)
-        _device.sync(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = leapfrog.launch_counts()
-    spans = _device_intervals(prof)
-    by_kernel = {}
-    for name, a, b in spans:
-        ms, n = by_kernel.get(name, (0.0, 0))
-        by_kernel[name] = (ms + (b - a) / 1e3, n + 1)
-    busy_ms = _union_us(spans) / 1e3 if spans else None
-    # device time by owner: the port's kernels (csrc/*.cu, all in an
-    # anonymous namespace), device-to-device copies, and PyTorch's own
-    # kernels (the eager ops around them)
-    owners = dict.fromkeys(("port", "memcpy", "torch"), 0.0)
-    for name, (ms, _) in by_kernel.items():
-        owners["port" if name.startswith("(anonymous namespace)::") else
-               "memcpy" if name.startswith("Memcpy") else "torch"] += ms
-    return {
-        "iterations": stats.shape[0], "chains": stats.shape[1],
-        "steps": int(stats[:, 0, 4].sum().item()),
-        # potential evaluations of the chain batch: an iteration runs to
-        # its longest L (all of them equal under a shared L)
-        "batch_steps": int(stats[..., 4].max(dim=1).values.sum().item()),
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "busy_share": None if busy_ms is None else busy_ms / wall_ms,
-        "device_ms_by_owner": owners if busy_ms else None,
-        "share_of_busy_by_owner": ({k: v / busy_ms for k, v in owners.items()}
-                                   if busy_ms else None),
-        "launches": launches,
-        "by_kernel": sorted(([k, ms, n] for k, (ms, n) in by_kernel.items()),
-                            key=lambda r: -r[1]),
-    }, prof
 
 
 def time_products(module, device, C, rounds=5):

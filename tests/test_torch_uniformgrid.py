@@ -33,6 +33,13 @@ def test_profile_chunk_on_cpu():
     assert summary["busy_share"] is None
     assert summary["device_ms_by_owner"] is None
     assert summary["launches"] == {name: 0 for name in tlf.KERNELS}
+    # the profiler turned the program's spans on for the profiled chunk:
+    # host self time by span, no device idle without a card
+    host = {name: (ms, n) for name, ms, n in summary["host_ms_by_span"]}
+    assert host["hmc.chunk"][1] == 1 and host["hmc.iteration"][1] == 4
+    assert host["kernel.kick_f32"][1] == summary["steps"]
+    assert sum(ms for ms, _ in host.values()) <= summary["wall_ms"]
+    assert summary["idle_ms_by_span"] is None
 
 
 def test_padded_fused_carry_matches_unfused_path():
