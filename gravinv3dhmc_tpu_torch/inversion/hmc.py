@@ -6,10 +6,13 @@ shared-L, fused-step, fused-trajectory and fused-iteration paths, the
 'accepted', 'chain' and 'none' storage modes and the Welford moments of
 the warmup metric, and :class:`HamiltonianMC` whose ``sample()`` runs the
 fixed-dt loop or the JAX package's windowed warmup (dual-averaged dt, a
-diagonal metric from Welford moments, then a frozen kernel). The
-reference semantics carried over are listed in the JAX module's
-docstring (Sigma-scaled identity kinetic, 'mandatory' clamp-and-negate,
-carried (U, g) between iterations, Metropolis on the full Hamiltonian).
+diagonal metric from Welford moments, then a frozen kernel), and whose
+``adapt()`` runs that warmup alone and hands over the frozen kernel and
+the warmed chains (:class:`Frozen`) for a caller to issue the frozen
+chunks itself. The reference semantics carried over are listed in the
+JAX module's docstring (Sigma-scaled identity kinetic, 'mandatory'
+clamp-and-negate, carried (U, g) between iterations, Metropolis on the
+full Hamiltonian).
 
 Randomness. One trajectory length L per iteration, shared by all chains,
 is drawn on the host from a CPU ``torch.Generator`` seeded by (seed,
@@ -442,6 +445,30 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
                  last[1][:, :M].clone(), last[3].clone(), last[4].clone(),
                  b.nacc.clone(), buf_m, buf_k), b.stats.clone())
 
+    # the last metric given in another type, kind or place than the
+    # sampler's, with what it was when converted: (given, its version or a
+    # copy of its values, the converted tensor)
+    metric_cache = [None, None, None]
+
+    def metric_tensor(inv_mass):
+        """The metric as a tensor of the sampler's dtype on its device:
+        the same tensor every chunk while the caller passes the same
+        unchanged array, so that the chunk's graphs replay."""
+        if inv_mass is None or (torch.is_tensor(inv_mass)
+                                and inv_mass.dtype == dtype
+                                and inv_mass.device == device):
+            return inv_mass
+        given, seen, converted = metric_cache
+        if given is inv_mass and (
+                seen == inv_mass._version if torch.is_tensor(inv_mass)
+                else np.array_equal(seen, inv_mass)):
+            return converted
+        converted = torch.as_tensor(inv_mass, dtype=dtype, device=device)
+        metric_cache[:] = (inv_mass, inv_mass._version
+                           if torch.is_tensor(inv_mass)
+                           else np.array(inv_mass, copy=True), converted)
+        return converted
+
     def run_chunk(carry, seed, chunk_idx, params=None, dt=dt_default,
                   inv_mass=None, store_base=0):
         # spans (profiling.py): hmc.chunk around the chunk, hmc.lengths
@@ -450,9 +477,7 @@ def make_chunk_sampler(potential_fn, *, dt, Lmin, Lmax, Sigma, low, high,
         with profiling.chunk(chunk_idx):
             params = potential_fn.params if params is None else params
             dt = rounded(dt)
-            if inv_mass is not None:
-                inv_mass = torch.as_tensor(inv_mass, dtype=dtype,
-                                           device=device)
+            inv_mass = metric_tensor(inv_mass)
             salt = philox.salt_from_seed(seed)
             if inv_mass is not None and mesh is not None \
                     and inv_mass.shape[-1] == M_glob:
@@ -801,6 +826,105 @@ class HamiltonianMC:
                                  (C, M))
         return run_chunk, init_carry(x0)
 
+    def adapt(self, nsamples, ndraws):
+        """Run the windowed warmup exactly as :meth:`sample` does and hand
+        over the frozen kernel: a :class:`Frozen` record with the chunk
+        runner (:meth:`prepare`'s, for ``nsamples`` and ``ndraws``), the
+        frozen dt, the inverse mass (the sampler's dtype, on its device;
+        None without ``adapt_mass``) and the warmed chains' carry, their
+        accept counts restarted and without Welford moments, so that a
+        caller issues the frozen chunks itself (:meth:`Frozen.run`, chunk
+        ``n_chunks`` on) as :meth:`sample` goes on after its freeze.
+        Under ``spmd_mesh`` the carry and metric are this rank's blocks.
+        Needs ``adapt_step_size`` or ``adapt_mass``."""
+        if not (self.adapt_step_size or self.adapt_mass):
+            raise ValueError("adapt() runs the warmup: set adapt_step_size "
+                             "or adapt_mass")
+        run_chunk, carry = self.prepare(nsamples, ndraws)
+        loop = _ChunkLoop(self, run_chunk, carry,
+                          _Layout(self.spmd_mesh, self.nchains,
+                                  self.initial_model.shape[-1],
+                                  self.adapt_mass),
+                          nsamples, ndraws)
+        loop.read_counts()
+        self._warmup(loop)
+        return Frozen(run_chunk, loop.carry, loop.dt, loop.inv_mass,
+                      loop.seed, loop.n_chunks, loop.grad_evals)
+
+    def _warmup(self, loop):
+        """The windowed warmup on ``loop`` (:func:`warmup_schedule`), from
+        its chunk 0 to the freeze at W (or to ``loop.max_chunks``), in an
+        ``hmc.adapt`` span; the freeze in an ``hmc.freeze`` span. Counts
+        ``adapt_chunks``, ``metric_switches`` and ``adapt_grad_evals``."""
+        W, w1, metric_switches = warmup_schedule(
+            self.adapt_chunks, self.adapt_step_size, self.adapt_mass)
+        lay, C, dtype = loop.lay, self.nchains, self.dtype
+        device = loop.carry[0].device
+        da = dual_averaging_init(loop.dt, target=self.adapt_target)
+        loop.frozen = False
+        with profiling.chunk(None, "hmc.adapt", chunks=W):
+            while not loop.frozen:
+                if loop.max_chunks is not None \
+                        and loop.n_chunks >= loop.max_chunks:
+                    break
+                acc_rate, ge = loop.step()
+                profiling.count("adapt_chunks")
+                profiling.count("adapt_grad_evals", ge)
+                n_chunks = loop.n_chunks
+                da = dual_averaging_update(da, acc_rate)
+                loop.dt = float(np.exp(da["log_eps"]))
+                if self.adapt_mass and n_chunks == w1:
+                    # open the first Welford window: discard the initial
+                    # transient's moments
+                    loop.carry = loop.carry[:8] + lay.zero_moments(dtype,
+                                                                   device)
+                if self.adapt_mass and n_chunks in metric_switches:
+                    # inverse mass = pooled per-chain variance of THIS
+                    # window with Stan's shrinkage toward unity
+                    cnt = loop.carry[10]
+                    m2 = lay.chain_sum(loop.carry[9].sum(0))
+                    pooled = dict(m2=m2 / C, count=cnt)
+                    var = shrink(welford_variance(pooled, regularize=False),
+                                 cnt * C)
+                    new_inv_mass = torch.clamp(var, min=1e-12)
+                    med_std = float(median(torch.sqrt(
+                        lay.full_cells(new_inv_mass))))
+                    if loop.inv_mass is None:
+                        # first switch: the kinetic changes from the
+                        # Sigma-scaled identity to the diagonal metric;
+                        # re-seed dt at a matched position-step scale
+                        # (dx ~ dt*Sigma before, dt*std after)
+                        loop.dt = float(np.clip(
+                            loop.dt * float(self.Sigma)
+                            / max(med_std, 1e-30), 1e-10, 1e6))
+                    loop.inv_mass = new_inv_mass
+                    da = dual_averaging_init(loop.dt,
+                                             target=self.adapt_target)
+                    # fresh Welford window for the next (longer) estimate
+                    loop.carry = loop.carry[:8] + lay.zero_moments(dtype,
+                                                                   device)
+                    profiling.count("metric_switches")
+                    if loop.talk:
+                        print(f"adapted diagonal mass at chunk {n_chunks} "
+                              f"(median std {med_std:.4g}); re-tuning dt "
+                              f"from {loop.dt:.5g}", flush=True)
+                if n_chunks == W:
+                    with profiling.span("hmc.freeze"):
+                        loop.dt = float(np.exp(da["log_eps_avg"]))
+                        loop.frozen = True
+                        # every stored sample comes from the frozen
+                        # kernel: restart the accept and throughput
+                        # counters; nothing reads the Welford moments any
+                        # more
+                        loop.carry = _restart_counts(loop.carry)[:8]
+                        loop.acc_min, loop.acc_sum, loop.attempted = 0, 0, 0
+                        loop.store_iters = 0
+                    if loop.talk:
+                        print(f"warmup done at chunk {n_chunks}: frozen "
+                              f"dt={loop.dt:.5g}; sample storage reset",
+                              flush=True)
+                loop.after_chunk()
+
     def sample(self, nsamples, ndraws, max_chunks=None, callback=None,
                checkpoint_path=None, checkpoint_every=20, resume=True,
                draws=None):
@@ -876,15 +1000,9 @@ class HamiltonianMC:
         mesh = self.spmd_mesh
         lay = _Layout(mesh, C, M, self.adapt_mass)
         device = carry[0].device
-        talk = self.verbose and lay.lead
-        chain_mode = self.store_mode == "chain"
-        chain_span = ndraws + nsamples * self.store_thin
-        data_size = self.dobs.shape[0]
-        alpha = self.RegulFactor
-        seed = self.seed + self.myrank
         adapting = self.adapt_step_size or self.adapt_mass
-        W, w1, metric_switches = warmup_schedule(
-            self.adapt_chunks, self.adapt_step_size, self.adapt_mass)
+        W = warmup_schedule(self.adapt_chunks, self.adapt_step_size,
+                            self.adapt_mass)[0]
         if max_chunks is None:
             max_chunks = max(200, 100 * total // self.chunk_size + 10) + W
 
@@ -894,180 +1012,92 @@ class HamiltonianMC:
                      "adapt": [bool(self.adapt_step_size),
                                bool(self.adapt_mass),
                                int(self.adapt_chunks)]}
-        n_chunks = store_iters = 0
-        dt_cur = float(self.dt)
-        inv_mass = None
-        frozen = not adapting
+        loop = _ChunkLoop(self, run_chunk, carry, lay, nsamples, ndraws,
+                          max_chunks)
+        loop.frozen = not adapting
+        loop.checkpoint_path = checkpoint_path
         if checkpoint_path and resume and os.path.exists(checkpoint_path):
-            carry, n_chunks, _, meta = lay.load(checkpoint_path, carry)
+            loop.carry, loop.n_chunks, _, meta = lay.load(checkpoint_path,
+                                                          carry)
             meta = dict(meta)
-            store_iters = int(meta.pop("store_iters", 0))
+            loop.store_iters = int(meta.pop("store_iters", 0))
             meta.setdefault("store_mode", "accepted")
             if meta != ckpt_meta:
                 raise ValueError(
                     f"checkpoint config mismatch: {meta} != {ckpt_meta}")
             if adapting:
-                dt_cur, inv_mass = _frozen_kernel(
-                    checkpoint_path, n_chunks, self.adapt_mass, self.dtype,
-                    device)
-                inv_mass = lay.cells(inv_mass)
-                frozen = True
-                carry = carry[:8]
-            if talk:
+                loop.dt, inv_mass = _frozen_kernel(
+                    checkpoint_path, loop.n_chunks, self.adapt_mass,
+                    self.dtype, device)
+                loop.inv_mass = lay.cells(inv_mass)
+                loop.frozen = True
+                loop.carry = loop.carry[:8]
+            if lay.lead and self.verbose:
                 print(f"resumed from {checkpoint_path} at chunk "
-                      f"{n_chunks}", flush=True)
+                      f"{loop.n_chunks}", flush=True)
 
         def snapshot():
-            leaves = carry
+            leaves = loop.carry
             if self.adapt_mass and len(leaves) == 8:
                 leaves = leaves + lay.zero_moments(self.dtype, device)
-            extra = {"step_size": np.float64(dt_cur),
-                     "frozen": np.bool_(frozen)}
-            if inv_mass is not None:
-                extra["inv_mass"] = lay.full_cells(inv_mass).cpu().numpy()
+            extra = {"step_size": np.float64(loop.dt),
+                     "frozen": np.bool_(loop.frozen)}
+            if loop.inv_mass is not None:
+                extra["inv_mass"] = lay.full_cells(
+                    loop.inv_mass).cpu().numpy()
             # under a mesh every rank gathers the global leaves and rank 0
             # writes the unsharded layout
             leaves = lay.full_carry(leaves)
             if lay.lead:
-                save_state(checkpoint_path, leaves, n_chunks,
-                           philox.salt_from_seed(seed),
-                           meta=dict(ckpt_meta, store_iters=store_iters),
+                save_state(checkpoint_path, leaves, loop.n_chunks,
+                           philox.salt_from_seed(loop.seed),
+                           meta=dict(ckpt_meta,
+                                     store_iters=loop.store_iters),
                            extra=extra)
 
+        def after_chunk():
+            if callback is not None:
+                callback(loop.carry[5].cpu().numpy().astype(np.int64),
+                         loop.carry[0])
+            if (checkpoint_path and loop.frozen
+                    and loop.n_chunks % checkpoint_every == 0):
+                snapshot()
+
+        loop.after_chunk = after_chunk
         t0 = time.time()
-        attempted = grad_evals = 0
-        acc_min, acc_sum = lay.counts(carry[5])
-        da = None
-        if adapting and not frozen:
-            da = dual_averaging_init(dt_cur, target=self.adapt_target)
-
-        def storage_done():
-            return (store_iters >= chain_span) if chain_mode \
-                else (acc_min >= total)
-
-        while not (storage_done() and frozen):
-            if n_chunks >= max_chunks:
+        loop.read_counts()
+        if not loop.frozen:
+            self._warmup(loop)
+        while not (loop.storage_done() and loop.frozen):
+            if loop.n_chunks >= max_chunks:
                 if lay.lead:
-                    print(f"WARNING: stopping after {n_chunks} chunks with "
-                          f"min accepted count {acc_min}")
+                    print(f"WARNING: stopping after {loop.n_chunks} chunks "
+                          f"with min accepted count {loop.acc_min}")
                 break
-            counted = frozen  # this chunk runs with storage active
-            carry, stats = run_chunk(
-                carry, seed, n_chunks, dt=dt_cur, inv_mass=inv_mass,
-                store_base=store_iters if frozen else STORE_OFF)
-            # one host read a chunk: a stacked reduction (under a mesh
-            # made global over the chains group first)
-            reduced = lay.chunk_read(torch.stack([
-                torch.isfinite(stats).all().to(torch.float64),
-                stats[..., 4].sum(dtype=torch.float64),
-                stats[..., 0].sum(dtype=torch.float64),
-                carry[5].min().to(torch.float64),
-                carry[5].sum(dtype=torch.float64),
-                stats[-1, 0, 2].to(torch.float64),
-                stats[-1, 0, 3].to(torch.float64)])).tolist()
-            finite, ge, acc_chunk, amin, asum, ud_l, um_l = reduced
-            if not finite:
-                bad = torch.nonzero(
-                    ~torch.isfinite(stats[..., 1]).all(dim=0)).flatten()
-                bad = (bad + lay.c0).tolist()
-                raise FloatingPointError(
-                    f"non-finite potential in chains {bad} at "
-                    f"chunk {n_chunks} (dt={self.dt}, Sigma={self.Sigma}); "
-                    "reduce the step size or check the kernel matrix. "
-                    + (f"Last good state: {checkpoint_path}"
-                       if checkpoint_path else
-                       "Set checkpoint_path to make such runs resumable."))
-            # the chunk's mean accept as the JAX package's f32 mean
-            acc_rate = float(np.float32(acc_chunk)
-                             / np.float32(stats.shape[0] * C))
-            acc_min, acc_sum = int(amin), int(asum)
-            n_chunks += 1
-            attempted += self.chunk_size * C
-            grad_evals += int(ge)
-            if counted:
-                store_iters += self.chunk_size
-            if talk:
-                frac = (min(store_iters / chain_span, 1.0) if chain_mode
-                        else min(acc_min / total, 1.0))
-                print("chain {}: {:.2%}, misfit(total, data, alpha, model)="
-                      "({:.7f},{:.7f},{:.2f},{:.7f}) -- accept ratio {:.2%}"
-                      .format(self.myrank, frac,
-                              ud_l / data_size + alpha * um_l / M,
-                              ud_l / data_size, alpha, um_l / M,
-                              acc_sum / attempted),
-                      flush=True)
-            if not frozen:
-                da = dual_averaging_update(da, acc_rate)
-                dt_cur = float(np.exp(da["log_eps"]))
-                if self.adapt_mass and n_chunks == w1:
-                    # open the first Welford window: discard the initial
-                    # transient's moments
-                    carry = carry[:8] + lay.zero_moments(self.dtype, device)
-                if self.adapt_mass and n_chunks in metric_switches:
-                    # inverse mass = pooled per-chain variance of THIS
-                    # window with Stan's shrinkage toward unity
-                    cnt = carry[10]
-                    m2 = lay.chain_sum(carry[9].sum(0))
-                    pooled = dict(m2=m2 / C, count=cnt)
-                    var = shrink(welford_variance(pooled, regularize=False),
-                                 cnt * C)
-                    new_inv_mass = torch.clamp(var, min=1e-12)
-                    med_std = float(median(torch.sqrt(
-                        lay.full_cells(new_inv_mass))))
-                    if inv_mass is None:
-                        # first switch: the kinetic changes from the
-                        # Sigma-scaled identity to the diagonal metric;
-                        # re-seed dt at a matched position-step scale
-                        # (dx ~ dt*Sigma before, dt*std after)
-                        dt_cur = float(np.clip(
-                            dt_cur * float(self.Sigma)
-                            / max(med_std, 1e-30), 1e-10, 1e6))
-                    inv_mass = new_inv_mass
-                    da = dual_averaging_init(dt_cur,
-                                             target=self.adapt_target)
-                    # fresh Welford window for the next (longer) estimate
-                    carry = carry[:8] + lay.zero_moments(self.dtype, device)
-                    if talk:
-                        print(f"adapted diagonal mass at chunk {n_chunks} "
-                              f"(median std {med_std:.4g}); re-tuning dt "
-                              f"from {dt_cur:.5g}", flush=True)
-                if n_chunks == W:
-                    dt_cur = float(np.exp(da["log_eps_avg"]))
-                    frozen = True
-                    # every stored sample comes from the frozen kernel:
-                    # restart the accept and throughput counters; nothing
-                    # reads the Welford moments any more
-                    carry = _restart_counts(carry)[:8]
-                    acc_min, acc_sum, attempted = 0, 0, 0
-                    store_iters = 0
-                    if talk:
-                        print(f"warmup done at chunk {n_chunks}: frozen "
-                              f"dt={dt_cur:.5g}; sample storage reset",
-                              flush=True)
-            elif (adapting and acc_min == 0
+            acc_rate, _ = loop.step()
+            if (adapting and loop.acc_min == 0
                     and acc_rate < 0.25 * self.adapt_target):
                 # emergency brake: the frozen dt rejects (almost)
                 # everything and some chain has stored nothing yet --
                 # halve dt and restart the counters so storage stays
                 # consistent with one kernel
-                dt_cur *= 0.5
-                carry = _restart_counts(carry)
-                attempted, acc_sum = 0, 0
-                store_iters = 0
-                if talk:
+                loop.dt *= 0.5
+                loop.carry = _restart_counts(loop.carry)
+                loop.attempted, loop.acc_sum = 0, 0
+                loop.store_iters = 0
+                if loop.talk:
                     print(f"post-freeze accept {acc_rate:.2%} -- halving "
-                          f"dt to {dt_cur:.5g}", flush=True)
-            if callback is not None:
-                callback(carry[5].cpu().numpy().astype(np.int64), carry[0])
-            if (checkpoint_path and frozen
-                    and n_chunks % checkpoint_every == 0):
-                snapshot()
+                          f"dt to {loop.dt:.5g}", flush=True)
+            after_chunk()
         if checkpoint_path:
             snapshot()
         elapsed = time.time() - t0
 
+        carry, dt_cur, inv_mass = loop.carry, loop.dt, loop.inv_mass
+        store_iters, attempted = loop.store_iters, loop.attempted
+        grad_evals = loop.grad_evals
         accepted = lay.full_chains(carry[5]).cpu().numpy().astype(np.int64)
-        if chain_mode:
+        if self.store_mode == "chain":
             done_iters = max(store_iters - ndraws, 0)
             n_stored = np.full(
                 C, min((done_iters + self.store_thin - 1)
@@ -1143,6 +1173,127 @@ def _frozen_kernel(path, n_chunks, adapt_mass, dtype, device):
     inv_mass = (torch.as_tensor(extra["inv_mass"], dtype=dtype,
                                 device=device) if adapt_mass else None)
     return float(extra["step_size"]), inv_mass
+
+
+class Frozen:
+    """The kernel the windowed warmup froze and the chains it warmed
+    (:meth:`HamiltonianMC.adapt`): ``run_chunk`` (the sampler's chunk
+    runner), ``carry`` (the warmed chains, accept counts at 0, no Welford
+    moments), ``dt`` (the frozen step size), ``inv_mass`` (the diagonal
+    inverse mass as a tensor of the sampler's dtype on its device, or
+    None), ``seed`` (the run's Philox seed), ``n_chunks`` (the chunks the
+    warmup ran: the first frozen chunk's index) and ``grad_evals`` (the
+    warmup's gradient evaluations). ``inv_mass`` is the same tensor on
+    every call, so frozen chunks replay from CUDA graphs where the chunk
+    runner captures them."""
+
+    __slots__ = ("run_chunk", "carry", "dt", "inv_mass", "seed", "n_chunks",
+                 "grad_evals")
+
+    def __init__(self, run_chunk, carry, dt, inv_mass, seed, n_chunks,
+                 grad_evals):
+        self.run_chunk, self.carry = run_chunk, carry
+        self.dt, self.inv_mass, self.seed = dt, inv_mass, seed
+        self.n_chunks, self.grad_evals = n_chunks, grad_evals
+
+    def run(self, carry, chunk_idx, store_base=0):
+        """Frozen chunk ``chunk_idx`` from ``carry``: ``(carry, stats)``,
+        as :meth:`HamiltonianMC.sample` issues it after the freeze
+        (``store_base`` the iterations stored before it)."""
+        return self.run_chunk(carry, self.seed, chunk_idx, dt=self.dt,
+                              inv_mass=self.inv_mass, store_base=store_base)
+
+
+class _ChunkLoop:
+    """The state :meth:`HamiltonianMC.sample`'s chunk loop and its warmup
+    share: the carry, the chunk count, the kernel (``dt``, ``inv_mass``,
+    ``frozen``), the accept, storage and throughput counters. :meth:`step`
+    issues one chunk with the bookkeeping every chunk gets;
+    ``after_chunk`` (a no-op unless set) follows every chunk."""
+
+    def __init__(self, hmc, run_chunk, carry, lay, nsamples, ndraws,
+                 max_chunks=None):
+        self.hmc, self.run_chunk, self.carry, self.lay = (hmc, run_chunk,
+                                                          carry, lay)
+        self.C = hmc.nchains
+        self.M = hmc.initial_model.shape[-1]
+        self.total = nsamples + ndraws
+        self.chain_mode = hmc.store_mode == "chain"
+        self.chain_span = ndraws + nsamples * hmc.store_thin
+        self.max_chunks = max_chunks
+        #: named in the error of a chunk with a non-finite potential
+        self.checkpoint_path = None
+        self.seed = hmc.seed + hmc.myrank
+        self.talk = hmc.verbose and lay.lead
+        self.n_chunks = self.store_iters = 0
+        self.attempted = self.grad_evals = 0
+        self.acc_min = self.acc_sum = 0
+        self.dt = float(hmc.dt)
+        self.inv_mass = None
+        self.frozen = True
+        self.after_chunk = lambda: None
+
+    def read_counts(self):
+        self.acc_min, self.acc_sum = self.lay.counts(self.carry[5])
+
+    def storage_done(self):
+        return (self.store_iters >= self.chain_span) if self.chain_mode \
+            else (self.acc_min >= self.total)
+
+    def step(self):
+        """Issue chunk ``n_chunks`` (storing only once frozen) and count
+        it: ``(acc_rate, grad_evals)``, the chunk's mean accept rate and
+        gradient evaluations."""
+        hmc, lay, C = self.hmc, self.lay, self.C
+        counted = self.frozen  # this chunk runs with storage active
+        self.carry, stats = self.run_chunk(
+            self.carry, self.seed, self.n_chunks, dt=self.dt,
+            inv_mass=self.inv_mass,
+            store_base=self.store_iters if self.frozen else STORE_OFF)
+        # one host read a chunk: a stacked reduction (under a mesh made
+        # global over the chains group first)
+        reduced = lay.chunk_read(torch.stack([
+            torch.isfinite(stats).all().to(torch.float64),
+            stats[..., 4].sum(dtype=torch.float64),
+            stats[..., 0].sum(dtype=torch.float64),
+            self.carry[5].min().to(torch.float64),
+            self.carry[5].sum(dtype=torch.float64),
+            stats[-1, 0, 2].to(torch.float64),
+            stats[-1, 0, 3].to(torch.float64)])).tolist()
+        finite, ge, acc_chunk, amin, asum, ud_l, um_l = reduced
+        if not finite:
+            bad = torch.nonzero(
+                ~torch.isfinite(stats[..., 1]).all(dim=0)).flatten()
+            bad = (bad + lay.c0).tolist()
+            path = self.checkpoint_path
+            raise FloatingPointError(
+                f"non-finite potential in chains {bad} at "
+                f"chunk {self.n_chunks} (dt={hmc.dt}, Sigma={hmc.Sigma}); "
+                "reduce the step size or check the kernel matrix. "
+                + (f"Last good state: {path}" if path else
+                   "Set checkpoint_path to make such runs resumable."))
+        # the chunk's mean accept as the JAX package's f32 mean
+        acc_rate = float(np.float32(acc_chunk)
+                         / np.float32(stats.shape[0] * C))
+        self.acc_min, self.acc_sum = int(amin), int(asum)
+        self.n_chunks += 1
+        self.attempted += hmc.chunk_size * C
+        self.grad_evals += int(ge)
+        if counted:
+            self.store_iters += hmc.chunk_size
+        if self.talk:
+            frac = (min(self.store_iters / self.chain_span, 1.0)
+                    if self.chain_mode
+                    else min(self.acc_min / self.total, 1.0))
+            print("chain {}: {:.2%}, misfit(total, data, alpha, model)="
+                  "({:.7f},{:.7f},{:.2f},{:.7f}) -- accept ratio {:.2%}"
+                  .format(hmc.myrank, frac,
+                          ud_l / hmc.dobs.shape[0]
+                          + hmc.RegulFactor * um_l / self.M,
+                          ud_l / hmc.dobs.shape[0], hmc.RegulFactor,
+                          um_l / self.M, self.acc_sum / self.attempted),
+                  flush=True)
+        return acc_rate, int(ge)
 
 
 class _Layout:

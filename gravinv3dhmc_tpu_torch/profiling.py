@@ -14,7 +14,9 @@ card works (:func:`span`, kept in memory, ordered, bounded by
 (the host draw of the chunk's trajectory lengths), ``hmc.iteration``
 (one iteration: its batch steps ``steps``, and where the card reached
 it), ``hmc.store`` (the sample store, the stats row and the Welford
-moments) and ``kernel.<name>`` (one call of a hand-written kernel: on the
+moments), ``hmc.adapt`` (the windowed warmup, its ``chunks``; it follows
+the profiler as a chunk does), ``hmc.freeze`` (the freeze of its kernel)
+and ``kernel.<name>`` (one call of a hand-written kernel: on the
 card its issue, from the pointer checks to the C entry's return;
 ``kernel.graph`` is one replay of a captured iteration). Each
 span holds its name, its start and end on ``time.time_ns()`` (the
@@ -33,9 +35,12 @@ by one host thread (the sampler's).
 counts how it issued each iteration (:func:`count`): ``graph_captures``
 (CUDA graphs of one iteration captured), ``graph_replays`` (iterations
 issued as one replay of such a graph, each under a ``kernel.graph``
-span) and ``direct_iterations`` (iterations issued launch by launch).
-They count from the buffer's last fresh start (:func:`reset`: a
-profiler session's first chunk, or :func:`enable`), as the spans do.
+span) and ``direct_iterations`` (iterations issued launch by launch),
+and what the windowed warmup did: ``adapt_chunks`` (its chunks),
+``metric_switches`` (the metric re-estimated) and ``adapt_grad_evals``
+(its gradient evaluations of every chain). They count from the
+buffer's last fresh start (:func:`reset`: a profiler session's first
+chunk, or :func:`enable`), as the spans do.
 
 :func:`profile_run` profiles one chunk of a sampler and reduces its
 trace: device busy time, device time by kernel, host self time by span,
@@ -127,7 +132,8 @@ _dropped = 0
 _folded = 0         # the spans before this index are in ``timers``
 #: the sampler's iterations by how they were issued (see :func:`count`)
 _counts = dict.fromkeys(("graph_captures", "graph_replays",
-                         "direct_iterations"), 0)
+                         "direct_iterations", "adapt_chunks",
+                         "metric_switches", "adapt_grad_evals"), 0)
 
 
 def enable(on=True):
@@ -157,8 +163,9 @@ def reset():
 
 def count(name, n=1):
     """Add ``n`` to the sampler's counter ``name`` (``graph_captures``,
-    ``graph_replays`` or ``direct_iterations``); counted whether tracing is
-    on or off."""
+    ``graph_replays``, ``direct_iterations``, ``adapt_chunks``,
+    ``metric_switches`` or ``adapt_grad_evals``); counted whether tracing
+    is on or off."""
     _counts[name] += n
 
 
@@ -257,10 +264,10 @@ def mark(index, device, **attrs):
 
 
 class _Chunk:
-    __slots__ = ("index", "name", "prev", "span")
+    __slots__ = ("index", "name", "attrs", "prev", "span")
 
-    def __init__(self, index, name):
-        self.index, self.name = index, name
+    def __init__(self, index, name, attrs):
+        self.index, self.name, self.attrs = index, name, attrs
 
     def __enter__(self):
         global ON, _chunk, _profiled
@@ -272,7 +279,7 @@ class _Chunk:
                 reset()
             _profiled = ON = profiled
         _chunk = self.index
-        self.span = begin(self.name) if ON else None
+        self.span = begin(self.name, self.attrs) if ON else None
 
     def __exit__(self, *exc):
         global ON, _chunk
@@ -281,12 +288,13 @@ class _Chunk:
         return False
 
 
-def chunk(index, name="hmc.chunk"):
+def chunk(index, name="hmc.chunk", **attrs):
     """The context of one sampler chunk ``index``: it reads once whether
     a profiler session is active (tracing follows it unless
     :func:`enable` said otherwise), gives the spans inside it its index
-    and records span ``name`` around it."""
-    return _Chunk(index, name)
+    and records span ``name`` with ``attrs`` around it. The warmup opens
+    one around its chunks (``hmc.adapt``, index None)."""
+    return _Chunk(index, name, attrs or None)
 
 
 def _resolve_markers():
@@ -325,8 +333,8 @@ def spans():
 def counters():
     """The hand-written kernels' launch counts (``launch_counts()`` of
     ``ops._cuda``, a replayed graph's kernels included), the spans the
-    full buffer dropped, and the sampler's ``graph_captures``,
-    ``graph_replays`` and ``direct_iterations`` since :func:`reset`."""
+    full buffer dropped, and the sampler's counters (:func:`count`)
+    since :func:`reset`."""
     from .ops._cuda import launch_counts
 
     return {"launches": launch_counts(), "spans_dropped": _dropped,

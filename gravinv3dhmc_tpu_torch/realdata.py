@@ -26,10 +26,11 @@ the trajectory op (``refresh``, ``drift``, ``residual_f32``,
 op.
 
 ``python -m gravinv3dhmc_tpu_torch.realdata`` (on a machine with a GPU)
-builds the problem, runs the stage, printing its numbers, then runs one
-post-freeze chunk (the frozen dt and metric) under ``torch.profiler``.
-One JSON object per line; ``--out FILE`` also writes the profiler's table
-there.
+builds the problem, runs the stage's warmup
+(:meth:`~.inversion.hmc.HamiltonianMC.adapt`), printing the frozen
+kernel's numbers, then runs one frozen chunk from the warmed chains under
+``torch.profiler``. One JSON object per line; ``--out FILE`` also writes
+the profiler's table there.
 """
 from __future__ import annotations
 
@@ -138,17 +139,17 @@ def trajectory_op(module, dobs, device):
     return fused_traj
 
 
-def profile_frozen_chunk(chain, step_size, inv_mass):
-    """One chunk of ``chain`` at the frozen kernel (``step_size`` and the
-    adapted ``inv_mass``) under ``torch.profiler``, after a warm chunk:
-    :func:`~.profiling.profile_run`'s summary and profiler. The carry
-    is the frozen sampler's: without the warmup's Welford moments."""
-    run_chunk, carry = chain.prepare(nsamples=chain.chunk_size, ndraws=0)
-    carry = carry[:8]
-    frozen = functools.partial(run_chunk, dt=step_size, inv_mass=inv_mass,
-                               store_base=0)
-    return profile_run(frozen, carry, chain.seed,
-                       _device.resolve(chain.device))
+def profile_frozen_chunk(frozen, device):
+    """One frozen chunk of the warmed chains under ``torch.profiler``,
+    after a warm one, both as :meth:`~.inversion.hmc.HamiltonianMC.sample`
+    issues them after its freeze: ``frozen`` is
+    :meth:`~.inversion.hmc.HamiltonianMC.adapt`'s record (the frozen dt
+    and metric, the chains' carry without the warmup's Welford moments).
+    Returns :func:`~.profiling.profile_run`'s summary and profiler."""
+    run_chunk = functools.partial(frozen.run_chunk, dt=frozen.dt,
+                                  inv_mass=frozen.inv_mass, store_base=0)
+    return profile_run(run_chunk, frozen.carry, frozen.seed,
+                       _device.resolve(device), chunk_idx=frozen.n_chunks)
 
 
 def main(argv=None):
@@ -167,15 +168,18 @@ def main(argv=None):
                       "tess_backend": module.tess_backend,
                       "build_s": time.perf_counter() - t0}), flush=True)
     chain = slice_sampler(module, dobs, dev)
-    res = chain.sample(SLICE["nsamples"], 0)
-    print(json.dumps({k: res[k] for k in (
-        "fused_mode", "grad_evals_per_s", "accept_ratio", "step_size",
-        "adapted_mass", "ess_median", "ess_per_s_median", "elapsed_s",
-        "grad_evals", "attempted")}), flush=True)
-    step_size, inv_mass = res["step_size"], res["inv_mass"]
-    del res
-    torch.cuda.empty_cache()
-    summary, prof = profile_frozen_chunk(chain, step_size, inv_mass)
+    t0 = time.perf_counter()
+    frozen = chain.adapt(chain.chunk_size, 0)
+    torch.cuda.synchronize(dev)
+    adapt_s = time.perf_counter() - t0
+    print(json.dumps({
+        "fused_mode": chain._fused_mode, "step_size": frozen.dt,
+        "adapted_mass": frozen.inv_mass is not None,
+        "warmup_chunks": frozen.n_chunks, "adapt_s": adapt_s,
+        "adapt_grad_evals": frozen.grad_evals,
+        "adapt_grad_evals_per_s": frozen.grad_evals / adapt_s}),
+        flush=True)
+    summary, prof = profile_frozen_chunk(frozen, dev)
     print(json.dumps({"profile": summary}), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -211,3 +211,101 @@ def test_card_replays_equal_direct_issue(card, matvec, op, store):
 def test_card_new_dt_drops_the_graphs(card):
     _new_dt_drops_the_graphs(
         _chain(card, 64, torch.bfloat16, "iteration", "chain1"), "chain1")
+
+
+# ------------------------------------------------ the frozen kernel's chunks
+
+#: the realdata stand-in at a 3-degree step (16 stations, 299 tesseroids)
+RD_STEP, RD_CHUNK, RD_LRANGE = 3.0, 8, (5, 40)
+
+
+def _frozen(device):
+    """The stand-in's sampler (the f32 trajectory op) after its windowed
+    warmup: :meth:`HamiltonianMC.adapt`'s record, with a per-cell metric
+    and L in [5, 40]."""
+    from gravinv3dhmc_tpu_torch import realdata
+    module, dobs = realdata.build_problem(device, step=RD_STEP)
+    chain = realdata.slice_sampler(module, dobs, device, nchains=64,
+                                   chunk=RD_CHUNK, adapt_chunks=8,
+                                   Lrange=RD_LRANGE, seed=SEED)
+    frozen = chain.adapt(3 * RD_CHUNK, 0)
+    assert chain._fused_mode == "trajectory(float32)"
+    assert frozen.inv_mass is not None and frozen.inv_mass.ndim == 1
+    return frozen
+
+
+def _frozen_chunks_replay_as_issued(device):
+    """Four frozen chunks from the warmed carry, chunks 1-3 replayed,
+    equal the same chunks issued directly (fresh buffers every chunk), bit
+    for bit."""
+    fz = _frozen(device)
+    start = [t.clone() for t in fz.carry]
+    out = {}
+    for fresh in (False, True):
+        carry = tuple(t.clone() for t in start)
+        profiling.reset()
+        rows = []
+        for k in range(4):
+            if fresh:
+                carry = carry[:6] + (carry[6].clone(), carry[7].clone())
+            carry, stats = fz.run(carry, fz.n_chunks + k,
+                                  store_base=k * RD_CHUNK)
+            rows.append(([t.clone() for t in carry], stats.clone()))
+        out[fresh] = rows, profiling.counters()
+    (replayed, counts), (direct, direct_counts) = out[False], out[True]
+    for k in range(4):
+        (ca, sa), (cb, sb) = replayed[k], direct[k]
+        for name, a, b in zip(("x", "U", "g", "ud", "um", "nacc", "buf_m",
+                               "buf_k"), ca, cb):
+            assert torch.equal(a, b), (k, name)
+        assert torch.equal(sa, sb), (k, "stats")
+    assert counts["direct_iterations"] == RD_CHUNK
+    assert counts["graph_replays"] == 3 * RD_CHUNK
+    assert direct_counts["graph_replays"] == 0
+    assert int(replayed[-1][1][..., 4].max()) > 20  # long trajectories ran
+
+
+def _numpy_metric_replays(device):
+    """The frozen metric passed as the same NumPy array every chunk: the
+    chunks after the first replay, and a chunk whose graphs are all
+    captured captures nothing more."""
+    fz = _frozen(device)
+    metric = fz.inv_mass.cpu().numpy()
+    carry = fz.carry
+    profiling.reset()
+    seen = [profiling.counters()]
+    for k in (0, 1, 1):
+        carry, _ = fz.run_chunk(carry, fz.seed, fz.n_chunks + k, dt=fz.dt,
+                                inv_mass=metric, store_base=0)
+        seen.append(profiling.counters())
+
+    def per_chunk(name):
+        return [b[name] - a[name] for a, b in zip(seen, seen[1:])]
+
+    assert per_chunk("direct_iterations") == [RD_CHUNK, 0, 0]
+    assert per_chunk("graph_replays") == [0, RD_CHUNK, RD_CHUNK]
+    captures = per_chunk("graph_captures")
+    assert captures[1] >= 1 and captures[2] == 0
+
+
+def test_frozen_chunks_replay_as_issued(monkeypatch):
+    monkeypatch.setattr(thmc, "IterationGraphs", EagerGraphs)
+    _frozen_chunks_replay_as_issued(torch.device("cpu"))
+
+
+def test_a_numpy_metric_replays(monkeypatch):
+    monkeypatch.setattr(thmc, "IterationGraphs", EagerGraphs)
+    _numpy_metric_replays(torch.device("cpu"))
+
+
+@pytest.mark.chip
+def test_card_frozen_chunks_replay_as_issued(card):
+    """On the card: the f32 trajectory op's frozen chunks with a per-cell
+    metric and L in [5, 40] on CUDA graphs equal the same chunks issued
+    launch by launch, bit for bit."""
+    _frozen_chunks_replay_as_issued(card)
+
+
+@pytest.mark.chip
+def test_card_numpy_metric_replays(card):
+    _numpy_metric_replays(card)

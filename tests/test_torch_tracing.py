@@ -239,3 +239,63 @@ def test_device_intervals_leave_out_user_annotations():
     ("Memcpy DtoD (Device -> Device)", False)])
 def test_the_ports_kernels_by_name(name, ours):
     assert profiling.is_port_kernel(name) is ours
+
+
+def _warmup_chain():
+    """The realdata stand-in's sampler at a 3-degree step (299 cells), 8
+    chains, chunks of 4, a windowed warmup of 8 chunks."""
+    from gravinv3dhmc_tpu_torch import realdata
+    module, dobs = realdata.build_problem("cpu", step=3.0)
+    return realdata.slice_sampler(module, dobs, "cpu", nchains=8, chunk=4,
+                                  adapt_chunks=8, Lrange=(3, 6))
+
+
+def _warmup_counts(chain, frozen):
+    from gravinv3dhmc_tpu_torch.inversion.hmc import warmup_schedule
+    W, _, switches = warmup_schedule(chain.adapt_chunks,
+                                     chain.adapt_step_size, chain.adapt_mass)
+    assert frozen.n_chunks == W
+    return {"adapt_chunks": W, "metric_switches": len(switches),
+            "adapt_grad_evals": frozen.grad_evals}
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_the_warmup_has_its_spans_and_counters(on):
+    """``hmc.adapt`` (carrying its chunks) around the warmup's chunks and
+    ``hmc.freeze`` inside it, once each; the counters equal the schedule's
+    chunks and switches and the warmup's gradient evaluations, counted
+    whether tracing is on or off; off, no span is recorded."""
+    chain = _warmup_chain()
+    profiling.enable(on)
+    frozen = chain.adapt(4, 0)
+    spans = profiling.spans()
+    counts = profiling.counters()
+    want = _warmup_counts(chain, frozen)
+    assert {k: counts[k] for k in want} == want
+    assert frozen.grad_evals > 0
+    if not on:
+        assert spans == []
+        return
+    names = [s.name for s in spans]
+    assert names.count("hmc.adapt") == names.count("hmc.freeze") == 1
+    adapt = names.index("hmc.adapt")
+    assert spans[adapt].attrs == {"chunks": want["adapt_chunks"]}
+    assert spans[adapt].parent == -1
+    assert spans[names.index("hmc.freeze")].parent == adapt
+    chunks = [s for s in spans if s.name == "hmc.chunk"]
+    assert len(chunks) == want["adapt_chunks"]
+    assert all(s.parent == adapt for s in chunks)
+    assert all(s.end_ns is not None for s in spans)
+    assert sum(s.name == "hmc.iteration" for s in spans) == \
+        want["adapt_chunks"] * 4
+
+
+def test_the_profiler_records_the_warmup():
+    """Under a ``torch.profiler`` session the warmup's spans follow it, as
+    a chunk's do, and end with it."""
+    chain = _warmup_chain()
+    with _cpu_profile():
+        chain.adapt(4, 0)
+    names = [s.name for s in profiling.spans()]
+    assert names.count("hmc.adapt") == names.count("hmc.freeze") == 1
+    assert not profiling.ON
