@@ -14,8 +14,8 @@ Phases, one line each (the script stops at the first failure, non-zero):
              (``cuobjdump -sass``) of each tensor-core kernel
              (``residual_partial_tc_kernel``, ``kick_tc_kernel`` and the
              f32-matrix ``residual_partial_split_kernel``,
-             ``kick_split_kernel``); 0 in any fails. From the same SASS
-             (``gravinv3dhmc_tpu_torch/sass.py``), the issued
+             ``kick_split_persistent_kernel``); 0 in any fails. From the
+             same SASS (``gravinv3dhmc_tpu_torch/sass.py``), the issued
              instructions by pipe of four momentum normals and of one
              accept uniform (``momentum4`` and ``accept_uniform``, each
              alone in a one-thread kernel) and of one node value of the
@@ -71,8 +71,10 @@ Phases, one line each (the script stops at the first failure, non-zero):
              three pieces of each operand on the tensor cores) at
              realdata's 256 x 640 x 10,496 (a synthetic f32 matrix whose
              column scales span four decades, ``f32_gemm_check.py``), at a
-             ragged 200 chains there and at uniformgrid's 1024 x 640 x
-             6016 (its own matrix): two launches bit for bit equal; the
+             ragged 200 chains there, at uniformgrid's 1024 x 640 x
+             6016 (its own matrix) and at the realdata-fused cell's 1024 x
+             640 x 10,752 (a synthetic 576 x 10,676 matrix): two launches
+             bit for bit equal; the
              kernel and the plain version (one IEEE-f32 matmul, TF32 off)
              against the float64 product of the same f32 operands, the
              kernel's error over max|product| at most ``F32_ERR_RATIO``
@@ -1154,7 +1156,8 @@ def f32_gemm_ops(torch, tlf, module, dobs, dev):
     """The f32 ops whose padded matrices the f32 GEMMs are checked on:
     (label -> (op, chains)) at realdata's width (a synthetic 625 x 10,427
     matrix, ``f32_gemm_check.synthetic_problem``), at a ragged 200 chains
-    there, and at uniformgrid's (its own 600 x 6000 matrix)."""
+    there, at uniformgrid's (its own 600 x 6000 matrix) and at the
+    realdata-fused cell's (1024 chains, a synthetic 576 x 10,676)."""
     from gravinv3dhmc_tpu_torch import f32_gemm_check as ft
 
     C, D, M = ft.SHAPES["realdata"]
@@ -1162,8 +1165,11 @@ def f32_gemm_ops(torch, tlf, module, dobs, dev):
               device=dev)
     rd = tlf.make_fused_trajectory(*ft.synthetic_problem(D, M), **kw)
     ug = tlf.make_fused_trajectory(*fused_args(module, dobs), **kw)
+    Cf, Df, Mf = ft.SHAPES["realdata-fused"]
+    rdf = tlf.make_fused_trajectory(*ft.synthetic_problem(Df, Mf), **kw)
     return {"realdata": (rd, C), "realdata, ragged": (rd, RAGGED_CHAINS),
-            "uniformgrid": (ug, ft.SHAPES["uniformgrid"][0])}
+            "uniformgrid": (ug, ft.SHAPES["uniformgrid"][0]),
+            "realdata-fused": (rdf, Cf)}
 
 
 def phase_f32_gemms(torch, tlf, ops, smi):
@@ -3461,7 +3467,8 @@ def main():
     from gravinv3dhmc_tpu_torch.ops import leapfrog as tlf
 
     tc_kernels = ("residual_partial_tc_kernel", "kick_tc_kernel",
-                  "residual_partial_split_kernel", "kick_split_kernel")
+                  "residual_partial_split_kernel",
+                  "kick_split_persistent_kernel")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -67,11 +67,11 @@
 // f32 matrix (realdata's trajectory precision: an f32 product of f32
 // operands) the same mainloop computes each product from three bf16
 // pieces of each operand, six bf16 products per k step
-// (residual_partial_split_kernel, kick_split_kernel; see "The f32-matrix
-// GEMMs" below). The dtype alone picks the kernel; there is no fallback
-// between the two. A persistent L-loop that keeps chain tiles on chip is
-// later work; the sampler replays whole iterations of these launches as
-// CUDA graphs (inversion/hmc.py).
+// (residual_partial_split_kernel, kick_split_persistent_kernel; see "The
+// f32-matrix GEMMs" below). The dtype alone picks the kernel; there is no
+// fallback between the two. A persistent L-loop that keeps chain tiles on
+// chip is later work; the sampler replays whole iterations of these
+// launches as CUDA graphs (inversion/hmc.py).
 //
 // Random numbers: Philox4x32-10 keyed by a salt from the run seed, with
 // counter (element group, chain, global iteration, stream); the plain
@@ -116,14 +116,15 @@ constexpr int KICK_STAGES = 3;
 // the f32-matrix GEMMs (six bf16 products a k step): the K depth of a
 // stage, stages the tensor cores sum per IEEE add, whether the two
 // consumer warpgroups take turns, and the consumer warpgroups and ring
-// stages of the residual and the kick (f32_gemm_tune.py sweeps them)
+// stages of the residual and the kick (f32_gemm_tune.py and, for the
+// kick, kick_tune.py --f32 sweep them)
 constexpr int SPLIT_BK = 32;        // K per stage: 32 bf16, 64-byte rows
 constexpr int SPLIT_PROMOTE = 1;
 constexpr int SPLIT_PINGPONG = 1;   // the consumers take turns to issue
 constexpr int SPLIT_RES_CONSUMERS = 2;
 constexpr int SPLIT_RES_STAGES = 5;
-constexpr int SPLIT_KICK_CONSUMERS = 2;
-constexpr int SPLIT_KICK_STAGES = 5;
+constexpr int SPLIT_KICK_CONSUMERS = 1;
+constexpr int SPLIT_KICK_STAGES = 2;
 // the matrix operand of the GEMM entries (a_mode): a bf16 matrix, or the
 // three bf16 pieces of an f32 matrix, (3, Dp, Mp) (split_f32 in
 // ops/leapfrog.py)
@@ -504,7 +505,8 @@ struct TcRing {
 using ResidualRing = TcRing<2, 4>;
 using KickRing = TcRing<KICK_CONSUMERS, KICK_STAGES>;
 // the f32-matrix GEMMs: three 8 KB B tiles a 32-deep stage (40 KB with
-// 128 chains' x), five stages
+// 128 chains' x), five stages; the kick: one warpgroup of 64 chains (32
+// KB a stage), two stages beside its epilogue tile, two blocks an SM
 using SplitResidualRing =
     TcRing<SPLIT_RES_CONSUMERS, SPLIT_RES_STAGES, 3, SPLIT_BK>;
 using SplitKickRing =
@@ -521,11 +523,30 @@ constexpr int KICK_TILE_LD = TC_BN + 8;
 static_assert(KickRing::BM * KICK_TILE_LD * 4 <=
                   KickRing::STAGES * KickRing::STAGE_BYTES,
               "the kick's epilogue tile must fit in its ring");
-static_assert(SplitKickRing::BM * KICK_TILE_LD * 4 <=
-                  SplitKickRing::STAGES * SplitKickRing::STAGE_BYTES,
-              "the split kick's epilogue tile must fit in its ring");
-static_assert(SplitResidualRing::SMEM <= 232448 &&
-                  SplitKickRing::SMEM <= 232448,
+// The persistent f32 kick's block: its consumer warpgroup(s) and a
+// producer warpgroup, whose first warp issues the loads and whose three
+// others apply the epilogue. The producer warpgroup gives up registers to
+// the consumers (setmaxnreg): at launch every thread holds LAUNCH_REGS (the
+// SM's 64K over THREADS times the blocks an SM, ptxas's count), and the
+// block's total is then shared out again. Its shared memory: the ring,
+// then the epilogue tile of the last tile's accumulators, padded as the
+// bf16 kick's.
+template <class R>
+struct PersistentKick {
+  static constexpr int THREADS = 128 * R::CONSUMERS + 128;
+  static constexpr int EPILOGUE_WARPS = 3;
+  static constexpr int LAUNCH_REGS =
+      65536 / (THREADS * min_blocks<R>()) / 8 * 8;
+  static constexpr int PRODUCER_REGS = 88;
+  static constexpr int CONSUMER_REGS =
+      ((R::CONSUMERS + 1) * LAUNCH_REGS - PRODUCER_REGS) / R::CONSUMERS / 8 *
+      8;
+  static constexpr int TILE_BYTES = R::BM * KICK_TILE_LD * 4;
+  static constexpr int SMEM = R::SMEM + TILE_BYTES;
+  static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes up to 256");
+};
+using SplitKick = PersistentKick<SplitKickRing>;
+static_assert(SplitResidualRing::SMEM <= 232448 && SplitKick::SMEM <= 232448,
               "a ring must fit in a block's shared memory");
 
 // the ring: dynamic shared memory aligned to the swizzle's 1024-byte
@@ -592,65 +613,96 @@ __device__ __forceinline__ int tc_row0() {
 // (PERF.md).
 //
 // Their stages are 32 deep (three 8 KB B tiles and 16 KB of x, under the
-// 64-byte swizzle for the K-major B), five in the ring, which halves the
-// registers the x pieces take and keeps more loads in flight; and the two
-// consumer warpgroups take turns to issue (named barriers 2 and 3), so
-// one converts its next fragments while the other's products run. The
-// stage depth, ring and interval were chosen by f32_gemm_tune.py's sweep
-// (PERF.md).
-template <class R, bool B_MN, int PROMOTE>
-__device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
-                                            const CUtensorMap* b_map,
-                                            int piece_rows, int first, int n,
-                                            int c0, int n0,
-                                            float (&acc)[64]) {
-  constexpr int STAGES = R::STAGES, PIECES = R::PIECES;
-  static_assert(PIECES == 1 || PIECES == 3, "a bf16 matrix or three pieces");
-  constexpr int PRODUCTS = PIECES == 1 ? 1 : 6;
-  __shared__ __align__(8) uint64_t full[STAGES];
-  __shared__ __align__(8) uint64_t empty[STAGES];
-  unsigned char* ring = tc_ring();
-  const uint32_t ring_u32 = smem_u32(ring);
+// 64-byte swizzle for the K-major B), five in the residual's ring, which
+// halves the registers the x pieces take and keeps more loads in flight;
+// and the residual's two consumer warpgroups take turns to issue (named
+// barriers 2 and 3), so one converts its next fragments while the
+// other's products run (the kick's two blocks an SM, one warpgroup each,
+// share the tensor cores instead). The stage depth, ring and interval
+// were chosen by f32_gemm_tune.py's sweep (PERF.md).
+//
+// tc_mainloop is built from three pieces: the ring's barriers
+// (tc_ring_init), the producer's loads of one tile's stages
+// (tc_load_stages) and the consumers' K loop over them
+// (tc_consume_stages). The persistent f32 kick runs the last two over
+// many tiles, the ring's slots counted on from one tile to the next.
 
-  constexpr bool PINGPONG =
-      SPLIT_PINGPONG && R::PIECES == 3 && R::CONSUMERS == 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The ring's barriers: stage s is full once its loads have landed, empty
+// once every consumer thread has released it
+template <class R>
+struct TcBars {
+  uint64_t full[R::STAGES];
+  uint64_t empty[R::STAGES];
+};
+template <class R>
+__device__ __forceinline__ TcBars<R>& tc_bars() {
+  __shared__ __align__(8) TcBars<R> bars;
+  return bars;
+}
+
+template <class R>
+__device__ __forceinline__ void tc_ring_init() {
+  TcBars<R>& bars = tc_bars<R>();
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], R::CONSUMERS * 128);
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&bars.full[s], 1);
+      mbar_init(&bars.empty[s], R::CONSUMERS * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+}
 
-  if (warp == R::CONSUMERS * 4) {  // the producer warp
-    if (lane == 0) {
-      for (int i = 0; i < n; ++i) {
-        const int s = i % STAGES;
-        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        const uint32_t dst = ring_u32 + s * R::STAGE_BYTES;
-        const int k = (first + i) * R::BK;
-        mbar_expect_tx(&full[s], R::STAGE_BYTES);
-        // piece q of B starts at row q * piece_rows of b_map
-        for (int q = 0; q < PIECES; ++q) {
-          const uint32_t bq = dst + q * R::B_TILE;
-          const int row = q * piece_rows;
-          if (B_MN) {
-            tma_load_2d(bq, b_map, &full[s], n0, row + k);
-            tma_load_2d(bq + R::MN_BOX_BYTES, b_map, &full[s],
-                        n0 + TC_MN_BOX, row + k);
-          } else {
-            tma_load_2d(bq, b_map, &full[s], k, row + n0);
-          }
-        }
-        for (int xb = 0; xb < R::BK / TC_X_BOX; ++xb)
-          tma_load_2d(dst + R::B_BYTES + xb * R::BM * 128, x_map, &full[s],
-                      k + xb * TC_X_BOX, c0);
+// The producer's loads (one thread) of one tile's K stages [first,
+// first + n) into the ring's slots it0 .. it0 + n - 1 (slot j is stage
+// j % STAGES in its (j / STAGES)-th use)
+template <class R, bool B_MN>
+__device__ __forceinline__ void tc_load_stages(const CUtensorMap* x_map,
+                                               const CUtensorMap* b_map,
+                                               int piece_rows, int first,
+                                               int n, int c0, int n0,
+                                               int it0) {
+  constexpr int STAGES = R::STAGES, PIECES = R::PIECES;
+  TcBars<R>& bars = tc_bars<R>();
+  const uint32_t ring_u32 = smem_u32(tc_ring());
+  for (int i = 0; i < n; ++i) {
+    const int j = it0 + i, s = j % STAGES;
+    mbar_wait(&bars.empty[s], ((j / STAGES) & 1) ^ 1);
+    const uint32_t dst = ring_u32 + s * R::STAGE_BYTES;
+    const int k = (first + i) * R::BK;
+    mbar_expect_tx(&bars.full[s], R::STAGE_BYTES);
+    // piece q of B starts at row q * piece_rows of b_map
+    for (int q = 0; q < PIECES; ++q) {
+      const uint32_t bq = dst + q * R::B_TILE;
+      const int row = q * piece_rows;
+      if (B_MN) {
+        tma_load_2d(bq, b_map, &bars.full[s], n0, row + k);
+        tma_load_2d(bq + R::MN_BOX_BYTES, b_map, &bars.full[s],
+                    n0 + TC_MN_BOX, row + k);
+      } else {
+        tma_load_2d(bq, b_map, &bars.full[s], k, row + n0);
       }
     }
-    return false;
+    for (int xb = 0; xb < R::BK / TC_X_BOX; ++xb)
+      tma_load_2d(dst + R::B_BYTES + xb * R::BM * 128, x_map, &bars.full[s],
+                  k + xb * TC_X_BOX, c0);
   }
+}
+
+// A consumer thread's part of one tile's K loop over the ring's slots
+// it0 .. it0 + n - 1 (tc_mainloop's design above)
+template <class R, bool B_MN, int PROMOTE>
+__device__ __forceinline__ void tc_consume_stages(int n, int it0,
+                                                  float (&acc)[64]) {
+  constexpr int STAGES = R::STAGES, PIECES = R::PIECES;
+  static_assert(PIECES == 1 || PIECES == 3, "a bf16 matrix or three pieces");
+  constexpr int PRODUCTS = PIECES == 1 ? 1 : 6;
+  constexpr bool PINGPONG =
+      SPLIT_PINGPONG && R::PIECES == 3 && R::CONSUMERS == 2;
+  TcBars<R>& bars = tc_bars<R>();
+  unsigned char* ring = tc_ring();
+  const uint32_t ring_u32 = smem_u32(ring);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // this thread's fragment rows g and g + 8 of its warp's 16; every row
   // is g modulo 8, which is the swizzle's XOR for that row
@@ -664,8 +716,8 @@ __device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = stage_acc[i] = 0.0f;
   for (int i = 0; i < n; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(&full[s], (i / STAGES) & 1);
+    const int j = it0 + i, s = j % STAGES;
+    mbar_wait(&bars.full[s], (j / STAGES) & 1);
     const unsigned char* xs = ring + s * R::STAGE_BYTES + R::B_BYTES;
     // a[q][kk]: piece q of the k step kk's fragment
     uint32_t a[PIECES][R::BK / 16][4];
@@ -715,12 +767,27 @@ __device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
       if (wg == 0 || i < n - 1) consumers_arrive(3 - wg);
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(stage_acc);
-    mbar_arrive(&empty[s]);
+    mbar_arrive(&bars.empty[s]);
     if (i % PROMOTE == PROMOTE - 1 || i == n - 1) {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) acc[j] += stage_acc[j];
+      for (int e = 0; e < 64; ++e) acc[e] += stage_acc[e];
     }
   }
+}
+
+template <class R, bool B_MN, int PROMOTE>
+__device__ __forceinline__ bool tc_mainloop(const CUtensorMap* x_map,
+                                            const CUtensorMap* b_map,
+                                            int piece_rows, int first, int n,
+                                            int c0, int n0,
+                                            float (&acc)[64]) {
+  tc_ring_init<R>();
+  if ((threadIdx.x >> 5) == R::CONSUMERS * 4) {  // the producer warp
+    if ((threadIdx.x & 31) == 0)
+      tc_load_stages<R, B_MN>(x_map, b_map, piece_rows, first, n, c0, n0, 0);
+    return false;
+  }
+  tc_consume_stages<R, B_MN, PROMOTE>(n, 0, acc);
   return true;
 }
 
@@ -904,9 +971,10 @@ __device__ __forceinline__ float kick_value(float p, float gdata, float x,
 // every column tile), and the whole call moves 84 MB (uniformgrid: x and
 // p read, p written, r and A) against 7.9 GFLOP: 25 us at 3.35 TB/s, 8 us
 // at the bf16 tensor rate. A block runs its mainloop and then its
-// epilogue, and with one block an SM nothing overlaps the two; a
-// persistent block that streams the next tile during the epilogue is
-// later work.
+// epilogue, and with one block an SM nothing overlaps the two. The f32
+// kick below runs each tile's epilogue under the next tile's mainloop;
+// this one, bound by bytes with a mainloop of 10 short stages, keeps the
+// block-per-tile shape (PERF.md).
 //
 // The epilogue goes through shared memory: the consumers write their
 // accumulators to a padded tile in the ring, idle once the mainloop is
@@ -917,7 +985,19 @@ __device__ __forceinline__ float kick_value(float p, float gdata, float x,
 // times what it takes with this one. Rows >= C are neither read nor
 // written.
 //
-// kick_split_kernel below is the same kick with an f32 matrix.
+// kick_split_persistent_kernel below is the same kick with an f32 matrix.
+
+// kick_value on a lane's four columns
+__device__ __forceinline__ float4 kick_value4(float4 pv, float4 gd, float4 xv,
+                                              float4 av, float4 gv,
+                                              float s_data, float s_mod,
+                                              float beta, int ms) {
+  return make_float4(
+      kick_value(pv.x, gd.x, xv.x, av.x, gv.x, s_data, s_mod, beta, ms),
+      kick_value(pv.y, gd.y, xv.y, av.y, gv.y, s_data, s_mod, beta, ms),
+      kick_value(pv.z, gd.z, xv.z, av.z, gv.z, s_data, s_mod, beta, ms),
+      kick_value(pv.w, gd.w, xv.w, av.w, gv.w, s_data, s_mod, beta, ms));
+}
 
 // p -= s_data acc + s_mod gm(x) for the consumers' R::BM x TC_BN tile of
 // accumulators, through the ring (see kick_tc_kernel)
@@ -954,11 +1034,8 @@ __device__ __forceinline__ void kick_epilogue(
     const float4 pv = *reinterpret_cast<const float4*>(p + off);
     const float4 gd =
         *reinterpret_cast<const float4*>(tile + row * KICK_TILE_LD + 4 * lane);
-    *reinterpret_cast<float4*>(p + off) = make_float4(
-        kick_value(pv.x, gd.x, xv.x, av.x, gv.x, s_data, s_mod, beta, ms),
-        kick_value(pv.y, gd.y, xv.y, av.y, gv.y, s_data, s_mod, beta, ms),
-        kick_value(pv.z, gd.z, xv.z, av.z, gv.z, s_data, s_mod, beta, ms),
-        kick_value(pv.w, gd.w, xv.w, av.w, gv.w, s_data, s_mod, beta, ms));
+    *reinterpret_cast<float4*>(p + off) =
+        kick_value4(pv, gd, xv, av, gv, s_data, s_mod, beta, ms);
   }
 }
 
@@ -994,25 +1071,170 @@ kick_tc_kernel(__grid_constant__ const CUtensorMap r_map,
 // product from A's three bf16 pieces read MN-major (a_map over the
 // (3 Dp, Mp) pieces; no transposed copy, which a 32-bit wgmma operand
 // would need: wgmma transposes only 16-bit ones) and r's, split in
-// registers, six bf16 products a k step (tc_mainloop); the epilogue is the
-// bf16 kick's. Replaces the SIMT f32 kick (64 x 64 tiles, fmaf).
+// registers, six bf16 products a k step (tc_consume_stages); each entry of
+// p is computed as the bf16 kick's epilogue computes it. Replaces the
+// SIMT f32 kick (64 x 64 tiles, fmaf).
 //
-// What bounds it: the tensor cores, 6 x 2 C Dp Mp FLOP at 989 TFLOP/s
-// (20.9 us at realdata's 256 x 640 x 10,496; its 60 MB of bytes take 17.9
-// us). Its 128 x 128 tiles cover all of K (no split), so at realdata's
-// 256 chains there are 164 blocks for 132 SMs.
-__global__ void __launch_bounds__(SplitKickRing::THREADS,
+// What bounds it: the tensor cores, 6 x 2 C Dp Mp FLOP at 989 TFLOP/s:
+// 47.8 us at uniformgrid's 1024 x 640 x 6016 and 85.5 us at realdata's
+// 1024 x 640 x 10,752, against 29.7 and 52.6 us for the bytes (x and p
+// read, p written, r and A's pieces read once).
+//
+// Design: persistent, two blocks an SM taking turns at the tensor cores.
+// min(tiles, resident blocks) blocks walk the 64 x 128 output tiles
+// (half the bf16 kick's: 64 chains, one consumer warpgroup) in the bf16
+// kick's raster, chain tiles fastest, so the blocks that read one
+// 128-column slab of A's pieces run side by side; block b takes tiles b,
+// b + gridDim.x, ... (kick_plan in ops/leapfrog.py walks them the same
+// way). A block is its consumer warpgroup and a producer warpgroup
+// (PersistentKick). The producer's first warp loads tile after tile into
+// the ring (two 32 KB stages) and never waits for an epilogue. The
+// consumers run each tile's K loop, stash its accumulators in an
+// epilogue tile of its own after the ring, and go on to the next tile at
+// once; the producer warpgroup's other three warps apply the stashed tile
+// to p (KickEpilogue) under that next tile's mainloop and the other
+// block's. Two mbarriers hand the tile over: `tile_full` once every
+// consumer has stashed, `tile_empty` once the epilogue warps have read it
+// all. Every warp of the block shares the block's last tile's rows. The
+// half tiles also even out the last round: 1,344 at realdata's 1024
+// chains are 10.2 an SM, against 5.09 whole tiles. The K loop, its
+// products and their order and the promotion every stage are
+// tc_mainloop's, so p is bit for bit what a block a whole tile computes.
+// Where the time went before (one block a 128 x 128 tile, one block an
+// SM: each tile's 20-stage mainloop, then its epilogue, 192 KB of device
+// memory, with the tensor cores idle, then the ring's fill): 0.110 ms at
+// uniformgrid's 376 tiles (3 rounds of 132) and about 0.21 ms at
+// realdata's 672 (6 rounds), 43 % and 40 % of the bound. This one takes
+// 0.080 and 0.142 ms (60 % of both bounds); the same walk with both
+// warpgroups of one block an SM on one 128 x 128 tile (the cooperative
+// shape, a three-stage ring) took 0.096 and 0.187, though it reads A's
+// pieces from L2 half as often (H100, kick_tune.py --f32; PERF.md).
+
+// The epilogue of a stashed tile of R::BM chains: p -= s_data tile +
+// s_mod gm(x) on its rows first, first + stride, ..., a warp a row, four
+// rows' x and p loaded before any is written. Rows >= C are neither read
+// nor written.
+template <class R>
+struct KickEpilogue {
+  static constexpr int BATCH = 4;
+  const float* tile;
+  const float* x;
+  float* p;
+  const float* aprior;
+  const float* gm_scale;
+  int C, Mp;
+  float s_data, s_mod, beta;
+  int ms;
+
+  __device__ __forceinline__ void rows(int c0, int m0, int first,
+                                       int stride) const {
+    const int col = 4 * (threadIdx.x & 31), m = m0 + col;
+    const float4 av = *reinterpret_cast<const float4*>(aprior + m);
+    const float4 gv = *reinterpret_cast<const float4*>(gm_scale + m);
+    const int n = C - c0 < R::BM ? C - c0 : R::BM;
+    for (int r0 = first; r0 < n; r0 += BATCH * stride) {
+      float4 xs[BATCH], ps[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int row = r0 + u * stride;
+        if (row < n) {
+          const size_t off = (size_t)(c0 + row) * Mp + m;
+          xs[u] = *reinterpret_cast<const float4*>(x + off);
+          ps[u] = *reinterpret_cast<const float4*>(p + off);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int row = r0 + u * stride;
+        if (row < n) {
+          const float4 gd = *reinterpret_cast<const float4*>(
+              tile + row * KICK_TILE_LD + col);
+          *reinterpret_cast<float4*>(p + (size_t)(c0 + row) * Mp + m) =
+              kick_value4(ps[u], gd, xs[u], av, gv, s_data, s_mod, beta, ms);
+        }
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(SplitKick::THREADS,
                                   min_blocks<SplitKickRing>())
-kick_split_kernel(__grid_constant__ const CUtensorMap r_map,
-                  __grid_constant__ const CUtensorMap a_map,
-                  const float* __restrict__ x, float* __restrict__ p,
-                  const float* __restrict__ aprior,
-                  const float* __restrict__ gm_scale, int C, int Mp,
-                  int n_stages, float s_data, float s_mod, float beta,
-                  int ms) {
-  kick_tile<SplitKickRing, SPLIT_PROMOTE>(&r_map, &a_map, x, p, aprior,
-                                          gm_scale, C, Mp, n_stages, s_data,
-                                          s_mod, beta, ms);
+kick_split_persistent_kernel(__grid_constant__ const CUtensorMap r_map,
+                             __grid_constant__ const CUtensorMap a_map,
+                             const float* __restrict__ x,
+                             float* __restrict__ p,
+                             const float* __restrict__ aprior,
+                             const float* __restrict__ gm_scale, int C,
+                             int Mp, int n_stages, float s_data, float s_mod,
+                             float beta, int ms) {
+  using R = SplitKickRing;
+  constexpr int CONSUMER_WARPS = R::CONSUMERS * 4;
+  constexpr int ALL_WARPS = CONSUMER_WARPS + SplitKick::EPILOGUE_WARPS;
+  __shared__ __align__(8) uint64_t tile_full, tile_empty;
+  const int chain_tiles = (C + R::BM - 1) / R::BM;
+  const int tiles = chain_tiles * (Mp / TC_BN);
+  if (threadIdx.x == 0) {
+    mbar_init(&tile_full, CONSUMER_WARPS * 32);
+    mbar_init(&tile_empty, SplitKick::EPILOGUE_WARPS * 32);
+  }
+  tc_ring_init<R>();  // fences the inits and syncs the block
+  float* tile =
+      reinterpret_cast<float*>(tc_ring() + R::STAGES * R::STAGE_BYTES);
+  const KickEpilogue<R> epi{tile, x,     p,     aprior, gm_scale, C,
+                            Mp,   s_data, s_mod, beta,   ms};
+  const int warp = threadIdx.x >> 5;
+  // the block's last tile
+  const int last = blockIdx.x + (tiles - 1 - blockIdx.x) / gridDim.x *
+                                    gridDim.x;
+  const int last_c0 = last % chain_tiles * R::BM;
+  const int last_m0 = last / chain_tiles * TC_BN;
+  if (warp >= CONSUMER_WARPS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        SplitKick::PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS) {
+      if ((threadIdx.x & 31) == 0)
+        for (int t = blockIdx.x, it = 0; t < tiles;
+             t += gridDim.x, it += n_stages)
+          // the matrix's pieces (3 Dp rows) start every Dp = n_stages * BK
+          tc_load_stages<R, true>(&r_map, &a_map, n_stages * R::BK, 0,
+                                  n_stages, t % chain_tiles * R::BM,
+                                  t / chain_tiles * TC_BN, it);
+      return;
+    }
+    // the epilogue warps: every tile but the last
+    const int e = warp - CONSUMER_WARPS - 1;
+    int k = 0;
+    for (int t = blockIdx.x; t < last; t += gridDim.x, ++k) {
+      mbar_wait(&tile_full, k & 1);
+      epi.rows(t % chain_tiles * R::BM, t / chain_tiles * TC_BN, e,
+               SplitKick::EPILOGUE_WARPS);
+      mbar_arrive(&tile_empty);
+    }
+    mbar_wait(&tile_full, k & 1);
+    epi.rows(last_c0, last_m0, CONSUMER_WARPS + e, ALL_WARPS);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+      SplitKick::CONSUMER_REGS));
+  float acc[64];
+  int k = 0;
+  for (int t = blockIdx.x, it = 0; t < tiles;
+       t += gridDim.x, it += n_stages, ++k) {
+    tc_consume_stages<R, true, SPLIT_PROMOTE>(n_stages, it, acc);
+    // the epilogue warps are done with the tile before
+    if (k) mbar_wait(&tile_empty, (k - 1) & 1);
+    const int row0 = tc_row0(), col = 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j)
+        *reinterpret_cast<float2*>(tile + (row0 + 8 * v) * KICK_TILE_LD +
+                                   col + 8 * j) =
+            make_float2(acc[4 * j + 2 * v], acc[4 * j + 2 * v + 1]);
+    mbar_arrive(&tile_full);
+  }
+  mbar_wait(&tile_full, (k - 1) & 1);
+  epi.rows(last_c0, last_m0, warp, ALL_WARPS);
 }
 
 // g = (pk - p)/eps (may alias pk), p <- (pk + p)/2, ud, um, U per chain
@@ -1310,7 +1532,8 @@ cudaError_t tc_allow_smem() {
     err = cudaFuncSetAttribute(residual_partial_split_kernel, attr,
                                SplitResidualRing::SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kick_split_kernel, attr, SplitKickRing::SMEM);
+    err = cudaFuncSetAttribute(kick_split_persistent_kernel, attr,
+                               SplitKick::SMEM);
   if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = true;
   return err;
 }
@@ -1358,14 +1581,15 @@ cudaError_t launch_residual_tiles(K kernel, const float* x, const void* A,
   return cudaGetLastError();
 }
 
-// The kick on the tensor cores, as launch_residual_tiles; Mp a multiple
-// of 128, Dp of R::BK.
+// The kick on the tensor cores, as launch_residual_tiles, on `grid`
+// blocks of `threads` threads and `smem` bytes of shared memory; Mp a
+// multiple of 128, Dp of R::BK.
 template <class R, class K>
-cudaError_t launch_kick_tiles(K kernel, const float* r, const void* A,
-                              int pieces, const float* x, float* p,
-                              const float* aprior, const float* gm_scale,
-                              int C, int Dp, int Mp, float s_data,
-                              float s_mod, float beta, int ms,
+cudaError_t launch_kick_tiles(K kernel, dim3 grid, int threads, int smem,
+                              const float* r, const void* A, int pieces,
+                              const float* x, float* p, const float* aprior,
+                              const float* gm_scale, int C, int Dp, int Mp,
+                              float s_data, float s_mod, float beta, int ms,
                               cudaStream_t stream) {
   if (Mp % TC_BN || Dp % R::BK) return cudaErrorInvalidValue;
   CUtensorMap r_map, a_map;
@@ -1377,11 +1601,43 @@ cudaError_t launch_kick_tiles(K kernel, const float* r, const void* A,
   if (err != cudaSuccess) return err;
   err = tc_allow_smem();
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + R::BM - 1) / R::BM, Mp / TC_BN);
-  kernel<<<grid, R::THREADS, R::SMEM, stream>>>(r_map, a_map, x, p, aprior,
-                                                gm_scale, C, Mp, Dp / R::BK,
-                                                s_data, s_mod, beta, ms);
+  kernel<<<grid, threads, smem, stream>>>(r_map, a_map, x, p, aprior,
+                                          gm_scale, C, Mp, Dp / R::BK, s_data,
+                                          s_mod, beta, ms);
   return cudaGetLastError();
+}
+
+// the blocks of the persistent f32 kick the card holds at once: its
+// blocks an SM times the SMs, from the occupancy query once a device.
+// Refused unless the kernel holds PersistentKick::LAUNCH_REGS registers a
+// thread, the count its setmaxnreg split assumes (with fewer, the
+// consumers would wait for registers that never come).
+cudaError_t kick_split_resident(int* resident) {
+  constexpr int MAX_DEVICES = 64;
+  static int cached[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cached[dev]) {
+    *resident = cached[dev];
+    return cudaSuccess;
+  }
+  err = tc_allow_smem();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kick_split_persistent_kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs != SplitKick::LAUNCH_REGS)
+    return cudaErrorInvalidConfiguration;
+  int occ[5];
+  err = occupancy(kick_split_persistent_kernel, SplitKick::THREADS,
+                  SplitKick::SMEM, SplitKickRing::BM, TC_BN,
+                  SplitKickRing::BK, occ);
+  if (err != cudaSuccess) return err;
+  if (occ[0] * occ[1] < 1) return cudaErrorInvalidConfiguration;
+  *resident = occ[0] * occ[1];
+  if (dev < MAX_DEVICES) cached[dev] = *resident;
+  return cudaSuccess;
 }
 
 cudaError_t launch_residual_partial(const float* x, const void* A,
@@ -1469,7 +1725,8 @@ int lf_residual_occupancy(int a_mode, int* out) {
 }
 
 // The kick's launch, as lf_residual_occupancy: its blocks cover all of K,
-// so the caller only reports the tiling.
+// so the caller only reports the tiling (the f32 kick's persistent
+// blocks: min(tiles, resident blocks), as lf_kick launches them).
 int lf_kick_occupancy(int a_mode, int* out) {
   const cudaError_t err = tc_allow_smem();
   if (err != cudaSuccess) return (int)err;
@@ -1477,8 +1734,8 @@ int lf_kick_occupancy(int a_mode, int* out) {
     return (int)occupancy(kick_tc_kernel, KickRing::THREADS, KickRing::SMEM,
                           KickRing::BM, TC_BN, TC_BK, out);
   if (a_mode == A_F32_SPLIT)
-    return (int)occupancy(kick_split_kernel, SplitKickRing::THREADS,
-                          SplitKickRing::SMEM, SplitKickRing::BM, TC_BN,
+    return (int)occupancy(kick_split_persistent_kernel, SplitKick::THREADS,
+                          SplitKick::SMEM, SplitKickRing::BM, TC_BN,
                           SplitKickRing::BK, out);
   return (int)cudaErrorInvalidValue;
 }
@@ -1491,21 +1748,32 @@ int lf_step_misfit(const float* x, const float* aprior, const float* wmsq,
   return (int)cudaGetLastError();
 }
 
-// the kick on the tensor cores of a bf16 matrix A (a_mode A_BF16) or of
-// the three bf16 pieces of an f32 one (A_F32_SPLIT: A points at the
-// (3, Dp, Mp) pieces); Mp a multiple of 128, Dp of 64
+// the kick on the tensor cores of a bf16 matrix A (a_mode A_BF16: a block
+// a tile) or of the three bf16 pieces of an f32 one (A_F32_SPLIT: A points
+// at the (3, Dp, Mp) pieces; min(tiles, resident blocks) persistent
+// blocks); Mp a multiple of 128, Dp of 64
 int lf_kick(const float* r, const void* A, int a_mode, const float* x,
             float* p, const float* aprior, const float* gm_scale, int C,
             int Dp, int Mp, float s_data, float s_mod, float beta, int ms,
             cudaStream_t stream) {
   if (a_mode == A_BF16)
-    return (int)launch_kick_tiles<KickRing>(kick_tc_kernel, r, A, 1, x, p,
-                                            aprior, gm_scale, C, Dp, Mp,
-                                            s_data, s_mod, beta, ms, stream);
-  if (a_mode == A_F32_SPLIT)
+    return (int)launch_kick_tiles<KickRing>(
+        kick_tc_kernel, dim3((C + KickRing::BM - 1) / KickRing::BM,
+                             Mp / TC_BN),
+        KickRing::THREADS, KickRing::SMEM, r, A, 1, x, p, aprior, gm_scale, C,
+        Dp, Mp, s_data, s_mod, beta, ms, stream);
+  if (a_mode == A_F32_SPLIT) {
+    int resident = 0;
+    const cudaError_t err = kick_split_resident(&resident);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles =
+        (C + SplitKickRing::BM - 1) / SplitKickRing::BM * (Mp / TC_BN);
     return (int)launch_kick_tiles<SplitKickRing>(
-        kick_split_kernel, r, A, 3, x, p, aprior, gm_scale, C, Dp, Mp, s_data,
+        kick_split_persistent_kernel,
+        dim3(tiles < resident ? tiles : resident), SplitKick::THREADS,
+        SplitKick::SMEM, r, A, 3, x, p, aprior, gm_scale, C, Dp, Mp, s_data,
         s_mod, beta, ms, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,7 @@
 
 The f32 GEMM kernels (``residual_f32``, ``step_residual_f32`` and
 ``kick_f32``: six bf16 products of three pieces of each operand) are
-checked and timed on the operands made here, at the two shapes of
+checked and timed on the operands made here, at the shapes of
 :data:`SHAPES`: ``chip_smoke.py`` holds each kernel's error against the
 float64 product of the same f32 operands beside its plain version's, and
 ``f32_gemm_tune.py`` sweeps and times the kernels on them.
@@ -14,9 +14,11 @@ import torch
 
 #: (chains, observations, cells) before lane padding: realdata's
 #: trajectory stage (256 chains over 625 x 10,427 tesseroids; padded 640 x
-#: 10,496) and the uniformgrid problem in f32 (1024 chains, 600 x 6000;
-#: padded 640 x 6016)
-SHAPES = {"realdata": (256, 625, 10427), "uniformgrid": (1024, 600, 6000)}
+#: 10,496), the uniformgrid problem in f32 (1024 chains, 600 x 6000;
+#: padded 640 x 6016) and the benchmark's realdata-fused cell (1024 chains
+#: over 576 x 10,676 tesseroids; padded 640 x 10,752)
+SHAPES = {"realdata": (256, 625, 10427), "uniformgrid": (1024, 600, 6000),
+          "realdata-fused": (1024, 576, 10676)}
 GEMMS = ("residual_f32", "step_residual_f32", "kick_f32")
 
 

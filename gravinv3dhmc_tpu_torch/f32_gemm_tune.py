@@ -3,7 +3,7 @@
 ``python -m gravinv3dhmc_tpu_torch.f32_gemm_tune`` (on a machine with a
 GPU) takes the f32 GEMM kernels (``residual_f32``, ``step_residual_f32``
 and ``kick_f32``: six bf16 products of three pieces of each operand) at
-the two shapes of ``f32_gemm_check.SHAPES``, on an f32 matrix made from
+the shapes of ``f32_gemm_check.SHAPES``, on an f32 matrix made from
 a seed (``f32_gemm_check.synthetic_problem``) lane-padded and split as
 the fused ops keep it. For this package's ``csrc/leapfrog.cu`` and for
 each variant of :data:`VARIANTS` (one nvcc each, started together, into

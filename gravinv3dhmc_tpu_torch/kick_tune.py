@@ -1,4 +1,4 @@
-"""Time the bf16 tensor-core kick at each ring shape it could take.
+"""Time the tensor-core kicks at the shapes they could take.
 
 ``python -m gravinv3dhmc_tpu_torch.kick_tune`` (on a machine with a GPU)
 builds ``csrc/leapfrog.cu`` once for every (consumer warpgroups, ring
@@ -12,12 +12,27 @@ block's epilogue (the memory-bound part) can overlap the other's
 mainloop; two warpgroups (128 chains) halve the reads of A a chain. The
 blocks an SM holds come from the runtime's occupancy query. One JSON
 object per (shape, config) line, the card's name and power limit first.
+
+``--f32`` takes the f32 kick (``kick_f32``, the persistent
+``kick_split_persistent_kernel``) instead, at every shape of
+``f32_gemm_check.SHAPES`` and at :data:`RAGGED_CHAINS` chains of the
+realdata-fused cell's width, on that module's synthetic matrices with
+the whole kick (p, MS, both scales; :func:`f32_operands`). It builds this
+source, each of :data:`F32_VARIANTS` and, with ``--baseline FILE``,
+another ``leapfrog.cu`` (such as the parent commit's, whose f32 kick ran
+a block a tile), and holds every library's p bit for bit equal to the
+baseline's (to this source's without one); any difference exits 1. Then
+it times them in turns, :data:`ROUNDS` rounds of 20 launches behind a
+spin (``timing.device_ms``), and prints each one's median beside the
+six-product bound (12 C Dp Mp FLOP at 989 TFLOP/s) and the plan of this
+source's persistent blocks.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import re
+import statistics
 from pathlib import Path
 
 import torch
@@ -31,6 +46,17 @@ from .timing import device_ms
 CONFIGS = [(2, 2), (2, 3), (2, 4), (1, 2), (1, 3), (1, 4)]
 #: (chains, Dp, Mp) of the uniformgrid and ratiogrid slices
 SHAPES = {"uniformgrid": (1024, 640, 6016), "ratiogrid": (1024, 1024, 17152)}
+#: library name -> the constants of ``leapfrog.cu`` it sets, for the f32
+#: kick: "cooperative" puts both consumer warpgroups on one 128 x 128 tile,
+#: one block an SM (a three-stage ring beside its epilogue tile), against
+#: the source's two blocks an SM of one warpgroup and a 64 x 128 tile each
+F32_VARIANTS = {"cooperative": {"SPLIT_KICK_CONSUMERS": 2,
+                                "SPLIT_KICK_STAGES": 3}}
+#: the ragged chain count of ``--f32``
+RAGGED_CHAINS = 37
+ROUNDS = 5
+#: the bf16 tensor cores' peak (H100 SXM, dense), FLOP/s
+TENSOR_FLOPS = 989e12
 
 
 def variant_source(text, values):
@@ -102,13 +128,106 @@ def time_kernel(name, args, reps=20, warmup=3):
     return device_ms(lambda: kern(*args), reps, warmup)
 
 
+def f32_operands(op, C, seed=0):
+    """The f32 kick's arguments at C chains on ``op``'s lane-padded f32
+    matrix and its pieces, made from ``seed``: r and p of the slices'
+    scales, x inside the box, MS at the op's beta."""
+    pp = op._padded
+    A, pieces = pp["A"], pp["A_split"]
+    Dp, Mp = A.shape
+    gen = torch.Generator(device=A.device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=A.device)
+
+    return (0.1 * randn(C, Dp) * pp["dmask"], A, 0.3 + 0.05 * randn(C, Mp),
+            1e-3 * randn(C, Mp), pp["aprior"], pp["gm_scale"], 0.02, 0.01,
+            op.beta, True, pieces)
+
+
+def f32_cases(device="cuda"):
+    """label -> (f32 trajectory op, chains): each shape of
+    ``f32_gemm_check.SHAPES`` and :data:`RAGGED_CHAINS` chains at the
+    realdata-fused cell's width."""
+    from .f32_gemm_check import SHAPES as F32_SHAPES, synthetic_problem
+
+    ops = {}
+    for label, (C, D, M) in F32_SHAPES.items():
+        ops[label] = (tlf.make_fused_trajectory(
+            *synthetic_problem(D, M), regularization="MS", beta=0.001,
+            matvec_dtype=torch.float32, device=device), C)
+    ops[f"realdata-fused, {RAGGED_CHAINS} chains"] = (
+        ops["realdata-fused"][0], RAGGED_CHAINS)
+    return ops
+
+
+def f32_main(baseline, smi, out):
+    """``--f32``: every library's kick bit for bit against the reference
+    library's, then their times in turns (the module's docstring)."""
+    names = {name: f"leapfrog_f32_{name}" for name in F32_VARIANTS}
+    _cuda.build_all(["leapfrog"])
+    _cuda._LIBRARIES["current"] = _cuda._LIBRARIES["leapfrog"]
+    build_variants({lib: F32_VARIANTS[name] for name, lib in names.items()})
+    libs = ["current", *names.values()]
+    if baseline:
+        build_baseline(baseline)
+        libs.insert(0, "baseline")
+    ref = libs[0]
+    equal_all = True
+    for label, (op, C) in f32_cases().items():
+        outs, times = {}, {lib: [] for lib in libs}
+        for lib in libs:
+            use_library(lib)
+            a = f32_operands(op, C)
+            tlf.KERNELS["kick_f32"](*a)
+            torch.cuda.synchronize()
+            outs[lib] = a[3].view(torch.int32)
+        bench = f32_operands(op, C)
+        for _ in range(ROUNDS):
+            for lib in libs:
+                use_library(lib)
+                times[lib].append(time_kernel("kick_f32", bench))
+        use_library("current")
+        tlf._OCCUPANCY.clear()
+        tlf._PLANS.clear()
+        plan = tlf.kick_plan(C, op.Dp, op.Mp, tlf.A_F32_SPLIT)
+        bound_ms = 12 * C * op.Dp * op.Mp / TENSOR_FLOPS * 1e3
+        for lib in libs:
+            equal = torch.equal(outs[lib], outs[ref])
+            equal_all &= equal
+            ms = statistics.median(times[lib])
+            line = {"shape": label, "C_Dp_Mp": [C, op.Dp, op.Mp],
+                    "library": lib, "sets": F32_VARIANTS.get(
+                        lib.removeprefix("leapfrog_f32_"), {}),
+                    "bit_equal_to": ref, "bit_equal": equal,
+                    "ms_median": ms, "ms": times[lib],
+                    "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+                    "card": smi}
+            if lib == "current":
+                line["plan"] = {k: plan[k] for k in (
+                    "tiles", "blocks", "tiles_per_block", "blocks_per_sm")}
+            print(json.dumps(line), flush=True)
+            if out:
+                with open(out, "a") as f:
+                    f.write(json.dumps(line) + "\n")
+    return 0 if equal_all else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.parse_args(argv)
+    ap.add_argument("--f32", action="store_true", help="the f32 kick: "
+                    "this source and its variants in turns, bit for bit")
+    ap.add_argument("--baseline", help="with --f32, another leapfrog.cu "
+                    "whose f32 kick every library must equal bit for bit")
+    ap.add_argument("--out", help="with --f32, also append every line "
+                    "to this file")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kick_tune: CUDA is not available")
     smi = card()
     print(smi, flush=True)
+    if args.f32:
+        return f32_main(args.baseline, smi, args.out)
     names = {(c, s): f"leapfrog_kick_c{c}_s{s}" for c, s in CONFIGS}
     build_variants({name: {"KICK_CONSUMERS": c, "KICK_STAGES": s}
                     for (c, s), name in names.items()})

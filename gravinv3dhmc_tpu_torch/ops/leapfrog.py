@@ -374,12 +374,25 @@ def residual_plan(C, Dp, Mp, a_mode):
     return _PLANS[key]
 
 
+def kick_walk(tiles, blocks):
+    """The output tiles each of ``blocks`` persistent blocks takes, in
+    order, as the f32 kick's blocks walk them: block b takes tiles b,
+    b + blocks, b + 2 blocks, ... Tile t is chain tile t % (chain tiles)
+    of column tile t // (chain tiles), so the blocks that run side by side
+    share a slab of the matrix."""
+    return [list(range(b, tiles, blocks)) for b in range(blocks)]
+
+
 def kick_plan(C, Dp, Mp, a_mode=A_BF16):
     """How the tensor-core kick (csrc/leapfrog.cu) of the matrix mode
-    covers this shape: one block per tile of chains x 128 columns of the
-    (C x Mp) output, each over all Dp / 64 stages of K (:func:`split_plan`
-    with the roles of Dp and Mp swapped and one split), with the tile and
-    the resident blocks from the runtime's occupancy query."""
+    covers this shape: tiles of chains x 128 columns of the (C x Mp)
+    output, each over all Dp / 64 stages of K (:func:`split_plan` with the
+    roles of Dp and Mp swapped and one split), with the tile and the
+    resident blocks from the runtime's occupancy query. The bf16 kick
+    launches a block a tile; the f32 kick (``A_F32_SPLIT``) launches
+    min(tiles, resident blocks) persistent blocks that walk the tiles
+    (:func:`kick_walk`): ``tiles`` is the tile count, ``blocks`` the block
+    count and ``tiles_per_block`` the most tiles a block takes."""
     key = ("kick", C, Dp, Mp, a_mode)
     occ = "kick" if a_mode == A_BF16 else ("kick", a_mode)
     if key not in _PLANS:
@@ -389,9 +402,14 @@ def kick_plan(C, Dp, Mp, a_mode=A_BF16):
                                  ctypes.addressof(out))
             _OCCUPANCY[occ] = tuple(out)
         per_sm, sms, tile_m, tile_n, k_stage = _OCCUPANCY[occ]
-        _PLANS[key] = {**split_plan(C, Mp, Dp, tile_m, tile_n, k_stage,
-                                    per_sm * sms, max_splits=1),
-                       "blocks_per_sm": per_sm, "sms": sms}
+        plan = split_plan(C, Mp, Dp, tile_m, tile_n, k_stage, per_sm * sms,
+                          max_splits=1)
+        if a_mode == A_F32_SPLIT:
+            tiles = plan["blocks"]
+            blocks = min(tiles, max(per_sm * sms, 1))
+            plan.update(tiles=tiles, blocks=blocks, tiles_per_block=max(
+                len(w) for w in kick_walk(tiles, blocks)))
+        _PLANS[key] = {**plan, "blocks_per_sm": per_sm, "sms": sms}
     return _PLANS[key]
 
 

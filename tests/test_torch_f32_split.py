@@ -1,6 +1,6 @@
 """The arithmetic of the f32-matrix GEMMs, which run on the tensor cores
 from bf16 pieces (``csrc/leapfrog.cu``: ``residual_partial_split_kernel``,
-``kick_split_kernel``), checked on the CPU with no card.
+``kick_split_persistent_kernel``), checked on the CPU with no card.
 
 ``split_f32`` cuts an f32 matrix into three bf16 pieces a0 + a1 + a2,
 each rounded to nearest even (the rounding the kernels apply to x and r
@@ -11,7 +11,8 @@ float64 product than twice one IEEE-f32 ``torch.matmul`` (TF32 off), and
 the three-product bf16 scheme that drops x2 a0, x1 a1 and x0 a2 does not,
 so six products are needed. The split plan of the f32 residual
 at realdata's and uniformgrid's shapes cuts K into whole, non-empty
-slices; an op with an f32 matrix holds its pieces (the same from
+slices; the f32 kick's persistent blocks walk every output tile once;
+an op with an f32 matrix holds its pieces (the same from
 ``params_from_jax``) and launches the f32 GEMM wrappers, a bf16 one the
 bf16 wrappers; ``uniformgrid --matvec float32`` selects the f32 matrix.
 """
@@ -162,15 +163,65 @@ def test_f32_split_plan_at_the_slices(monkeypatch, shape, C, splits,
     assert (plan["splits"], plan["blocks"]) == (splits, blocks)
 
 
-@pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_f32_kick_plan_covers_the_output_in_one_pass(monkeypatch, shape):
-    C, Dp, Mp = SHAPES[shape]
+#: (Dp, Mp) of the f32 kick in the benchmark's cells (padded)
+KICK_SHAPES = {"uniformgrid-f32": (640, 6016), "realdata-fused": (640, 10752)}
+
+#: the f32 kick's block tile (one consumer warpgroup: 64 chains x 128
+#: columns) and K depth a stage
+KICK_TILE = (64, 128, 32)
+
+
+def _kick_plan(monkeypatch, C, Dp, Mp, per_sm=2):
+    """kick_plan with the runtime's occupancy answer for the f32 kick
+    given: ``per_sm`` blocks an SM, 132 SMs, its tile."""
     monkeypatch.setitem(tlf._OCCUPANCY, ("kick", tlf.A_F32_SPLIT),
-                        (1, SMS, *F32_TILE))
+                        (per_sm, SMS, *KICK_TILE))
     monkeypatch.setattr(tlf, "_PLANS", {})
-    plan = tlf.kick_plan(C, Dp, Mp, tlf.A_F32_SPLIT)
+    return tlf.kick_plan(C, Dp, Mp, tlf.A_F32_SPLIT)
+
+
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("C", [1024, 256, 200, 37])
+@pytest.mark.parametrize("shape", sorted(KICK_SHAPES))
+def test_f32_kick_plan_walks_every_tile_once(monkeypatch, shape, C, per_sm):
+    """The persistent f32 kick: min(tiles, resident blocks) blocks, each
+    over all of K, walk the output's 64 x 128 tiles as the kernel's loop
+    does (t = blockIdx.x; t < tiles; t += gridDim.x), every tile once."""
+    Dp, Mp = KICK_SHAPES[shape]
+    plan = _kick_plan(monkeypatch, C, Dp, Mp, per_sm)
+    assert plan["tile"] == list(KICK_TILE)
     assert plan["splits"] == 1 and plan["slices"] == [(0, Dp)]
-    assert plan["blocks"] == (Mp // 128) * -(-C // 128)
+    chain_tiles, col_tiles = -(-C // KICK_TILE[0]), Mp // KICK_TILE[1]
+    tiles = chain_tiles * col_tiles
+    assert plan["tiles"] == tiles
+    assert plan["blocks"] == min(tiles, SMS * per_sm)
+    walk = tlf.kick_walk(plan["tiles"], plan["blocks"])
+    assert len(walk) == plan["blocks"] and all(walk)
+    flat = [t for w in walk for t in w]
+    assert sorted(flat) == list(range(tiles))
+    assert {(t % chain_tiles, t // chain_tiles) for t in flat} == {
+        (c, m) for c in range(chain_tiles) for m in range(col_tiles)}
+    for b, w in enumerate(walk):
+        loop, t = [], b
+        while t < tiles:
+            loop.append(t)
+            t += plan["blocks"]
+        assert w == loop
+    assert plan["tiles_per_block"] == max(map(len, walk)) == -(
+        -tiles // plan["blocks"])
+
+
+@pytest.mark.parametrize("shape, C, tiles, blocks, per_block", [
+    ("uniformgrid-f32", 1024, 752, 264, 3),  # 16 x 47 tiles: 2.85 a block
+    ("realdata-fused", 1024, 1344, 264, 6),  # 16 x 84: 5.09 a block
+    ("realdata-fused", 256, 336, 264, 2),    # realdata.main's 256 chains
+    ("uniformgrid-f32", 37, 47, 47, 1),      # fewer tiles than blocks
+])
+def test_f32_kick_plan_at_the_cells(monkeypatch, shape, C, tiles, blocks,
+                                    per_block):
+    plan = _kick_plan(monkeypatch, C, *KICK_SHAPES[shape])
+    assert (plan["tiles"], plan["blocks"], plan["tiles_per_block"]) == (
+        tiles, blocks, per_block)
 
 
 @pytest.mark.parametrize("argv, dtype", [([], torch.bfloat16),
